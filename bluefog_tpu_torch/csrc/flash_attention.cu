@@ -32,76 +32,12 @@
 // Every launcher runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError() (or the error of the attribute call before it).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tile.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTile = 64;    // rows per block tile and per inner-loop tile
-constexpr int kWarps = 4;    // each warp owns 16 rows of the block tile
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;      // finite mask sentinel
 constexpr float kMaskThresh = -0.5e30f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A (16x16, row) * B (16x8, col), bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment: the 16x16 block of a row-major smem matrix at (r0, c0).
-template <int S>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* m, int r0,
-                                       int c0, int lane) {
-  const bf16* p = m + (r0 + (lane >> 2)) * S + c0 + (lane & 3) * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * S);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * S + 8);
-}
-
-// B fragment with B[k][n] = m[n0 + n][c0 + k]: the matrix's rows are B's
-// columns (q.K^T, dO.V^T and friends), so each register is one 32-bit load.
-template <int S>
-__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2], const bf16* m,
-                                            int n0, int c0, int lane) {
-  const bf16* p = m + (n0 + (lane >> 2)) * S + c0 + (lane & 3) * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment with B[k][n] = m[r0 + k][n0 + n] (p.V, dS.K, ...).
-template <int S>
-__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[2], const bf16* m,
-                                            int r0, int n0, int lane) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(m);
-  const int r = r0 + (lane & 3) * 2;
-  const int n = n0 + (lane >> 2);
-  b[0] = (uint32_t)u[r * S + n] | ((uint32_t)u[(r + 1) * S + n] << 16);
-  b[1] = (uint32_t)u[(r + 8) * S + n] | ((uint32_t)u[(r + 9) * S + n] << 16);
-}
-
-// The C fragments of n-tiles 2kk and 2kk+1 (16 rows x 16 cols of f32),
-// rounded to bf16 and laid out as the A fragment of the next product.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
 
 // Copy rows [row0, row0 + 64) of a [T, D] matrix into smem (row stride S),
 // zero-filling rows at or past `rows`.  16-byte chunks.
@@ -116,16 +52,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
     *reinterpret_cast<uint4*>(dst + r * S + c * 8) = val;
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // s[nt] (16 rows x 64 cols of this warp) = A rows [r0, r0+16) of `a_m`
@@ -445,10 +371,19 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 template <int D>
+constexpr size_t fwd_smem() { return 3 * kTile * (D + 8) * sizeof(bf16); }
+template <int D>
+constexpr size_t dkv_smem() {
+  return 4 * kTile * (D + 8) * sizeof(bf16) + 2 * kTile * sizeof(float);
+}
+template <int D>
+constexpr size_t dq_smem() { return 4 * kTile * (D + 8) * sizeof(bf16); }
+
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int bh, int tq, int tk, int q_start, int k_start, float scale,
                int causal, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
+  const size_t smem = fwd_smem<D>();
   int err = prepare(fwd_kernel<D>, smem);
   if (err) return err;
   dim3 grid((tq + kTile - 1) / kTile, bh);
@@ -463,7 +398,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* corr, void* dk, void* dv, int bh,
                int tq, int tk, int q_start, int k_start, float scale,
                int causal, cudaStream_t stream) {
-  const size_t smem = 4 * kTile * (D + 8) * sizeof(bf16) + 2 * kTile * sizeof(float);
+  const size_t smem = dkv_smem<D>();
   int err = prepare(dkv_kernel<D>, smem);
   if (err) return err;
   dim3 grid((tk + kTile - 1) / kTile, bh);
@@ -479,7 +414,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* corr, void* dq, int bh, int tq,
               int tk, int q_start, int k_start, float scale, int causal,
               cudaStream_t stream) {
-  const size_t smem = 4 * kTile * (D + 8) * sizeof(bf16);
+  const size_t smem = dq_smem<D>();
   int err = prepare(dq_kernel<D>, smem);
   if (err) return err;
   dim3 grid((tq + kTile - 1) / kTile, bh);
@@ -491,6 +426,29 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 constexpr int kBadHeadDim = -1;
+
+// out[0] = resident blocks per SM, out[1] = dynamic shared memory bytes,
+// out[2] = registers per thread, of one kernel as its launcher launches it.
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int* out) {
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  out[1] = (int)smem;
+  out[2] = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                            kThreads, smem);
+}
+
+template <int D>
+int flash_occupancy(int which, int* out) {
+  if (which == 0) return occupancy(fwd_kernel<D>, fwd_smem<D>(), out);
+  if (which == 1) return occupancy(dkv_kernel<D>, dkv_smem<D>(), out);
+  if (which == 2) return occupancy(dq_kernel<D>, dq_smem<D>(), out);
+  return kBadHeadDim;
+}
 
 }  // namespace
 
@@ -533,6 +491,13 @@ int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start,
                           k_start, scale, causal, s);
+  return kBadHeadDim;
+}
+
+// which: 0 forward, 1 dK/dV, 2 dQ; out as occupancy() above.
+int bf_flash_occupancy(int which, int d, int* out) {
+  if (d == 64) return flash_occupancy<64>(which, out);
+  if (d == 128) return flash_occupancy<128>(which, out);
   return kBadHeadDim;
 }
 

@@ -3,20 +3,25 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries are cached under
-``bluefog_tpu_torch/_build/``, named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads at once.  Nothing
-here runs at import: the first call that needs a kernel builds it.
+``bluefog_tpu_torch/_build/``, named by a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once; :func:`build_all` runs one
+``nvcc`` per source side by side.  Nothing here runs at import: the first
+call that needs a kernel builds it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+import time
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -43,9 +48,12 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` if its cached library is missing; return
     the library's path."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it, which it may include
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -57,6 +65,18 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed on {src}:\n{build_logs[name]}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Build every ``csrc/<name>.cu`` at once, one ``nvcc`` each; returns
+    each build's seconds (about 0 for a cached library)."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -50,6 +50,7 @@ __all__ = [
     "flash_dq_plain",
     "launches",
     "reset_launches",
+    "occupancy",
 ]
 
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
@@ -161,7 +162,9 @@ def _lib():
     lib.bf_flash_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _P]
     lib.bf_flash_bwd_dkv.argtypes = [_P] * 8 + [_I] * 6 + [_F, _I, _P]
     lib.bf_flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 6 + [_F, _I, _P]
-    for fn in (lib.bf_flash_fwd, lib.bf_flash_bwd_dkv, lib.bf_flash_bwd_dq):
+    lib.bf_flash_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    for fn in (lib.bf_flash_fwd, lib.bf_flash_bwd_dkv, lib.bf_flash_bwd_dq,
+               lib.bf_flash_occupancy):
         fn.restype = ctypes.c_int
     return lib
 
@@ -173,7 +176,7 @@ def _on_cuda(*tensors) -> bool:
         return True
     if types == {"cpu"}:
         return False
-    raise ValueError(f"flash attention: tensors on devices {sorted(types)}")
+    raise ValueError(f"kernel inputs on devices {sorted(types)}")
 
 
 def _check(name, q, k, v, extra=(), f32=()):
@@ -266,6 +269,21 @@ def flash_dq(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0, *,
     _raise_on("flash_dq", err)
     launches["dq"] += 1
     return dq
+
+
+_KERNEL_IDS = {"fwd": 0, "dkv": 1, "dq": 2}
+
+
+def occupancy(kernel: str, d: int) -> Dict[str, int]:
+    """How the card holds one flash kernel (``"fwd"``, ``"dkv"`` or
+    ``"dq"``) at head dim ``d``, as its launcher launches it:
+    ``blocks_per_sm`` (resident blocks per SM), ``smem`` (dynamic shared
+    memory bytes per block) and ``regs`` (registers per thread).  Needs the
+    card."""
+    out = (_I * 3)()
+    err = _lib().bf_flash_occupancy(_KERNEL_IDS[kernel], int(d), out)
+    _raise_on(f"occupancy({kernel}, {d})", err)
+    return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2]}
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,8 @@
 Phases, each printing one JSON line:
 
 1. device   -- nvidia-smi name and power limit, torch/CUDA versions, and the
-               nvcc build of csrc/flash_attention.cu (seconds, ptxas report).
+               nvcc builds of csrc/flash_attention.cu and
+               csrc/attention_components.cu, side by side (seconds, ptxas).
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV, dQ) against its plain
                PyTorch version on the same bf16 inputs, over seven cases
                (the main path's shape, two ring hops with q_start > k_start,
@@ -19,6 +20,14 @@ Phases, each printing one JSON line:
                (12 layers, hidden 768), 4 virtual ranks, per-rank batch
                2 x 2048, AdamW under ATC gossip on ExponentialTwoGraph(4),
                3 steps; the launch counts must be 12 x 4 x 3 per kernel.
+5. components -- each roofline microkernel instance (qk and pv at D 64 and
+               128, the softmax chain, the backward chain with and without
+               cast_p) against its plain version at reps 1 and 2, with its
+               body and with the dependency pass alone, on 3 blocks.
+6. roofline -- the second path: the counted roofline of the flash kernels
+               (bluefog_tpu_torch.benchmarks.attention_roofline) at the main
+               path's shape [24, 2048, 64], forward and backward; every
+               microkernel must launch in it.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -30,7 +39,6 @@ import json
 import math
 import subprocess
 import sys
-import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -104,18 +112,19 @@ def visible_pairs(tq, tk, q_start, k_start, causal):
     return total
 
 
-def phase_device(torch, _build, fa):
+def phase_device(torch, _build, fa, ac):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    t0 = time.perf_counter()
+    sources = ["flash_attention", "attention_components"]
+    build_s = _build.build_all(sources)
     fa._lib()
-    build_s = time.perf_counter() - t0
-    log = _build.build_logs.get("flash_attention", "")
+    ac._lib()
+    ptxas = {name: [l.strip() for l in _build.build_logs.get(name, "").splitlines()
+                    if "registers" in l or "spill" in l] for name in sources}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu": torch.cuda.get_device_name(0),
-          "build_s": build_s,
-          "ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]})
+          "build_s": build_s, "ptxas": ptxas})
     return smi
 
 
@@ -326,29 +335,132 @@ def phase_main(torch, fa):
     return counts
 
 
+COMPONENT_BLOCKS = 3
+
+
+def phase_components(torch, ac, roof):
+    """Each microkernel instance against its plain version on the card, on
+    the same inputs, at reps 1 (the body) and 2 (the fed-back row), with
+    the body and with the dependency pass alone.  The rule is
+    attention_components.compare (stated there): every element within
+    1e-5 (|ref| + rms(ref)), beyond it only a one-step bf16 rounding flip,
+    bounded through the product.  Every block must hold the same tile.
+    Returns the worst absolute error per microkernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = {d: roof.component_inputs(d, seed=2) for d in (64, 128)}
+    worst = {name: 0.0 for name in ac.PLAIN}
+    failures = []
+    for name, d, kw in ac.INSTANCES:
+        args = inputs[d][name]
+        for body in (True, False):
+            for reps in (1, 2):
+                got = roof.WRAPPERS[name](*args, reps, body=body, blocks=COMPONENT_BLOCKS, **kw)
+                ref = ac.PLAIN[name](*args, reps, body=body, blocks=COMPONENT_BLOCKS, **kw)
+                torch.cuda.synchronize()
+                what = f"{name} d={d} {kw} body={body} reps={reps}"
+                check(torch.isfinite(got).all().item(), f"components: non-finite {what}")
+                check(bool((got == got[:1]).all().item()), f"components: blocks differ, {what}")
+                res = ac.compare(name, got, ref, args, reps, body=body, **kw)
+                if not res["ok"]:
+                    failures.append(f"{what}: {res}")
+                worst[name] = max(worst[name], res["max_abs_err"])
+                emit({"phase": "component_case", "kernel": name, "d": d, **kw, "body": body,
+                      "reps": reps, **res})
+    check(not failures, "components vs plain: " + "; ".join(failures))
+    return worst
+
+
+def phase_roofline(torch, fa, ac, roof):
+    """The counted roofline at the main path's shape, forward and backward,
+    with every launch count set to 0 just before and read just after."""
+    fa.reset_launches()
+    ac.reset_launches()
+    row = roof.roofline_row("path", roof.SHAPES["path"], bwd=True)
+    counts = {"components": dict(ac.launches), "flash": dict(fa.launches)}
+    check(not row.get("invalid"), f"roofline: {row}")
+    check(row["tiles"] == 12672, f"roofline: {row['tiles']} tiles, expected 24 x 528")
+    for kname in ("fwd", "dkv", "dq"):
+        for key in ("pred_overlap_ms", "pred_serial_ms", "measured_ms", "unexplained_pct"):
+            check(math.isfinite(row[f"{kname}_{key}"]), f"roofline: {kname}_{key} not finite")
+        for cname, c in row["components"][kname].items():
+            # a hoisted loop body would make later repetitions cheaper
+            check(0.5 <= c["linearity"] <= 2.0,
+                  f"roofline: {kname} {cname} time not linear in reps ({c['linearity']})")
+    for name, n in counts["components"].items():
+        check(n > 0, f"roofline: microkernel {name} was not launched")
+    emit({"phase": "roofline", **row, "launches": counts})
+    return row, counts["components"]
+
+
+LINE_REPS = 256
+LIBRARY_NONE = ("null: no PyTorch call computes reps dependent repetitions of the "
+                "component on one tile")
+
+
+def component_times(torch, ac, roof, row):
+    """Each microkernel's kernel-table entry at the roofline's configuration
+    for the forward (the dK/dV one for the backward chain): its blocks and
+    shared memory there, LINE_REPS repetitions, one launch; its plain
+    version on the same inputs and the same number of blocks."""
+    ops = roof.component_inputs(64)
+    timed = {}
+    for name, model, kw in (("qk", "fwd", {}), ("pv", "fwd", {}),
+                            ("softmax_chain", "fwd", {}), ("bwd_chain", "dkv", {"cast_p": True})):
+        blocks, smem = (row["components"][model][name][k] for k in ("blocks", "smem"))
+        args = ops[name]
+        ms = cuda_ms(lambda: roof.WRAPPERS[name](*args, LINE_REPS, blocks=blocks,
+                                                 smem_bytes=smem, **kw), iters=10)
+        plain_ms = cuda_ms(lambda: ac.PLAIN[name](*args, LINE_REPS, blocks=blocks, **kw),
+                           iters=2, warmup=1)
+        t_ops = roof.tile_bound_us(name, 64) * 1e-3 * blocks * LINE_REPS
+        in_bytes = sum(x.numel() * x.element_size() for x in args)
+        out_bytes = 4 * blocks * 64 * 64
+        t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "library_ms": None, "library_note": LIBRARY_NONE,
+                       "config": {"blocks": blocks, "reps": LINE_REPS, "smem": smem, **kw}}
+    emit({"phase": "component_times", **timed})
+    return timed
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from bluefog_tpu_torch.benchmarks import attention_roofline as roof
     from bluefog_tpu_torch.kernels import _build
+    from bluefog_tpu_torch.kernels import attention_components as ac
 
     # the package re-exports a function of the module's own name
     fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 
-    smi = phase_device(torch, _build, fa)
+    smi = phase_device(torch, _build, fa, ac)
     table = phase_kernels(torch, fa)
     phase_model(torch, fa)
     counts = phase_main(torch, fa)
+    comp_err = phase_components(torch, ac, roof)
+    row, comp_counts = phase_roofline(torch, fa, ac, roof)
+    comp_table = component_times(torch, ac, roof, row)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
-                "dq": "bluefog_tpu/kernels/flash_attention.py:575"}
+                "dq": "bluefog_tpu/kernels/flash_attention.py:575",
+                "qk": "benchmarks/attention_roofline.py:136",
+                "pv": "benchmarks/attention_roofline.py:150",
+                "softmax_chain": "benchmarks/attention_roofline.py:167",
+                "bwd_chain": "benchmarks/attention_roofline.py:221"}
     emit({"kernels": [
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k], "launches": counts[k], **table[k]}
-        for k in ("fwd", "dkv", "dq")]})
+        for k in ("fwd", "dkv", "dq")] + [
+        {"name": f"{k}_component", "route": "cuda",
+         "source": "bluefog_tpu_torch/csrc/attention_components.cu",
+         "replaces": replaces[k], "launches": comp_counts[k],
+         "max_abs_err": comp_err[k], **comp_table[k]}
+        for k in ("qk", "pv", "softmax_chain", "bwd_chain")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

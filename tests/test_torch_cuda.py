@@ -11,6 +11,8 @@ import importlib
 import pytest
 import torch
 
+from bluefog_tpu_torch.benchmarks import attention_roofline as roof
+from bluefog_tpu_torch.kernels import attention_components as ac
 from bluefog_tpu_torch.kernels import flash_attention_with_lse
 
 fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
@@ -97,3 +99,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_fwd(t, t, t, scale=1.0, causal=True)
+
+
+@pytest.mark.parametrize("body", [True, False])
+@pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
+def test_components_match_plain_versions(cuda_device, name, d, kw, body):
+    """Each roofline microkernel against its plain version at reps 1 (the
+    body) and 2 (the fed-back row), on several blocks; the rule is
+    attention_components.compare."""
+    args = roof.component_inputs(d, seed=3)[name]
+    before = ac.launches[name]
+    for reps in (1, 2):
+        got = roof.WRAPPERS[name](*args, reps, body=body, blocks=5, **kw)
+        ref = ac.PLAIN[name](*args, reps, body=body, blocks=5, **kw)
+        assert bool((got == got[:1]).all())
+        res = ac.compare(name, got, ref, args, reps, body=body, **kw)
+        assert res["ok"], res
+    assert ac.launches[name] - before == 2
+
+
+def test_matched_smem_holds_the_flash_kernels_blocks_per_sm(cuda_device):
+    for kname, d in (("fwd", 64), ("dkv", 64), ("dq", 128)):
+        flash = fa.occupancy(kname, d)
+        assert flash["blocks_per_sm"] >= 1 and flash["regs"] > 0
+        chain, kw = roof.MODELS[kname][2]
+        for name, ckw in (("qk", {}), ("pv", {}), (chain, kw)):
+            smem = roof.matched_smem(name, ckw, d, flash)
+            occ = ac.occupancy(name, d=d, smem_bytes=smem, **ckw)
+            assert occ["smem"] >= flash["smem"]
+            assert occ["blocks_per_sm"] <= flash["blocks_per_sm"]

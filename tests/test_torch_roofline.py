@@ -1,0 +1,165 @@
+"""The port's counted roofline and profiling estimators against the JAX
+package's (``benchmarks/attention_roofline.py`` and the repo-root ``bench``
+it imports) on the same numbers, tile counts against a brute-force count of
+visible tiles, and the measurement path's refusal to run without a card."""
+
+import importlib.util
+import os
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from bluefog_tpu_torch import profiling
+from bluefog_tpu_torch.benchmarks import attention_roofline as roof
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+
+
+@pytest.fixture(scope="module")
+def jax_script():
+    """The JAX roofline script, loaded by path.  Importing it (and ``bench``)
+    points JAX's persistent compilation cache at /tmp; both settings are put
+    back so later tests in this worker compile as before."""
+    saved = {k: getattr(jax.config, k) for k in _CACHE_KEYS}
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "_jax_attention_roofline", os.path.join(REPO, "benchmarks", "attention_roofline.py"))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return script
+
+
+def _brute_tile_counts(T, tile, q_start, k_start):
+    """Visible (query, key) pairs per 64 x 64 tile, counted pair by pair."""
+    qpos = q_start + np.arange(T)
+    kpos = k_start + np.arange(T)
+    vis = kpos[None, :] <= qpos[:, None]
+    interior = diagonal = 0
+    for q0 in range(0, T, tile):
+        for k0 in range(0, T, tile):
+            block = vis[q0:q0 + tile, k0:k0 + tile]
+            if block.all():
+                interior += 1
+            elif block.any():
+                diagonal += 1
+    return interior, diagonal
+
+
+@pytest.mark.parametrize("T", [64, 128, 640, 2048])
+def test_tile_counts_match_the_jax_script(jax_script, T):
+    assert roof.tile_counts(T) == jax_script._tile_counts(T, 64)
+
+
+def test_tile_counts_at_the_path_shape():
+    interior, diagonal = roof.tile_counts(2048)
+    assert (interior, diagonal) == (496, 32)
+    cfg = roof.SHAPES["path"]
+    assert cfg["B"] * cfg["H"] * (interior + diagonal) == 12672
+
+
+@pytest.mark.parametrize("T,q_start,k_start", [
+    (256, 0, 0), (1000, 0, 0), (200, 96, 0), (256, 0, 40), (130, 7, 3),
+    (256, 0, 512), (192, 512, 0)])
+def test_tile_counts_match_a_brute_force_count(T, q_start, k_start):
+    assert roof.tile_counts(T, 64, q_start, k_start) == \
+        _brute_tile_counts(T, 64, q_start, k_start)
+
+
+@pytest.mark.parametrize("meas,overlap,serial", [
+    (1.0, 0.5, 2.0), (3.0, 0.5, 2.0), (0.25, 0.5, 2.0), (2.0, 2.0, 2.0)])
+def test_band_gap_matches_the_jax_script(jax_script, meas, overlap, serial):
+    assert roof._band_gap(meas, overlap, serial) == \
+        jax_script._band_gap(meas, overlap, serial)
+
+
+@pytest.mark.parametrize("smalls,bigs", [
+    ([1.0, 1.2, 0.9], [2.0, 2.5, 1.95]),   # clean rounds
+    ([1.0, 3.0, 1.0], [2.0, 3.1, 2.2]),    # a stall in one small region
+    ([2.0, 2.0], [1.0, 1.5]),              # no positive delta at all
+    ([1.0], [1.0])])
+def test_conservative_delta_matches_bench(jax_script, smalls, bigs):
+    bench = sys.modules["bench"]
+    assert profiling.conservative_delta(smalls, bigs) == \
+        bench.conservative_delta(smalls, bigs)
+
+
+def _fake_region(per_call, fixed, stall_every=0):
+    """region(n) seconds: fixed cost + n calls, with a stall added to every
+    ``stall_every``-th region."""
+    calls = [0]
+
+    def region(n):
+        calls[0] += 1
+        stall = 5.0 if stall_every and calls[0] % stall_every == 0 else 0.0
+        return fixed + per_call * n + stall
+    return region
+
+
+@pytest.mark.parametrize("per_call,fixed,stall_every,iters,repeats", [
+    (0.01, 0.2, 0, 20, 1), (0.01, 0.2, 2, 20, 3), (0.01, 0.2, 3, 20, 3),
+    (-0.01, 0.2, 0, 20, 2),   # slope never positive: the RTT fallback
+    (0.01, 0.2, 0, 1, 1)])    # iters too small to pair
+def test_paired_slope_matches_bench(jax_script, capsys, per_call, fixed, stall_every,
+                                    iters, repeats):
+    bench = sys.modules["bench"]
+    got = profiling.paired_slope(_fake_region(per_call, fixed, stall_every), iters,
+                                 "t", lambda: 0.05, repeats=repeats)
+    want = bench.paired_slope(_fake_region(per_call, fixed, stall_every), iters,
+                              "t", lambda: 0.05, repeats=repeats)
+    assert got == want
+
+
+@pytest.mark.parametrize("total,rt,iters", [(1.0, 0.1, 10), (0.1, 0.1, 10)])
+def test_subtract_rtt_matches_bench(jax_script, capsys, total, rt, iters):
+    bench = sys.modules["bench"]
+    assert profiling.subtract_rtt(total, rt, iters) == bench.subtract_rtt(total, rt, iters)
+
+
+def test_slope_time_checks_its_span_and_runs_on_the_host_clock():
+    with pytest.raises(ValueError, match="iters_hi"):
+        profiling.slope_time(lambda: None, iters_lo=5, iters_hi=5)
+    with pytest.raises(ValueError, match="iters_hi"):
+        profiling.slope_time_fused(lambda x: x, torch.zeros(2), iters_lo=4, iters_hi=3)
+    x = torch.ones(64, 64)
+    assert np.isfinite(profiling.slope_time(torch.mm, (x, x), iters_lo=1, iters_hi=3))
+    assert np.isfinite(profiling.slope_time_fused(lambda y: y * 0.5, x, iters_lo=1,
+                                                  iters_hi=3))
+    times = profiling.segment_times({"a": (torch.mm, (x, x)), "b": (torch.add, (x, x))},
+                                    iters_lo=1, iters_hi=2, repeats=1)
+    assert sorted(times) == ["a", "b"]
+
+
+def test_roofline_refuses_to_run_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert roof.main(["--bwd"]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+@pytest.mark.parametrize("T", [128, 1000, 2048])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
+def test_block_tiles_cover_the_visited_tiles(T, kernel):
+    per_block = roof.block_tiles(T, kernel)
+    assert len(per_block) == -(-T // 64)
+    assert sum(per_block) == sum(roof.tile_counts(T))
+    ordered = per_block if kernel != "dkv" else per_block[::-1]
+    assert ordered == list(range(1, len(per_block) + 1))  # causal: 1, 2, ... tiles
+
+
+def test_scheduled_ms_adds_the_tail_and_the_imbalance():
+    # equal blocks on whole waves take tiles x tile_s
+    assert roof.scheduled_ms([2] * 8, 4, 1e-3) == pytest.approx(8 * 2 * 1e-3 * 1e3)
+    # one partial wave costs a whole block time
+    assert roof.scheduled_ms([2] * 5, 4, 1e-3) == pytest.approx(2 * 2 * 4 * 1e-3 * 1e3)
+    # a causal spread on one slot is its sum; on many, the longest block bounds it
+    assert roof.scheduled_ms([1, 2, 3], 1, 1e-3) == pytest.approx(6.0)
+    assert roof.scheduled_ms([1, 2, 3], 3, 1e-3) == pytest.approx(3 * 3 * 1e-3 * 1e3)
+    assert roof.whole_waves(768, 660) == 1320 and roof.whole_waves(660, 660) == 660
