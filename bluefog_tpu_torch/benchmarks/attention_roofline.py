@@ -31,15 +31,25 @@ alone (``dep_us``, ``dep_share``); the bands carry it, as the TPU's do.
 
 ``*_pred_sched_ms`` adds the flash kernel's own tail to the serial edge: the
 serial cost of each block's causal tiles, taken by the resident blocks in
-launch order (``scheduled_ms``); ``*_unexplained_sched_pct`` is what the
-measurement holds beyond that.  ``*_longest_block_ms`` is the serial cost of
-the block with the most tiles at that same share of its SM: no schedule of
-these blocks ends sooner.
+launch order (``scheduled_ms`` over ``flash_attention.launch_order``, the
+launchers' own order); ``*_unexplained_sched_pct`` is what the measurement
+holds beyond that.  ``*_longest_block_ms`` is the serial cost of the block
+with the most tiles at that same share of its SM: no schedule of these
+blocks ends sooner.  ``*_longest_block_measured_ms`` times the kernel on the
+rows of its longest blocks alone (``longest_block_calls``), replayed from a
+CUDA graph: such a launch is shorter than its wrapper's host time, which
+events around eager calls would time instead.
+
+The microkernels repeat the first (``mma.sync``) tile, which only dQ still
+runs; each row says so (``tile_design``, ``component_tile``).  For the
+redesigned forward and dK/dV the bands, ``sched`` and ``longest_block_ms``
+price their tiles at that old tile's rate, so there only ``measured_ms`` and
+``longest_block_measured_ms`` describe the kernel that runs.
 
 Unlike the JAX script, nothing is subtracted from a measured time: the card
 times each flash kernel alone, between CUDA events.  The script's
 ``BLUEFOG_FLASH_BWD_BLOCKS`` has no counterpart: the port's tile is fixed at
-64 for every kernel.
+64 for every kernel (a forward or dK/dV block holds two such row tiles).
 
     python -m bluefog_tpu_torch.benchmarks.attention_roofline [--bwd] [--shapes 134m 1b path]
 
@@ -62,7 +72,8 @@ import torch
 
 from bluefog_tpu_torch.kernels import _build
 from bluefog_tpu_torch.kernels import attention_components as ac
-from bluefog_tpu_torch.profiling import conservative_delta, paired_slope, timed_region
+from bluefog_tpu_torch.profiling import (conservative_delta, graph_seconds, paired_slope,
+                                         timed_region)
 
 # the package re-exports a function of the module's own name
 fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
@@ -89,6 +100,16 @@ MODELS = {  # flash kernel -> (qk products, pv products, (chain, its arguments))
     "dq": (2, 1, ("bwd_chain", {"cast_p": False})),
 }
 WRAPPERS = {name: getattr(ac, f"{name}_component") for name in ac.PLAIN}
+# What each flash kernel's tile runs on, and what the microkernels time
+# (the first, mma.sync tile: see the module docstring).
+TILE_DESIGN = {
+    "fwd": "wgmma m64n64k16 (S) + m64nDk16 (P.V, P from registers); TMA ring; "
+           "2 consumer warpgroups, 128 query rows a block; longest first",
+    "dkv": "wgmma m64n64k16 (S^T, dP^T) + m64nDk16 (dV, dK, A from registers); TMA "
+           "ring; 2 consumer warpgroups, 128 keys a block; longest first",
+    "dq": "mma.sync m16n8k16, synchronous staging; 4 warps, 64 query rows a block",
+}
+COMPONENT_TILE = "mma.sync m16n8k16 (the dq tile; the fwd and dkv bands describe it too)"
 
 
 def tile_counts(T: int, tile: int = TILE, q_start: int = 0,
@@ -117,23 +138,25 @@ def tile_counts(T: int, tile: int = TILE, q_start: int = 0,
 
 
 def block_tiles(T: int, kernel: str, tile: int = TILE) -> List[int]:
-    """Tiles each block of one (batch, head) visits, in launch order: a
-    forward or dQ block owns a query tile and walks the key tiles up to the
-    diagonal; a dK/dV block owns a key tile and walks the query tiles from
-    it.  Offsets 0; a ragged last tile counts whole."""
-    n = -(-T // tile)
-    visits = [[kj * tile <= min((qi + 1) * tile, T) - 1 for kj in range(n)]
-              for qi in range(n)]
-    if kernel == "dkv":
-        return [sum(visits[qi][kj] for qi in range(n)) for kj in range(n)]
-    return [sum(row) for row in visits]
+    """Tiles each 64-row slab of one (batch, head) computes, in slab order:
+    a query slab of the forward or dQ walks the key tiles up to the
+    diagonal, a key slab of dK/dV the query tiles from it.  Counted from
+    :func:`flash_attention.launch_order`, whose forward and dK/dV blocks
+    hold two slabs each.  Offsets 0; a ragged last tile counts whole."""
+    blocks, _ = fa.launch_order(kernel, T, T)
+    own = 1 if kernel == "dkv" else 0  # the slab index in a (query, key) pair
+    per_slab = [0] * -(-T // tile)
+    for _, tiles in blocks:
+        for pair in tiles:
+            per_slab[pair[own]] += 1
+    return per_slab
 
 
 def scheduled_ms(tiles_per_block: Sequence[int], slots: int, tile_s: float) -> float:
     """Milliseconds until the last block ends when ``slots`` resident
-    blocks take the kernel's blocks in launch order and a block costs its
-    tiles x ``tile_s`` x ``slots`` (``tile_s`` is device-wide, so one slot
-    takes ``slots`` times as long).  Against ``tiles x tile_s`` it adds
+    blocks take the kernel's blocks in launch order (``launch_order``) and a
+    block costs its tiles x ``tile_s`` x ``slots`` (``tile_s`` is
+    device-wide, so one slot takes ``slots`` times as long).  Against ``tiles x tile_s`` it adds
     what the causal imbalance and the last, partial wave cost."""
     finish = [0.0] * slots
     for n in tiles_per_block:
@@ -251,21 +274,46 @@ def flash_inputs(cfg, seed: int = 1):
     return q, k, v, g, lse, corr
 
 
+def longest_block_calls(q, k, v, g, lse, corr, kw) -> Dict[str, object]:
+    """Each flash kernel run on the rows of its longest blocks alone (one
+    block a head: the forward's last 128 query rows, dK/dV's first 128
+    keys, dQ's last 64 query rows), so its time is one longest block's,
+    whatever the schedule.  The forward and dK/dV hold one block a SM, so
+    this is also that block's time inside the full launch; dQ's blocks
+    share their SM there (this under-counts them)."""
+    t = q.shape[1]
+    qf = -(-t // 128) * 128 - 128   # first row of the forward's last block
+    qd = -(-t // 64) * 64 - 64      # first row of dQ's last block
+
+    def rows(x, r0):
+        return x[:, r0:].contiguous()
+
+    fwd_in = (rows(q, qf), k, v, qf, 0)
+    dkv_in = (q, k[:, :128].contiguous(), v[:, :128].contiguous(), g, lse, corr, 0, 0)
+    dq_in = (rows(q, qd), k, v, rows(g, qd), rows(lse, qd), rows(corr, qd), qd, 0)
+    return {"fwd": lambda: fa.flash_fwd(*fwd_in, **kw),
+            "dkv": lambda: fa.flash_dkv(*dkv_in, **kw),
+            "dq": lambda: fa.flash_dq(*dq_in, **kw)}
+
+
 def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
     """Components, bands, measured times and gaps at one shape."""
     B, H, T, D = cfg["B"], cfg["H"], cfg["T"], cfg["D"]
     bh = B * H
-    grid = -(-T // TILE) * bh  # every flash kernel launches one block a 64-row tile
     interior, diagonal = tile_counts(T)
     tiles = bh * (interior + diagonal)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ops = component_inputs(D)
     kernels = ("fwd", "dkv", "dq") if bwd else ("fwd",)
 
-    flash, comps = {}, {}
+    flash, comps, per_block = {}, {}, {}
     for kname in kernels:
         occ = fa.occupancy(kname, D)
-        flash[kname] = {**occ, "grid": grid, "waves": grid / (occ["blocks_per_sm"] * sms)}
+        blocks, rows = fa.launch_order(kname, T, T, bh=bh)
+        per_block[kname] = [len(tiles) for _, tiles in blocks]
+        grid = len(blocks)
+        flash[kname] = {**occ, "grid": grid, "block_rows": rows,
+                        "waves": grid / (occ["blocks_per_sm"] * sms)}
         chain, chain_kw = MODELS[kname][2]
         comps[kname] = {}
         for cname, kw in (("qk", {}), ("pv", {}), (chain, chain_kw)):
@@ -294,24 +342,29 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
     calls = {"fwd": lambda: fa.flash_fwd(q, k, v, **kw),
              "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw),
              "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, **kw)}
-    row = {"shape": name, **cfg, "grid": grid, "tiles": tiles,
-           "tiles_per_bh": {"interior": interior, "diagonal": diagonal},
-           "flash": flash, "components": comps}
+    longest = longest_block_calls(q, k, v, g, lse, corr, kw)
+    row = {"shape": name, **cfg, "grid": {k: flash[k]["grid"] for k in kernels},
+           "tiles": tiles, "tiles_per_bh": {"interior": interior, "diagonal": diagonal},
+           "flash": flash, "components": comps,
+           "tile_design": {k: TILE_DESIGN[k] for k in kernels},
+           "component_tile": COMPONENT_TILE}
     for kname in kernels:
         n_qk, n_pv, (chain, _) = MODELS[kname]
         c = comps[kname]
         products = n_qk * c["qk"]["us"] + n_pv * c["pv"]["us"]
         chain_us = c[chain]["us"]
         meas, fb = measured_seconds(calls[kname], f"roofline-{name}-{kname}")
+        meas_longest = graph_seconds(longest[kname])
         overlap = tiles * max(products, chain_us) * 1e-3
         serial = tiles * (products + chain_us) * 1e-3
-        per_block, slots = block_tiles(T, kname), flash[kname]["blocks_per_sm"] * sms
+        slots = flash[kname]["blocks_per_sm"] * sms
         tile_s = (products + chain_us) * 1e-6
-        sched = scheduled_ms(per_block * bh, slots, tile_s)
+        sched = scheduled_ms(per_block[kname], slots, tile_s)
         row.update({
             f"{kname}_pred_overlap_ms": overlap, f"{kname}_pred_serial_ms": serial,
             f"{kname}_pred_sched_ms": sched,
-            f"{kname}_longest_block_ms": max(per_block) * tile_s * slots * 1e3,
+            f"{kname}_longest_block_ms": max(per_block[kname]) * tile_s * slots * 1e3,
+            f"{kname}_longest_block_measured_ms": meas_longest * 1e3,
             f"{kname}_unexplained_sched_pct": max(0.0, meas * 1e3 - sched) / sched * 100,
             f"{kname}_measured_ms": meas * 1e3,
             f"{kname}_unexplained_pct": _band_gap(meas * 1e3, overlap, serial) * 100,

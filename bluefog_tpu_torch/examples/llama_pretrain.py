@@ -16,6 +16,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import tempfile
 import time
 from typing import Dict, Optional, Sequence
@@ -114,7 +115,15 @@ def _device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
                 and not getattr(e, "is_user_annotation", False)):
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
+    # the flash kernels by name, whether or not they make the top rows
+    flash = {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
+    for name, ms, n in rows:
+        found = re.search(r"\b(fwd|dkv|dq)_kernel<", name)
+        if found:
+            flash[found.group(1)][0] += ms
+            flash[found.group(1)][1] += n
     return {"wall_ms": wall_ms, **_device_timeline(prof),
+            "flash_ms_launches": flash,
             "top": [[name[:90], ms, n] for name, ms, n in rows[:top]]}
 
 

@@ -17,11 +17,12 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -77,6 +78,27 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
+
+
+def sass(name: str) -> Optional[Dict[str, str]]:
+    """``{mangled kernel name: its SASS}`` of ``csrc/<name>.cu``'s library
+    (built if missing), read by ``cuobjdump -sass``; None where the toolkit
+    has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", build(name)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    funcs: Dict[str, List[str]] = {}
+    body: List[str] = []
+    for line in out.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            body = funcs[found.group(1)] = []
+        else:
+            body.append(line)
+    return {fname: "\n".join(lines) for fname, lines in funcs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

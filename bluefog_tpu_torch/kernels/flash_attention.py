@@ -12,6 +12,12 @@ wrapper        replaces                                 plain version
 ``flash_dq``   ``_bwd_dq_kernel`` (:575)                ``flash_dq_plain``
 =============  =======================================  ===================
 
+The forward and dK/dV kernels are built for Hopper (``wgmma`` products,
+TMA-fed tile rings, 128-row blocks of two consumer warpgroups, launched
+longest chain first); dQ keeps the first ``mma.sync`` design.
+:func:`launch_order` says which 64 x 64 tiles each block of a launch
+computes, in the order the card is handed the blocks.
+
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
 f32).  On a CUDA tensor it checks device, dtype, shape and contiguity,
 launches its kernel on the current stream and adds one to its count in
@@ -32,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -51,12 +57,14 @@ __all__ = [
     "launches",
     "reset_launches",
     "occupancy",
+    "launch_order",
 ]
 
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
 _HEAD_DIMS = (64, 128)
+_BLOCK_ROWS = {"fwd": 128, "dkv": 128, "dq": 64}  # rows a block owns
 
 # Kernel launches per wrapper since the last reset_launches().  Only a
 # launch of the CUDA kernel counts; a plain-version call does not.
@@ -158,7 +166,11 @@ _F = ctypes.c_float
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    lib = _build.load("flash_attention")
+    return bind(_build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/flash_attention.cu``."""
     lib.bf_flash_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _P]
     lib.bf_flash_bwd_dkv.argtypes = [_P] * 8 + [_I] * 6 + [_F, _I, _P]
     lib.bf_flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 6 + [_F, _I, _P]
@@ -208,7 +220,15 @@ def _check(name, q, k, v, extra=(), f32=()):
     return bh, tq, tk, d
 
 
+_NO_ENCODER, _ENCODE_FAILED = -2, 10000  # csrc/sm90_tile.cuh
+
+
 def _raise_on(name, err):
+    if err == _NO_ENCODER:
+        raise RuntimeError(f"{name}: the CUDA driver offers no cuTensorMapEncodeTiled")
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{name}: TMA tensor-map encode failed (CUresult "
+                           f"{err - _ENCODE_FAILED})")
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -278,12 +298,69 @@ def occupancy(kernel: str, d: int) -> Dict[str, int]:
     """How the card holds one flash kernel (``"fwd"``, ``"dkv"`` or
     ``"dq"``) at head dim ``d``, as its launcher launches it:
     ``blocks_per_sm`` (resident blocks per SM), ``smem`` (dynamic shared
-    memory bytes per block) and ``regs`` (registers per thread).  Needs the
-    card."""
-    out = (_I * 3)()
+    memory bytes per block), ``regs`` (registers per thread, as compiled;
+    the Hopper kernels move registers from their producer to their
+    consumers at run time) and ``threads`` (per block).  Needs the card."""
+    out = (_I * 4)()
     err = _lib().bf_flash_occupancy(_KERNEL_IDS[kernel], int(d), out)
     _raise_on(f"occupancy({kernel}, {d})", err)
-    return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2]}
+    return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2], "threads": out[3]}
+
+
+def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int = 0,
+                 causal: bool = True, bh: int = 1) -> Tuple[List[Tuple[int, List]], int]:
+    """The blocks of one launch of ``kernel`` over ``bh`` heads, in the
+    order the card is handed them (x fastest): ``(blocks, rows)``.  Each
+    block is ``(head, tiles)``, ``tiles`` the ``(query tile, key tile)``
+    pairs of 64 x 64 tiles it computes, in the order it walks them;
+    ``rows`` is the queries (fwd, dq) or keys (dkv) a block owns.
+
+    Mirrors the launchers' index arithmetic in ``csrc/flash_attention.cu``:
+    the forward's grid is (head, query tile of 128 rows walked from the
+    last), dK/dV's (head, key tile of 128 rows from the first), so the
+    longest chains of every head come first; dQ's is (query tile of 64
+    rows, head).  A warpgroup's 64 rows skip the tiles they see nothing
+    of, so every tile with a visible pair is computed once."""
+    n_q, n_k = -(-tq // _BLOCK), -(-tk // _BLOCK)
+
+    def visible(qi, kj):
+        if not causal:
+            return True
+        return k_start + kj * _BLOCK <= q_start + min((qi + 1) * _BLOCK, tq) - 1
+
+    def keys_reached(rows_end):  # key tiles a block walks, causal break
+        q_last = q_start + min(rows_end, tq) - 1
+        if not causal:
+            return n_k
+        return min(n_k, (q_last - k_start) // _BLOCK + 1 if q_last >= k_start else 0)
+
+    if kernel not in _BLOCK_ROWS:
+        raise ValueError(f"launch_order: unknown kernel {kernel!r}")
+    rows = _BLOCK_ROWS[kernel]
+    blocks = []
+    if kernel == "fwd":
+        n = -(-tq // rows)
+        for y in range(n):
+            tile = n - 1 - y
+            slabs = [qi for qi in (2 * tile, 2 * tile + 1) if qi < n_q]
+            for h in range(bh):
+                blocks.append((h, [(qi, kj) for kj in range(keys_reached((tile + 1) * rows))
+                                   for qi in slabs if visible(qi, kj)]))
+    elif kernel == "dkv":
+        n = -(-tk // rows)
+        for tile in range(n):
+            first = k_start + tile * rows - q_start
+            it0 = 0 if not causal or first <= 0 else (n_q if first > tq - 1
+                                                      else first // _BLOCK)
+            slabs = [kj for kj in (2 * tile, 2 * tile + 1) if kj < n_k]
+            for h in range(bh):
+                blocks.append((h, [(qi, kj) for qi in range(it0, n_q)
+                                   for kj in slabs if visible(qi, kj)]))
+    else:  # dq
+        for h in range(bh):
+            for qi in range(n_q):
+                blocks.append((h, [(qi, kj) for kj in range(keys_reached((qi + 1) * rows))]))
+    return blocks, rows
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["slope_time", "slope_time_fused", "segment_times", "timed_region",
-           "paired_slope", "conservative_delta", "subtract_rtt"]
+           "graph_seconds", "paired_slope", "conservative_delta", "subtract_rtt"]
 
 
 def _on_cuda(obj) -> bool:
@@ -55,6 +55,27 @@ def timed_region(run: Callable[[], object], cuda: bool) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) * 1e-3
+
+
+def graph_seconds(fn: Callable[[], object], calls: int = 50, repeats: int = 3) -> float:
+    """Device seconds a call of ``fn()`` (work on the card) takes with no
+    host work between calls: ``calls`` calls captured in one CUDA graph,
+    the graph replayed between two events, the least of ``repeats``
+    replays over ``calls``.  For a kernel shorter than its wrapper's host
+    time, where events around eager calls time the host."""
+    fn()  # warm up (builds, attribute calls) outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return min(timed_region(graph.replay, cuda=True) for _ in range(repeats)) / calls
 
 
 def _check_span(lo: int, hi: int, names: Tuple[str, str]) -> None:

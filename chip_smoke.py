@@ -5,9 +5,14 @@
 Phases, each printing one JSON line:
 
 1. device   -- nvidia-smi name and power limit, torch/CUDA versions, and the
-               nvcc builds of csrc/flash_attention.cu and
-               csrc/attention_components.cu, side by side (seconds, ptxas).
-2. kernels  -- each CUDA kernel (flash fwd, dK/dV, dQ) against its plain
+               nvcc builds of csrc/flash_attention.cu (with the headers
+               sm90_tile.cuh and mma_tile.cuh) and
+               csrc/attention_components.cu, side by side (seconds, ptxas);
+               the forward and dK/dV kernels, redesigned for Hopper, must
+               hold wgmma (HGMMA) and TMA loads (UTMALDG) in their SASS
+               where cuobjdump is found.
+2. kernels  -- each CUDA kernel (flash fwd and dK/dV on wgmma and TMA, dQ
+               on mma.sync) against its plain
                PyTorch version on the same bf16 inputs, over seven cases
                (the main path's shape, two ring hops with q_start > k_start,
                a fully masked hop, non-causal, D = 128, a ragged length);
@@ -37,6 +42,7 @@ It needs one CUDA device and exits non-zero without one.
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 
@@ -112,6 +118,23 @@ def visible_pairs(tq, tk, q_start, k_start, causal):
     return total
 
 
+def sass_ops(_build):
+    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} over the flash
+    library's kernels (both head dims together), from cuobjdump's SASS; None
+    where cuobjdump is not found."""
+    funcs = _build.sass("flash_attention")
+    if funcs is None:
+        return None
+    counts = {}
+    for fname, body in funcs.items():
+        found = re.search(r"fwd_kernel|dkv_kernel|dq_kernel", fname)
+        if found:
+            ops = counts.setdefault(found.group(0), {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0})
+            for op in ops:
+                ops[op] += len(re.findall(rf"\b{op}\b", body))
+    return counts
+
+
 def phase_device(torch, _build, fa, ac):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,9 +145,14 @@ def phase_device(torch, _build, fa, ac):
     ac._lib()
     ptxas = {name: [l.strip() for l in _build.build_logs.get(name, "").splitlines()
                     if "registers" in l or "spill" in l] for name in sources}
+    sass = sass_ops(_build)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu": torch.cuda.get_device_name(0),
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found"})
+    for kname in ("fwd_kernel", "dkv_kernel") if sass else ():
+        ops = sass.get(kname, {})
+        check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
+              f"device: {kname} holds no wgmma or no TMA load ({ops})")
     return smi
 
 

@@ -11,7 +11,9 @@ import importlib
 import pytest
 import torch
 
+from bluefog_tpu_torch import profiling
 from bluefog_tpu_torch.benchmarks import attention_roofline as roof
+from bluefog_tpu_torch.kernels import _build
 from bluefog_tpu_torch.kernels import attention_components as ac
 from bluefog_tpu_torch.kernels import flash_attention_with_lse
 
@@ -50,13 +52,19 @@ def _close_lse(got, want):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("q_start,k_start,causal", [(0, 0, True), (96, 0, True),
-                                                     (0, 0, False), (0, 512, True)])
-def test_kernels_match_plain_versions(cuda_device, d, q_start, k_start, causal):
-    gen = torch.Generator(device=cuda_device).manual_seed(d + q_start + k_start)
-    q, k, v, g = (torch.randn(4, 320, d, generator=gen, device=cuda_device)
-                  .bfloat16() for _ in range(4))
-    g_lse = torch.randn(4, 320, generator=gen, device=cuda_device)
+@pytest.mark.parametrize("tq,tk,q_start,k_start,causal", [
+    (320, 320, 0, 0, True), (320, 320, 96, 0, True), (320, 320, 0, 0, False),
+    (320, 320, 0, 512, True),
+    (320, 192, 128, 0, True), (192, 448, 0, 0, False),    # tq != tk
+    (200, 200, 0, 0, True), (40, 40, 0, 0, True),          # T % 128 != 0, T < 64
+    (200, 200, 37, 0, True), (256, 320, 0, 45, True)])     # offsets not on a tile
+def test_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(d + tq + tk + q_start + k_start)
+    q, g = (torch.randn(4, tq, d, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    k, v = (torch.randn(4, tk, d, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    g_lse = torch.randn(4, tq, generator=gen, device=cuda_device)
     kw = dict(scale=d ** -0.5, causal=causal)
     before = dict(fa.launches)
     o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
@@ -70,6 +78,21 @@ def test_kernels_match_plain_versions(cuda_device, d, q_start, k_start, causal):
     for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
         _close(got, want)
     assert {n: fa.launches[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1}
+
+
+def test_redesigned_kernels_run_on_wgmma_and_tma(cuda_device):
+    """The forward and dK/dV kernels' SASS holds warpgroup products (HGMMA)
+    and TMA tile loads (UTMALDG) at both head dims; dQ keeps mma.sync."""
+    funcs = _build.sass("flash_attention")
+    if funcs is None:
+        pytest.skip("cuobjdump not found")
+    for kernel in ("fwd_kernel", "dkv_kernel"):
+        bodies = [body for name, body in funcs.items() if kernel in name]
+        assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
+        for body in bodies:
+            assert "HGMMA" in body and "UTMALDG" in body
+    dq = [body for name, body in funcs.items() if "dq_kernel" in name]
+    assert dq and all("HMMA" in body and "HGMMA" not in body for body in dq)
 
 
 def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
@@ -122,9 +145,21 @@ def test_matched_smem_holds_the_flash_kernels_blocks_per_sm(cuda_device):
     for kname, d in (("fwd", 64), ("dkv", 64), ("dq", 128)):
         flash = fa.occupancy(kname, d)
         assert flash["blocks_per_sm"] >= 1 and flash["regs"] > 0
+        assert flash["threads"] == (128 if kname == "dq" else 384)
         chain, kw = roof.MODELS[kname][2]
         for name, ckw in (("qk", {}), ("pv", {}), (chain, kw)):
             smem = roof.matched_smem(name, ckw, d, flash)
             occ = ac.occupancy(name, d=d, smem_bytes=smem, **ckw)
             assert occ["smem"] >= flash["smem"]
             assert occ["blocks_per_sm"] <= flash["blocks_per_sm"]
+
+
+def test_graph_seconds_reads_the_device_time_of_a_short_launch(cuda_device):
+    """A forward over 128 keys takes a few microseconds on the card, less
+    than its wrapper's host time: replayed from a graph it reads below what
+    events around eager calls read."""
+    q, k, v = (torch.randn(24, 128, 64, device=cuda_device).bfloat16() for _ in range(3))
+    fn = lambda: fa.flash_fwd(q, k, v, scale=0.125, causal=True)  # noqa: E731
+    graph = profiling.graph_seconds(fn, calls=20)
+    eager = roof.measured_seconds(fn, "short")[0]
+    assert 0 < graph < 1e-3 and graph <= eager

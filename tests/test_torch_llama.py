@@ -228,9 +228,10 @@ def test_example_runs_on_the_cpu_and_profiles():
     assert out["consensus_spread"] < 0.01
     assert set(out["profile"]) == {"wall_ms", "device_ops",
                                    "device_union_busy_ms", "device_span_ms",
-                                   "idle_share", "top"}
+                                   "idle_share", "flash_ms_launches", "top"}
     # the plain versions run no device operation on the CPU
     assert out["profile"]["device_ops"] == 0 and out["profile"]["idle_share"] is None
+    assert out["profile"]["flash_ms_launches"] == {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
 
 
 def test_device_idle_share_reads_the_union_of_device_intervals():
@@ -249,3 +250,30 @@ def test_device_idle_share_reads_the_union_of_device_intervals():
     out = llama_pretrain._device_timeline(Trace())
     assert out == {"device_ops": 3, "device_union_busy_ms": 0.025,
                    "device_span_ms": 0.04, "idle_share": 0.375}
+
+
+def test_profile_sums_each_flash_kernel_outside_the_top_rows():
+    """Each flash kernel's device ms and launches are summed over its head
+    dims, however far down the kernel list it falls."""
+    from types import SimpleNamespace
+
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    cuda = SimpleNamespace(name="CUDA")
+    names = [("gemm", 9000.0)] * 3 + [
+        ("void (anonymous namespace)::dkv_kernel<64>(CUtensorMap_st)", 2000.0),
+        ("void (anonymous namespace)::fwd_kernel<64>(CUtensorMap_st)", 1000.0),
+        ("void (anonymous namespace)::fwd_kernel<128>(CUtensorMap_st)", 500.0)]
+
+    class Prof:
+        def key_averages(self):
+            return [SimpleNamespace(key=k, device_time_total=us, count=2, device_type=cuda,
+                                    is_user_annotation=False) for k, us in names]
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": []}, f)
+
+    out = llama_pretrain._device_profile(Prof(), 1.0, top=2)
+    assert len(out["top"]) == 2
+    assert out["flash_ms_launches"] == {"fwd": [1.5, 4], "dkv": [2.0, 2], "dq": [0.0, 0]}

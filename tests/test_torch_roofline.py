@@ -14,6 +14,7 @@ import torch
 
 from bluefog_tpu_torch import profiling
 from bluefog_tpu_torch.benchmarks import attention_roofline as roof
+from bluefog_tpu_torch.benchmarks import flash_variants
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -163,3 +164,21 @@ def test_scheduled_ms_adds_the_tail_and_the_imbalance():
     assert roof.scheduled_ms([1, 2, 3], 1, 1e-3) == pytest.approx(6.0)
     assert roof.scheduled_ms([1, 2, 3], 3, 1e-3) == pytest.approx(3 * 3 * 1e-3 * 1e3)
     assert roof.whole_waves(768, 660) == 1320 and roof.whole_waves(660, 660) == 660
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.VARIANTS))
+def test_every_flash_variant_rewrites_the_source(name):
+    """Each variant's patterns are found in csrc/flash_attention.cu (a
+    rename there would otherwise time the chosen build twice)."""
+    src = flash_variants.variant_source(flash_variants.VARIANTS[name])
+    assert ("kConsumers = 1;" in src) == (name == "one_consumer")
+    if name == "chosen":
+        with open(os.path.join(REPO, "bluefog_tpu_torch", "csrc", "flash_attention.cu")) as f:
+            assert src == f.read()
+
+
+def test_flash_variants_refuse_to_run_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert flash_variants.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
