@@ -40,11 +40,12 @@ rows of its longest blocks alone (``longest_block_calls``), replayed from a
 CUDA graph: such a launch is shorter than its wrapper's host time, which
 events around eager calls would time instead.
 
-The microkernels repeat the first (``mma.sync``) tile, which only dQ still
-runs; each row says so (``tile_design``, ``component_tile``).  For the
-redesigned forward and dK/dV the bands, ``sched`` and ``longest_block_ms``
-price their tiles at that old tile's rate, so there only ``measured_ms`` and
-``longest_block_measured_ms`` describe the kernel that runs.
+The microkernels repeat the port's first (``mma.sync``) tile, which no
+flash kernel runs any more: all three are on ``wgmma``; each row says so
+(``tile_design``, ``component_tile``).  The bands, ``sched`` and
+``longest_block_ms`` price every kernel's tiles at that old tile's rate, so
+only ``measured_ms`` and ``longest_block_measured_ms`` describe the kernels
+that run.
 
 Unlike the JAX script, nothing is subtracted from a measured time: the card
 times each flash kernel alone, between CUDA events.  The script's
@@ -107,9 +108,11 @@ TILE_DESIGN = {
            "2 consumer warpgroups, 128 query rows a block; longest first",
     "dkv": "wgmma m64n64k16 (S^T, dP^T) + m64nDk16 (dV, dK, A from registers); TMA "
            "ring; 2 consumer warpgroups, 128 keys a block; longest first",
-    "dq": "mma.sync m16n8k16, synchronous staging; 4 warps, 64 query rows a block",
+    "dq": "wgmma m64n64k16 (S, dP) + m64nDk16 (dQ += dS.K, A from registers, K read "
+          "MN-major); TMA ring; 2 consumer warpgroups, 128 query rows a block; longest first",
 }
-COMPONENT_TILE = "mma.sync m16n8k16 (the dq tile; the fwd and dkv bands describe it too)"
+COMPONENT_TILE = ("mma.sync m16n8k16 (the port's first tile, which no flash kernel runs; "
+                  "every band describes it)")
 
 
 def tile_counts(T: int, tile: int = TILE, q_start: int = 0,
@@ -276,21 +279,19 @@ def flash_inputs(cfg, seed: int = 1):
 
 def longest_block_calls(q, k, v, g, lse, corr, kw) -> Dict[str, object]:
     """Each flash kernel run on the rows of its longest blocks alone (one
-    block a head: the forward's last 128 query rows, dK/dV's first 128
-    keys, dQ's last 64 query rows), so its time is one longest block's,
-    whatever the schedule.  The forward and dK/dV hold one block a SM, so
-    this is also that block's time inside the full launch; dQ's blocks
-    share their SM there (this under-counts them)."""
+    block a head: the last 128 query rows for the forward and dQ, the first
+    128 keys for dK/dV), so its time is one longest block's, whatever the
+    schedule.  Every kernel holds one block a SM, so this is also that
+    block's time inside the full launch."""
     t = q.shape[1]
-    qf = -(-t // 128) * 128 - 128   # first row of the forward's last block
-    qd = -(-t // 64) * 64 - 64      # first row of dQ's last block
+    q0 = -(-t // 128) * 128 - 128   # first row of the last 128-row block
 
     def rows(x, r0):
         return x[:, r0:].contiguous()
 
-    fwd_in = (rows(q, qf), k, v, qf, 0)
+    fwd_in = (rows(q, q0), k, v, q0, 0)
     dkv_in = (q, k[:, :128].contiguous(), v[:, :128].contiguous(), g, lse, corr, 0, 0)
-    dq_in = (rows(q, qd), k, v, rows(g, qd), rows(lse, qd), rows(corr, qd), qd, 0)
+    dq_in = (rows(q, q0), k, v, rows(g, q0), rows(lse, q0), rows(corr, q0), q0, 0)
     return {"fwd": lambda: fa.flash_fwd(*fwd_in, **kw),
             "dkv": lambda: fa.flash_dkv(*dkv_in, **kw),
             "dq": lambda: fa.flash_dq(*dq_in, **kw)}

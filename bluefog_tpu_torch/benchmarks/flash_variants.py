@@ -1,11 +1,11 @@
 """Block shape and ring depth of the Hopper flash kernels, by measurement.
 
-The forward and dK/dV kernels of ``csrc/flash_attention.cu`` fix at compile
-time how many consumer warpgroups of 64 rows share a block and how deep
-their TMA rings are.  This script builds copies of the source with other
-values (one nvcc each, side by side, into ``bluefog_tpu_torch/_build/``),
-binds each like the package's own library, and times the forward and dK/dV
-of every build on the same inputs at the roofline's ``path`` and ``134m``
+The flash kernels of ``csrc/flash_attention.cu`` fix at compile time how
+many consumer warpgroups of 64 rows share a block and how deep their TMA
+rings are.  This script builds copies of the source with other values (one
+nvcc each, side by side, into ``bluefog_tpu_torch/_build/``), binds each
+like the package's own library, and times the forward, dK/dV and dQ of
+every build on the same inputs at the roofline's ``path`` and ``134m``
 shapes, by CUDA-graph replay, the builds taken in turns over ``ROUNDS``
 rounds (the least time of each kept).  The ``chosen`` build is the source
 as it stands.
@@ -42,6 +42,7 @@ VARIANTS: Dict[str, Dict[str, str]] = {
     "fwd_stages_3": {r"kFwdStages = \d+;": "kFwdStages = 3;"},
     "fwd_stages_6": {r"kFwdStages = \d+;": "kFwdStages = 6;"},
     "dkv_stages_4": {r"kDkvStages = \d+;": "kDkvStages = 4;"},
+    "dq_stages_3": {r"kDqStages = \d+;": "kDqStages = 3;"},
     # one consumer warpgroup (64 rows a block), two blocks a SM
     "one_consumer": {r"kConsumers = \d+;": "kConsumers = 1;",
                      r"kConsumerRegs = \d+;": "kConsumerRegs = 232;",
@@ -100,23 +101,25 @@ def main(argv=None) -> int:
         kw = dict(scale=q.shape[-1] ** -0.5, causal=True)
         with mock.patch.object(fa, "_lib", lambda lib=lib: lib):
             outputs[vname] = (fa.flash_fwd(q, k, v, **kw)[0],
-                              *fa.flash_dkv(q, k, v, g, lse, corr, **kw))
+                              *fa.flash_dkv(q, k, v, g, lse, corr, **kw),
+                              fa.flash_dq(q, k, v, g, lse, corr, **kw))
     diff = {v: max((a.float() - b.float()).abs().max().item()
                    for a, b in zip(out, outputs["chosen"])) for v, out in outputs.items()}
     for _ in range(ROUNDS):
         for vname, lib in libs.items():
             with mock.patch.object(fa, "_lib", lambda lib=lib: lib):
-                occ[vname] = {k: fa.occupancy(k, 64) for k in ("fwd", "dkv")}
+                occ[vname] = {k: fa.occupancy(k, 64) for k in ("fwd", "dkv", "dq")}
                 for sname, (q, k, v, g, lse, corr) in inputs.items():
                     kw = dict(scale=q.shape[-1] ** -0.5, causal=True)
                     for kname, fn in (
                             ("fwd", lambda: fa.flash_fwd(q, k, v, **kw)),
-                            ("dkv", lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw))):
+                            ("dkv", lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw)),
+                            ("dq", lambda: fa.flash_dq(q, k, v, g, lse, corr, **kw))):
                         ms = graph_seconds(fn, calls=20) * 1e3
                         key = f"{sname}_{kname}_ms"
                         best[vname][key] = min(best[vname].get(key, ms), ms)
     print(json.dumps({
-        "metric": "flash fwd / dK/dV ms per build variant (CUDA-graph replay, least of "
+        "metric": "flash fwd / dK/dV / dQ ms per build variant (CUDA-graph replay, least of "
                   f"{ROUNDS} rounds in turns)",
         "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi(),
         "variants": {v: ({"subs": VARIANTS[v], **best[v], "occupancy": occ[v],

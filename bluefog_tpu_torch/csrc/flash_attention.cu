@@ -20,43 +20,44 @@
 // work is tensor-core bound (989 TFLOP/s bf16), and the causal mask leaves
 // blocks of very unequal length.
 //
-// fwd_kernel and dkv_kernel are built for Hopper (sm90_tile.cuh):
+// All three kernels are built for Hopper (sm90_tile.cuh):
 //   * Products on wgmma.  A block is one producer warpgroup and two consumer
 //     warpgroups of 64 rows each, which share every staged tile (128 query
-//     rows a forward block, 128 keys a dK/dV block).  S = Q.K^T, S^T = K.Q^T
-//     and dP^T = V.dO^T read both operands from shared memory (K-major); O +=
-//     P.V, dV += P^T.dO and dK += dS^T.Q take P or dS from registers (the
-//     rounded accumulator re-packed as the A operand) and the other operand
-//     from shared memory, MN-major.  Scores, p and dS never leave registers.
-//   * Asynchronous staging.  One producer thread streams the forward's K/V
-//     tiles, or dK/dV's Q/dO tiles, by TMA through 3-D tensor maps (rows past
-//     T read as zeros) into a ring (kFwdStages, kDkvStages deep), each stage
-//     with a "full" and an "empty" mbarrier; the block's own Q (forward) or
-//     K/V (dK/dV) tile arrives once, by TMA too.  dK/dV's lse and corr rows ride the same
-//     stage, stored by the producer warp's lanes.  The producer gives its
+//     rows a forward or dQ block, 128 keys a dK/dV block).  S = Q.K^T,
+//     dP = dO.V^T, S^T = K.Q^T and dP^T = V.dO^T read both operands from
+//     shared memory (K-major); O += P.V, dQ += dS.K, dV += P^T.dO and dK +=
+//     dS^T.Q take P or dS from registers (the rounded accumulator re-packed
+//     as the A operand) and the other operand from shared memory, MN-major
+//     (dQ reads the one staged K tile both ways).  Scores, p and dS never
+//     leave registers.
+//   * Asynchronous staging.  One producer thread streams the K/V tiles of
+//     the forward and dQ, or dK/dV's Q/dO tiles, by TMA through 3-D tensor
+//     maps (rows past T read as zeros) into a ring (kFwdStages, kDqStages,
+//     kDkvStages deep), each stage with a "full" and an "empty" mbarrier;
+//     the block's own Q (forward), Q and dO (dQ) or K/V (dK/dV) tiles arrive
+//     once, by TMA too.  dK/dV's lse and corr rows ride the same stage,
+//     stored by the producer warp's lanes; dQ's are fixed per row, so each
+//     consumer thread reads its two rows once.  The producer gives its
 //     registers to the consumers (setmaxnreg), which holds D = 128 dK/dV's
 //     four accumulators.  No block-wide barrier sits in the tile loop.
-//   * Overlap inside a forward warpgroup: S of key tile i is issued before
-//     P.V of tile i - 1 and waited for alone, so one product runs on the
-//     tensor cores while the softmax of the other tile is done (a
-//     warpgroup holds two stages while the producer fills the rest).
-//   * The softmax on exp2 (ex2.approx.ftz): log2(e) is folded into the
-//     scale, one FFMA and one ex2 an element, masks only on the tiles that
-//     cross the diagonal or the end; lse goes back to the natural log when
-//     it is written.
+//   * Overlap inside a forward or dQ warpgroup: the score products of key
+//     tile i (S; or S and dP) are issued before the register product of
+//     tile i - 1 (P.V; or dS.K) and waited for alone, so one product runs
+//     on the tensor cores while the elementwise work of the other tile is
+//     done (a warpgroup holds two stages while the producer fills the rest).
+//   * exp2 (ex2.approx.ftz): log2(e) is folded into the scale, one FFMA and
+//     one ex2 an element, masks only on the tiles that cross the diagonal
+//     or the end; the forward's lse goes back to the natural log when it is
+//     written, the backward takes lse in log2 units once.
 //   * A longest-first causal schedule.  The tile index is the slowest grid
-//     axis, walked in reverse for the forward (the last query tiles see the
-//     most keys) and forward for dK/dV (the first key tiles see the most
-//     queries), so the longest blocks of all heads launch first.  Chain
+//     axis, walked in reverse for the forward and dQ (the last query tiles
+//     see the most keys) and forward for dK/dV (the first key tiles see the
+//     most queries), so the longest blocks of all heads launch first.  Chain
 //     length is monotone in the tile index for any q_start/k_start.
 //     launch_order() in kernels/flash_attention.py mirrors this arithmetic.
 //   A consumer warpgroup whose 64 rows see nothing of a staged tile (past
 //   the diagonal or past the end) skips its products but still releases
 //   the stage.
-//
-// dq_kernel keeps the port's first design: warp-level mma.sync.m16n8k16 with
-// synchronous shared-memory staging, one block of 4 warps per 64-row query
-// tile, looping over key tiles up to the diagonal (mma_tile.cuh).
 //
 // Every launcher runs on the caller's stream, allocates nothing and returns
 // 0, cudaGetLastError(), the error of the attribute call before it, or a
@@ -69,90 +70,16 @@ namespace {
 constexpr float kNegInf = -1e30f;      // finite mask sentinel
 constexpr float kMaskThresh = -0.5e30f;
 
-// ---- the dQ kernel's mma.sync staging and fragments (mma_tile.cuh) ----
-
-// Copy rows [row0, row0 + 64) of a [T, D] matrix into smem (row stride S),
-// zero-filling rows at or past `rows`.  16-byte chunks.
-template <int D, int S>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * S + c * 8) = val;
-  }
-}
-
-// s[nt] (16 rows x 64 cols of this warp) = A rows [r0, r0+16) of `a_m`
-// times rows of `b_m` as columns, contracted over D.
-template <int D, int S>
-__device__ __forceinline__ void rows_by_rows(float (&s)[8][4], const bf16* a_m,
-                                             int r0, const bf16* b_m, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a<S>(a, a_m, r0, kk * 16, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b[2];
-      frag_b_rows<S>(b, b_m, nt * 8, kk * 16, lane);
-      mma16816(s[nt], a, b);
-    }
-  }
-}
-
-// acc[dt] (16 rows x D) += P (16 x 64, from C fragments) . m (64 x D in smem)
-template <int D, int S>
-__device__ __forceinline__ void p_times(float (&acc)[D / 8][4],
-                                        const float (&p)[8][4], const bf16* m,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      uint32_t b[2];
-      frag_b_cols<S>(b, m, kk * 16, dt * 8, lane);
-      mma16816(acc[dt], a, b);
-    }
-  }
-}
-
-// Store this warp's 16 x D f32 accumulator rows (times `mul`) as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4],
-                                           int row_g, int rows, float mul0,
-                                           float mul1, int lane) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_g + 8 * r;
-    if (row >= rows) continue;
-    const float mul = r ? mul1 : mul0;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = dt * 8 + (lane & 3) * 2;
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col) =
-          pack_bf16(acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Hopper kernels: shared layout of fwd_kernel and dkv_kernel
+// Shared layout of the three kernels
 // ---------------------------------------------------------------------------
 
-// Ring depths: a forward warpgroup holds two stages (K of one tile, V of
-// the one before), a dK/dV warpgroup one.  Block shape and depths are the
+// Ring depths: a forward or dQ warpgroup holds two stages (the score
+// products' tile and the one before it, whose V or K its register product
+// still reads), a dK/dV warpgroup one.  Block shape and depths are the
 // fastest measured (benchmarks/flash_variants.py; PERF.md).
 constexpr int kFwdStages = 4;
+constexpr int kDqStages = 4;
 constexpr int kDkvStages = 2;
 constexpr int kConsumers = 2;                  // consumer warpgroups a block
 constexpr int kBlockRows = 64 * kConsumers;    // rows a block owns
@@ -195,7 +122,8 @@ struct FwdSmem {
       1024 + kQ + kFwdStages * 2 * kKV + (1 + 2 * kFwdStages) * 8;
 };
 
-// S (64 x 64) = this warpgroup's Q rows . the staged K tile^T, issued.
+// S (64 x 64) = this warpgroup's Q rows . the staged K tile^T, issued; dQ
+// issues dP = its dO rows . the staged V tile^T through it too.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
@@ -204,7 +132,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_addr, uint3
                  kk);
 }
 
-// O += P (registers, bf16) . the staged V tile, issued.
+// O += P (registers, bf16) . the staged V tile, issued; dQ issues dQ +=
+// dS . the staged K tile through it too.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[4][4],
                                          uint32_t v_addr) {
@@ -582,86 +511,198 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (q tile, bh); loop over key tiles up to the diagonal.
+// dQ: one block per (bh, 128-row query tile), the last tiles first; the
+// producer streams K/V tiles up to the diagonal.  Each consumer warpgroup
+// owns 64 query rows, so no two write the same dQ row.  Per key tile a
+// warpgroup issues S and dP (both from shared memory), turns them into dS in
+// registers and adds dS.K into its accumulator, reading the staged K tile a
+// second time, MN-major.  FlashAttention-3 folds dQ into the dK/dV kernel
+// through f32 atomics instead; this kernel keeps the TPU package's split
+// (bits that do not change from run to run, dK/dV untouched) and pays for
+// it with S and dP computed a second time.
 // ---------------------------------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct DqSmem {
+  static constexpr int kQ = kBlockRows * D * 2;  // the block's Q or dO tile, bytes
+  static constexpr int kKV = kTile * D * 2;      // one K or V tile of a stage
+  static constexpr size_t kBytes =
+      1024 + 2 * kQ + kDqStages * 2 * kKV + (1 + 2 * kDqStages) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
           const float* __restrict__ lse, const float* __restrict__ corr,
-          bf16* __restrict__ dq, int tq, int tk, int q_start, int k_start,
-          float scale, int causal) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = qs + kTile * S;
-  bf16* ks = gs + kTile * S;
-  bf16* vs = ks + kTile * S;
+          bf16* __restrict__ dq, int tq, int tk, int q_start, int k_start, float scale,
+          int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1024(smem_raw);
+  unsigned char* sg = sq + L::kQ;   // the block's dO tile
+  unsigned char* skv = sg + L::kQ;  // stage s: K at s * 2 kKV, V kKV after it
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(skv + kDqStages * 2 * L::kKV);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + kDqStages;
 
-  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // longest first
+  const int q_last = q_start + min(q0 + kBlockRows, tq) - 1;
+  int n_kv = (tk + kTile - 1) / kTile;
+  if (causal) n_kv = min(n_kv, q_last >= k_start ? (q_last - k_start) / kTile + 1 : 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(qg_full, 2 * L::kQ);
+      tma_load_rows<D>(sq, &tm_q, kBlockRows, q0, bh, qg_full);
+      tma_load_rows<D>(sg, &tm_do, kBlockRows, q0, bh, qg_full);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % kDqStages;
+        mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
+        unsigned char* sk = skv + s * 2 * L::kKV;
+        tma_load_rows<D>(sk, &tm_k, kTile, it * kTile, bh, &full[s]);
+        tma_load_rows<D>(sk + L::kKV, &tm_v, kTile, it * kTile, bh, &full[s]);
+      }
+    }
+    return;
+  }
+
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1;  // rows [64 w, 64 w + 64) of the block
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * tq * D;
-  dout += (size_t)bh * tq * D;
-  dq += (size_t)bh * tq * D;
-  lse += (size_t)bh * tq;
-  corr += (size_t)bh * tq;
-  k += (size_t)bh * tk * D;
-  v += (size_t)bh * tk * D;
-
-  load_tile<D, S>(qs, q, q0, tq);
-  load_tile<D, S>(gs, dout, q0, tq);
-  const int row_g = q0 + warp * 16 + g;
+  const int q0w = q0 + 64 * w;
+  const bool rows_in = q0w < tq;
+  const int q_last_w = q_start + min(q0w + 64, tq) - 1;
+  const int row_g = q0w + warp * 16 + g;  // row g; row g+8 is +8
   const int qpos0 = q_start + row_g;
-  const int q_last = q_start + min(q0 + kTile, tq) - 1;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_addr = smem_u32(sq) + w * 64 * 128, g_addr = smem_u32(sg) + w * 64 * 128;
+  // the key tiles these 64 rows see are a prefix of the block's
+  int n_own = rows_in ? n_kv : 0;
+  if (causal && rows_in)
+    n_own = min(n_kv, q_last_w >= k_start ? (q_last_w - k_start) / kTile + 1 : 0);
+
+  // lse (in log2 units) and corr of this thread's two rows, for every tile
   float lse_r[2], corr_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const bool in = row_g + 8 * r < tq;
-    lse_r[r] = in ? lse[row_g + 8 * r] : 0.f;
-    corr_r[r] = in ? corr[row_g + 8 * r] : 0.f;
+    const int row = row_g + 8 * r;
+    lse_r[r] = row < tq ? lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+    corr_r[r] = row < tq ? corr[(size_t)bh * tq + row] : 0.f;
   }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq_acc[dt][i] = 0.f;
 
-  for (int k0 = 0; k0 < tk; k0 += kTile) {
-    if (causal && k_start + k0 > q_last) break;
-    __syncthreads();
-    load_tile<D, S>(ks, k, k0, tk);
-    load_tile<D, S>(vs, v, k0, tk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_by_rows<D, S>(s, qs, warp * 16, ks, lane);
-    rows_by_rows<D, S>(dp, gs, warp * 16, vs, lane);
+  auto k_tile = [&](int it) { return smem_u32(skv + (it % kDqStages) * 2 * L::kKV); };
+  auto wait_full = [&](int it) {
+    mbar_wait(&full[it % kDqStages], (it / kDqStages) & 1);
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % kDqStages]);
+  };
+  auto issue_scores = [&](float (&sc)[32], float (&dp)[32], int it) {
+    issue_qk<D>(sc, q_addr, k_tile(it));           // S = Q.K^T
+    issue_qk<D>(dp, g_addr, k_tile(it) + L::kKV);  // dP = dO.V^T
+  };
+  // dS (unscaled) of key tile k0 in place of S: p = 2^(s scale log2 e - lse
+  // log2 e), set to 0 where masked before it multiplies anything (a row
+  // whose lse is the sentinel would give inf there), times dP + corr.
+  // Rows past tq need no mask: their dQ rows are dropped at the store.
+  auto grad_scores = [&](float (&sc)[32], const float (&dp)[32], int k0) {
+    const bool need_mask =
+        (causal && k_start + k0 + kTile - 1 > q_start + q0w) || k0 + kTile > tk;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int col = k0 + nt * 8 + t * 2 + (i & 1);
-        const bool ok = row_g + 8 * r < tq && col < tk &&
-                        (!causal || k_start + col <= qpos0 + 8 * r);
-        const float p = ok ? expf(s[nt][i] * scale - lse_r[r]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] + corr_r[r]);  // dS, unscaled
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(sc[i], scale_log2, -lse_r[r]));
+      if (need_mask) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool ok = col < tk && (!causal || k_start + col <= qpos0 + 8 * r);
+        p = ok ? p : 0.f;
       }
-    p_times<D, S>(dq_acc, s, ks, lane);  // dQ += dS . K
-  }
-  store_rows<D>(dq, dq_acc, row_g, tq, scale, scale, lane);
-}
+      sc[i] = p * (dp[i] + corr_r[r]);
+    }
+  };
 
+  float acc[D / 2];
+  zero(acc);
+  mbar_wait(qg_full, 0);
+
+  // Software pipeline inside the warpgroup: S and dP of key tile it run on
+  // the tensor cores while dS of tile it - 1 is packed and dS.K of it is
+  // issued, and dS.K of tile it - 1 while dS of tile it is computed.
+  if (n_own > 0) {
+    float sc[32], dp[32];
+    uint32_t da[4][4];
+    wait_full(0);
+    zero(sc);
+    zero(dp);
+    wgmma_fence();
+    issue_scores(sc, dp, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    grad_scores(sc, dp, 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], sc, kk);
+    for (int it = 1; it < n_own; ++it) {
+      wait_full(it);
+      wgmma_fence();
+      issue_scores(sc, dp, it);
+      wgmma_commit();
+      issue_pv<D>(acc, da, k_tile(it - 1));  // dQ += dS . K of tile it - 1
+      wgmma_commit();
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_regs(acc);
+      wgmma_wait<1>();  // S and dP of tile it are done; dS.K of it - 1 may run
+      fence_regs(sc);
+      fence_regs(dp);
+      grad_scores(sc, dp, it * kTile);
+      fence_regs(sc);  // dS is computed while dS.K runs, not after it
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sc);  // da of tile it - 1 is rewritten only once dS.K is done
+      release(it - 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], sc, kk);
+    }
+    wgmma_fence();
+    issue_pv<D>(acc, da, k_tile(n_own - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(n_own - 1);
+  }
+  for (int it = n_own; it < n_kv; ++it) {  // past these rows' diagonal
+    wait_full(it);
+    release(it);
+  }
+
+  if (!rows_in) return;
+  store_acc<D>(dq + (size_t)bh * tq * D, acc, row_g, tq, scale, scale, t);
+}
 
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
-
-template <int D>
-constexpr size_t dq_smem() { return 4 * kTile * (D + 8) * sizeof(bf16); }
 
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -703,14 +744,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* corr, void* dq, int bh, int tq,
               int tk, int q_start, int k_start, float scale, int causal,
               cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  int err = prepare(dq_kernel<D>, smem);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map(&tm_q, q, bh, tq, D, kBlockRows);
+  if (!err) err = encode_rows_map(&tm_do, dout, bh, tq, D, kBlockRows);
+  if (!err) err = encode_rows_map(&tm_k, k, bh, tk, D, kTile);
+  if (!err) err = encode_rows_map(&tm_v, v, bh, tk, D, kTile);
+  if (!err) err = prepare(dq_kernel<D>, DqSmem<D>::kBytes);
   if (err) return err;
-  dim3 grid((tq + kTile - 1) / kTile, bh);
-  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)corr, (bf16*)dq, tq, tk, q_start,
-      k_start, scale, causal);
+  dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
+  dq_kernel<D><<<grid, kSm90Threads, DqSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (bf16*)dq, tq, tk,
+      q_start, k_start, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -737,7 +781,7 @@ template <int D>
 int flash_occupancy(int which, int* out) {
   if (which == 0) return occupancy(fwd_kernel<D>, FwdSmem<D>::kBytes, kSm90Threads, out);
   if (which == 1) return occupancy(dkv_kernel<D>, DkvSmem<D>::kBytes, kSm90Threads, out);
-  if (which == 2) return occupancy(dq_kernel<D>, dq_smem<D>(), kThreads, out);
+  if (which == 2) return occupancy(dq_kernel<D>, DqSmem<D>::kBytes, kSm90Threads, out);
   return kBadHeadDim;
 }
 

@@ -1,8 +1,10 @@
-// Tile and fragment helpers shared by the flash-attention kernels
-// (flash_attention.cu) and the roofline's microkernels that time their parts
-// (attention_components.cu), so both run the same instructions: 64-row tiles,
-// 128-thread blocks of four warps of 16 rows, mma.sync.m16n8k16 with bf16
-// operands and f32 accumulators, and rows spread over four lanes.
+// Tile and fragment helpers of the roofline's microkernels
+// (attention_components.cu): 64-row tiles, 128-thread blocks of four warps
+// of 16 rows, mma.sync.m16n8k16 with bf16 operands and f32 accumulators,
+// and rows spread over four lanes.  This is the port's first flash tile; no
+// flash kernel runs it any more (flash_attention.cu is on wgmma through
+// sm90_tile.cuh, which takes only the tile size, pack_bf16 and the quad
+// reductions from here).
 
 #pragma once
 

@@ -1,21 +1,22 @@
-// Hopper (sm_90a) building blocks of the redesigned flash kernels
-// (flash_attention.cu: fwd_kernel and dkv_kernel): TMA tile loads through
-// 3-D tensor maps, mbarrier rings, warpgroup matrix products (wgmma) with
-// operands in 128-byte-swizzled shared memory, and register reallocation
-// between a producer and its consumer warpgroups.  The dQ kernel and the
-// roofline's microkernels keep to mma_tile.cuh alone.
+// Hopper (sm_90a) building blocks of the flash kernels (flash_attention.cu:
+// fwd_kernel, dkv_kernel and dq_kernel): TMA tile loads through 3-D tensor
+// maps, mbarrier rings, warpgroup matrix products (wgmma) with operands in
+// 128-byte-swizzled shared memory, and register reallocation between a
+// producer and its consumer warpgroups.  The roofline's microkernels
+// (attention_components.cu) keep to mma_tile.cuh alone.
 //
 // Shared-memory tiles: TMA writes a box of R rows x 64 bf16 columns (128
 // bytes a row) with the 128-byte swizzle, so 16-byte chunk c of row r lands
 // at r * 128 + ((c ^ (r % 8)) * 16), from a 1024-byte-aligned base.  A head
 // dim of 128 is two such boxes side by side (columns 0-63, then 64-127),
 // R * 128 bytes apart.  wgmma reads the same layout through a descriptor:
-//   K-major (the contracted dim is the row's 64 columns: Q.K^T, K.Q^T,
-//   V.dO^T): start + 32 bytes per 16-column step, 8-row groups 1024 bytes
-//   apart (SBO); steps 4-7 of D = 128 start in the second box.
-//   MN-major (the contracted dim runs down the rows: P.V, P^T.dO, dS^T.Q):
-//   start + 2048 bytes per 16-row step, 8-row groups 1024 bytes apart (SBO),
-//   64-column boxes R * 128 bytes apart (LBO), and the transpose bit set.
+//   K-major (the contracted dim is the row's 64 columns: Q.K^T, dO.V^T,
+//   K.Q^T, V.dO^T): start + 32 bytes per 16-column step, 8-row groups 1024
+//   bytes apart (SBO); steps 4-7 of D = 128 start in the second box.
+//   MN-major (the contracted dim runs down the rows: P.V, dS.K, P^T.dO,
+//   dS^T.Q): start + 2048 bytes per 16-row step, 8-row groups 1024 bytes
+//   apart (SBO), 64-column boxes R * 128 bytes apart (LBO), and the
+//   transpose bit set.
 
 #pragma once
 

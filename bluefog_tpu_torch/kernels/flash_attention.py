@@ -12,9 +12,9 @@ wrapper        replaces                                 plain version
 ``flash_dq``   ``_bwd_dq_kernel`` (:575)                ``flash_dq_plain``
 =============  =======================================  ===================
 
-The forward and dK/dV kernels are built for Hopper (``wgmma`` products,
-TMA-fed tile rings, 128-row blocks of two consumer warpgroups, launched
-longest chain first); dQ keeps the first ``mma.sync`` design.
+All three kernels are built for Hopper (``wgmma`` products, TMA-fed tile
+rings, 128-row blocks of two consumer warpgroups, launched longest chain
+first).
 :func:`launch_order` says which 64 x 64 tiles each block of a launch
 computes, in the order the card is handed the blocks.
 
@@ -64,7 +64,7 @@ _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
 _HEAD_DIMS = (64, 128)
-_BLOCK_ROWS = {"fwd": 128, "dkv": 128, "dq": 64}  # rows a block owns
+_BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 
 # Kernel launches per wrapper since the last reset_launches().  Only a
 # launch of the CUDA kernel counts; a plain-version call does not.
@@ -316,11 +316,11 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
     ``rows`` is the queries (fwd, dq) or keys (dkv) a block owns.
 
     Mirrors the launchers' index arithmetic in ``csrc/flash_attention.cu``:
-    the forward's grid is (head, query tile of 128 rows walked from the
-    last), dK/dV's (head, key tile of 128 rows from the first), so the
-    longest chains of every head come first; dQ's is (query tile of 64
-    rows, head).  A warpgroup's 64 rows skip the tiles they see nothing
-    of, so every tile with a visible pair is computed once."""
+    the forward's and dQ's grid is (head, query tile of 128 rows walked
+    from the last), dK/dV's (head, key tile of 128 rows from the first), so
+    the longest chains of every head come first.  A warpgroup's 64 rows
+    skip the tiles they see nothing of, so every tile with a visible pair
+    is computed once."""
     n_q, n_k = -(-tq // _BLOCK), -(-tk // _BLOCK)
 
     def visible(qi, kj):
@@ -334,11 +334,11 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
             return n_k
         return min(n_k, (q_last - k_start) // _BLOCK + 1 if q_last >= k_start else 0)
 
-    if kernel not in _BLOCK_ROWS:
+    if kernel not in launches:
         raise ValueError(f"launch_order: unknown kernel {kernel!r}")
-    rows = _BLOCK_ROWS[kernel]
+    rows = _BLOCK_ROWS
     blocks = []
-    if kernel == "fwd":
+    if kernel in ("fwd", "dq"):
         n = -(-tq // rows)
         for y in range(n):
             tile = n - 1 - y
@@ -346,7 +346,7 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
             for h in range(bh):
                 blocks.append((h, [(qi, kj) for kj in range(keys_reached((tile + 1) * rows))
                                    for qi in slabs if visible(qi, kj)]))
-    elif kernel == "dkv":
+    else:  # dkv
         n = -(-tk // rows)
         for tile in range(n):
             first = k_start + tile * rows - q_start
@@ -356,10 +356,6 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
             for h in range(bh):
                 blocks.append((h, [(qi, kj) for qi in range(it0, n_q)
                                    for kj in slabs if visible(qi, kj)]))
-    else:  # dq
-        for h in range(bh):
-            for qi in range(n_q):
-                blocks.append((h, [(qi, kj) for kj in range(keys_reached((qi + 1) * rows))]))
     return blocks, rows
 
 

@@ -8,16 +8,18 @@ Phases, each printing one JSON line:
                nvcc builds of csrc/flash_attention.cu (with the headers
                sm90_tile.cuh and mma_tile.cuh) and
                csrc/attention_components.cu, side by side (seconds, ptxas);
-               the forward and dK/dV kernels, redesigned for Hopper, must
-               hold wgmma (HGMMA) and TMA loads (UTMALDG) in their SASS
-               where cuobjdump is found.
-2. kernels  -- each CUDA kernel (flash fwd and dK/dV on wgmma and TMA, dQ
-               on mma.sync) against its plain
+               the three flash kernels, built for Hopper, must hold wgmma
+               (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA) in
+               their SASS where cuobjdump is found.
+2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
+               against its plain
                PyTorch version on the same bf16 inputs, over seven cases
                (the main path's shape, two ring hops with q_start > k_start,
                a fully masked hop, non-causal, D = 128, a ragged length);
-               then times at the main path's shape beside the bound, the
-               plain version and scaled_dot_product_attention.
+               then times at the main path's shape (between events around
+               eager calls, and by CUDA-graph replay, which leaves out the
+               wrappers' host time) beside the bound, the plain version and
+               scaled_dot_product_attention.
 3. model    -- a small LlamaLM whose attention runs through the kernels,
                against the same weights with the model's dense attention
                in f32, beside dense attention in bf16: loss and gradients.
@@ -149,10 +151,10 @@ def phase_device(torch, _build, fa, ac):
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found"})
-    for kname in ("fwd_kernel", "dkv_kernel") if sass else ():
+    for kname in ("fwd_kernel", "dkv_kernel", "dq_kernel") if sass else ():
         ops = sass.get(kname, {})
-        check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
-              f"device: {kname} holds no wgmma or no TMA load ({ops})")
+        check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
+              f"device: {kname} holds no wgmma, no TMA load, or mma.sync ({ops})")
     return smi
 
 
@@ -168,6 +170,8 @@ def _case_inputs(torch, gen, bh, t, d):
 def phase_kernels(torch, fa):
     """Kernel vs plain on each case; returns per-kernel max error and the
     main-path-shape inputs for timing."""
+    from bluefog_tpu_torch.profiling import graph_seconds
+
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -242,11 +246,15 @@ def phase_kernels(torch, fa):
     bh, t, d = q.shape
     kw = dict(scale=1.0 / math.sqrt(d), causal=True)
     counts_before = dict(fa.launches)
-    ms = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, 0, 0, **kw)),
-        "dkv": cuda_ms(lambda: fa.flash_dkv(q, k, v, g, lse, corr, 0, 0, **kw)),
-        "dq": cuda_ms(lambda: fa.flash_dq(q, k, v, g, lse, corr, 0, 0, **kw)),
+    calls = {
+        "fwd": lambda: fa.flash_fwd(q, k, v, 0, 0, **kw),
+        "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, 0, 0, **kw),
+        "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, 0, 0, **kw),
     }
+    ms = {kname: cuda_ms(fn) for kname, fn in calls.items()}
+    # at ~0.05 ms a call the eager reading partly times the wrappers' host
+    # work (tensor-map encodes); a graph replays the launches without it
+    graph_ms = {kname: graph_seconds(fn, calls=20) * 1e3 for kname, fn in calls.items()}
     plain_ms = {
         "fwd": cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, 0, 0, **kw), iters=5),
         "dkv": cuda_ms(lambda: fa.flash_dkv_plain(q, k, v, g, lse, corr, 0, 0, **kw), iters=5),
@@ -286,12 +294,14 @@ def phase_kernels(torch, fa):
         flops, nbytes = work[kname]
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         table[kname] = {
-            "max_abs_err": errs[kname], "ms": ms[kname], "plain_ms": plain_ms[kname],
+            "max_abs_err": errs[kname], "ms": ms[kname], "graph_ms": graph_ms[kname],
+            "plain_ms": plain_ms[kname],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": sdpa_fwd if kname == "fwd" else None,
         }
         timing[f"{kname}_ms"] = ms[kname]
+        timing[f"{kname}_graph_ms"] = graph_ms[kname]
         timing[f"{kname}_plain_ms"] = plain_ms[kname]
         timing[f"{kname}_bound_ms"] = table[kname]["bound_ms"]
         timing[f"{kname}_tflops"] = flops / (ms[kname] * 1e-3) / 1e12

@@ -7,6 +7,7 @@ that has only torch:
 """
 
 import importlib
+import re
 
 import pytest
 import torch
@@ -57,7 +58,8 @@ def _close_lse(got, want):
     (320, 320, 0, 512, True),
     (320, 192, 128, 0, True), (192, 448, 0, 0, False),    # tq != tk
     (200, 200, 0, 0, True), (40, 40, 0, 0, True),          # T % 128 != 0, T < 64
-    (200, 200, 37, 0, True), (256, 320, 0, 45, True)])     # offsets not on a tile
+    (200, 200, 37, 0, True), (256, 320, 0, 45, True),      # offsets not on a tile
+    (600, 600, 0, 0, True)])                               # 10 key tiles: rings wrap
 def test_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(d + tq + tk + q_start + k_start)
     q, g = (torch.randn(4, tq, d, generator=gen, device=cuda_device).bfloat16()
@@ -81,18 +83,17 @@ def test_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, 
 
 
 def test_redesigned_kernels_run_on_wgmma_and_tma(cuda_device):
-    """The forward and dK/dV kernels' SASS holds warpgroup products (HGMMA)
-    and TMA tile loads (UTMALDG) at both head dims; dQ keeps mma.sync."""
+    """Every flash kernel's SASS holds warpgroup products (HGMMA) and TMA
+    tile loads (UTMALDG) at both head dims, and no mma.sync (HMMA)."""
     funcs = _build.sass("flash_attention")
     if funcs is None:
         pytest.skip("cuobjdump not found")
-    for kernel in ("fwd_kernel", "dkv_kernel"):
+    for kernel in ("fwd_kernel", "dkv_kernel", "dq_kernel"):
         bodies = [body for name, body in funcs.items() if kernel in name]
         assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
         for body in bodies:
             assert "HGMMA" in body and "UTMALDG" in body
-    dq = [body for name, body in funcs.items() if "dq_kernel" in name]
-    assert dq and all("HMMA" in body and "HGMMA" not in body for body in dq)
+            assert not re.search(r"\bHMMA\b", body)
 
 
 def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
@@ -145,7 +146,7 @@ def test_matched_smem_holds_the_flash_kernels_blocks_per_sm(cuda_device):
     for kname, d in (("fwd", 64), ("dkv", 64), ("dq", 128)):
         flash = fa.occupancy(kname, d)
         assert flash["blocks_per_sm"] >= 1 and flash["regs"] > 0
-        assert flash["threads"] == (128 if kname == "dq" else 384)
+        assert flash["threads"] == 384
         chain, kw = roof.MODELS[kname][2]
         for name, ckw in (("qk", {}), ("pv", {}), (chain, kw)):
             smem = roof.matched_smem(name, ckw, d, flash)

@@ -1,8 +1,8 @@
 """The flash kernels' launch order (``flash_attention.launch_order``) on the
 CPU: every visited 64 x 64 tile is computed exactly once, the totals match
-the roofline's tile counts, the forward and dK/dV hand the card their
-longest chains first across all heads, dQ keeps its tile-major order, and
-the roofline's schedule model reads the same order."""
+the roofline's tile counts, every kernel hands the card its longest
+chains first across all heads, dQ walks the forward's order, and the
+roofline's schedule model reads the same order."""
 
 import importlib
 import math
@@ -37,7 +37,7 @@ def _visible_tiles(tq, tk, q_start, k_start, causal):
 def test_every_visible_tile_is_computed_once(kernel, tq, tk, q_start, k_start, causal):
     bh = 3
     blocks, rows = fa.launch_order(kernel, tq, tk, q_start, k_start, causal, bh=bh)
-    assert rows == (64 if kernel == "dq" else 128)
+    assert rows == 128
     n_rows = tk if kernel == "dkv" else tq
     assert len(blocks) == bh * -(-n_rows // rows)
     want = _visible_tiles(tq, tk, q_start, k_start, causal)
@@ -55,14 +55,14 @@ def test_totals_match_the_roofline_tile_counts(kernel, T, q_start, k_start):
         roof.tile_counts(T, 64, q_start, k_start))
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("tq,tk,q_start,k_start,causal", CASES)
 def test_longest_chains_launch_first_across_heads(kernel, tq, tk, q_start, k_start, causal):
     """Chain length is the steps a block takes in sequence: the key tiles a
-    forward block walks, the query tiles a dK/dV block walks (its two
+    forward or dQ block walks, the query tiles a dK/dV block walks (its two
     slabs take each step side by side)."""
     blocks, _ = fa.launch_order(kernel, tq, tk, q_start, k_start, causal, bh=4)
-    walked = 1 if kernel == "fwd" else 0
+    walked = 0 if kernel == "dkv" else 1
     lengths = [len({pair[walked] for pair in tiles}) for _, tiles in blocks]
     assert lengths == sorted(lengths, reverse=True)
     # heads fastest: the first blocks are the same tile of every head
@@ -70,21 +70,25 @@ def test_longest_chains_launch_first_across_heads(kernel, tq, tk, q_start, k_sta
 
 
 @pytest.mark.parametrize("tq,tk,q_start,k_start,causal", CASES)
-def test_dq_order_is_unchanged(tq, tk, q_start, k_start, causal):
-    """One block a 64-row query tile, tiles fastest and heads slowest, each
-    walking the key tiles from 0 up to the causal break."""
+def test_dq_order_walks_the_last_slabs_first(tq, tk, q_start, k_start, causal):
+    """dQ's blocks own 128 query rows, the last first and heads fastest: the
+    first block is the last 128-row slab of head 0, the next the same slab
+    of head 1.  Each of a block's two 64-row slabs walks the key tiles from
+    0 up to its own causal break, in key order."""
     blocks, _ = fa.launch_order("dq", tq, tk, q_start, k_start, causal, bh=2)
     n_q, n_k = -(-tq // 64), -(-tk // 64)
-    assert [(h, tiles[0][0] if tiles else None) for h, tiles in blocks][:1] in (
-        [(0, 0)], [(0, None)])
-    i = 0
-    for h in range(2):
-        for qi in range(n_q):
-            head, tiles = blocks[i]
-            i += 1
+    n = -(-tq // 128)
+    assert len(blocks) == 2 * n
+    assert blocks == fa.launch_order("fwd", tq, tk, q_start, k_start, causal, bh=2)[0]
+    for i, (head, tiles) in enumerate(blocks):
+        tile = n - 1 - i // 2
+        assert head == i % 2
+        for qi in (2 * tile, 2 * tile + 1):
+            if qi >= n_q:
+                continue
             q_last = q_start + min(qi * 64 + 64, tq) - 1
             want = [kj for kj in range(n_k) if not causal or k_start + kj * 64 <= q_last]
-            assert head == h and tiles == [(qi, kj) for kj in want]
+            assert [kj for q, kj in tiles if q == qi] == want
 
 
 def test_forward_walks_each_slab_up_to_the_diagonal_in_key_order():
