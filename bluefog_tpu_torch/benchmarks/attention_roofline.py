@@ -23,9 +23,10 @@ enough dynamic shared memory reserved that no more blocks sit on an SM than
 the flash kernel's do, on the flash kernel's grid rounded up to whole waves
 of resident blocks (so its time holds no tail), and its launch time is
 slope-timed over ``REPS[0]`` to ``REPS[2]`` repetitions and divided by the
-blocks.  ``linearity`` is the slope over the upper half of the rep counts
-over the slope over the lower half (1 when every repetition costs the same,
-well below 1 if the compiler hoisted work out of the loop).  Each component
+tiles computed (``attention_components.TILES_PER_BLOCK`` a block).
+``linearity`` is the slope over the upper half of the rep counts over the
+slope over the lower half (1 when every repetition costs the same, well
+below 1 if the compiler hoisted work out of the loop).  Each component
 is timed once more with its product or chain removed, the dependency pass
 alone (``dep_us``, ``dep_share``); the bands carry it, as the TPU's do.
 
@@ -40,12 +41,14 @@ rows of its longest blocks alone (``longest_block_calls``), replayed from a
 CUDA graph: such a launch is shorter than its wrapper's host time, which
 events around eager calls would time instead.
 
-The microkernels repeat the port's first (``mma.sync``) tile, which no
-flash kernel runs any more: all three are on ``wgmma``; each row says so
-(``tile_design``, ``component_tile``).  The bands, ``sched`` and
-``longest_block_ms`` price every kernel's tiles at that old tile's rate, so
-only ``measured_ms`` and ``longest_block_measured_ms`` describe the kernels
-that run.
+The product microkernels (qk, pv) run the flash kernels' own tile: the
+same ``wgmma`` products on the same swizzled shared-memory layout, in the
+same block of two consumer warpgroups, one block a SM.  The chains still
+run the port's first tile (four warps, one tile a block), which no flash
+kernel runs any more; each row says which tile each component times
+(``tile_design``, ``component_tile``).  So the product part of every band,
+``sched`` and ``longest_block_ms`` describes the kernels that run, and the
+chain part the old tile's rate.
 
 Unlike the JAX script, nothing is subtracted from a measured time: the card
 times each flash kernel alone, between CUDA events.  The script's
@@ -101,8 +104,7 @@ MODELS = {  # flash kernel -> (qk products, pv products, (chain, its arguments))
     "dq": (2, 1, ("bwd_chain", {"cast_p": False})),
 }
 WRAPPERS = {name: getattr(ac, f"{name}_component") for name in ac.PLAIN}
-# What each flash kernel's tile runs on, and what the microkernels time
-# (the first, mma.sync tile: see the module docstring).
+# What each flash kernel's tile runs on.
 TILE_DESIGN = {
     "fwd": "wgmma m64n64k16 (S) + m64nDk16 (P.V, P from registers); TMA ring; "
            "2 consumer warpgroups, 128 query rows a block; longest first",
@@ -111,8 +113,10 @@ TILE_DESIGN = {
     "dq": "wgmma m64n64k16 (S, dP) + m64nDk16 (dQ += dS.K, A from registers, K read "
           "MN-major); TMA ring; 2 consumer warpgroups, 128 query rows a block; longest first",
 }
-COMPONENT_TILE = ("mma.sync m16n8k16 (the port's first tile, which no flash kernel runs; "
-                  "every band describes it)")
+# What each microkernel's tile runs on (see the module docstring).
+COMPONENT_TILE = {"qk": "wgmma, 2 consumer warpgroups", "pv": "wgmma, 2 consumer warpgroups",
+                  "softmax_chain": "4-warp block, one tile; redesign queued (ROADMAP K1b)",
+                  "bwd_chain": "4-warp block, one tile; redesign queued (ROADMAP K1b)"}
 
 
 def tile_counts(T: int, tile: int = TILE, q_start: int = 0,
@@ -225,10 +229,10 @@ def whole_waves(grid: int, slots: int) -> int:
     return -(-grid // slots) * slots
 
 
-def component_seconds(launch, blocks: int) -> Tuple[float, float]:
+def component_seconds(launch, tiles: int) -> Tuple[float, float]:
     """``(seconds per tile device-wide, linearity)`` of ``launch(reps)``,
-    which enqueues one launch of ``blocks`` blocks; NaN when the slope is
-    not positive in any round."""
+    which enqueues one launch that computes ``tiles`` tiles (blocks x
+    tiles a block); NaN when the slope is not positive in any round."""
     lo, mid, hi = REPS
     launch(lo)
     torch.cuda.synchronize()
@@ -246,7 +250,7 @@ def component_seconds(launch, blocks: int) -> Tuple[float, float]:
     upper = (min(bigs) - min(mids)) / (hi - mid)
     if delta is None or lower <= 0:
         return math.nan, math.nan
-    return delta / (hi - lo) / blocks, upper / lower
+    return delta / (hi - lo) / tiles, upper / lower
 
 
 def measured_seconds(fn, label: str) -> Tuple[float, bool]:
@@ -328,7 +332,7 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
                 def launch(reps, cname=cname, kw=kw, body=body, smem=smem, blocks=blocks):
                     return WRAPPERS[cname](*ops[cname], reps, body=body, blocks=blocks,
                                            smem_bytes=smem, **kw)
-                timed[body] = component_seconds(launch, blocks)
+                timed[body] = component_seconds(launch, blocks * o["tiles_per_block"])
             if any(math.isnan(s) for s, _ in timed.values()):
                 return {"shape": name, "invalid": True,
                         "reason": f"{kname} {cname}: slope not positive in any round"}
@@ -336,7 +340,8 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
             comps[kname][cname] = {
                 "us": s * 1e6, "dep_us": s_dep * 1e6, "dep_share": s_dep / s,
                 "linearity": lin, "bound_us": tile_bound_us(cname, D), "blocks": blocks,
-                "blocks_per_sm": o["blocks_per_sm"], "smem": smem, "regs": o["regs"]}
+                "tiles_per_block": o["tiles_per_block"], "blocks_per_sm": o["blocks_per_sm"],
+                "smem": smem, "regs": o["regs"], "component_tile": COMPONENT_TILE[cname]}
 
     q, k, v, g, lse, corr = flash_inputs(cfg)
     kw = dict(scale=D ** -0.5, causal=True)
@@ -348,7 +353,7 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
            "tiles": tiles, "tiles_per_bh": {"interior": interior, "diagonal": diagonal},
            "flash": flash, "components": comps,
            "tile_design": {k: TILE_DESIGN[k] for k in kernels},
-           "component_tile": COMPONENT_TILE}
+           "component_tile": {c: COMPONENT_TILE[c] for k in kernels for c in comps[k]}}
     for kname in kernels:
         n_qk, n_pv, (chain, _) = MODELS[kname]
         c = comps[kname]

@@ -20,43 +20,73 @@
 //   bwd:     p = exp2(s0 + acc[0, :] - 1.7); ds = p * (dp + 0.3);
 //            f = bf16(ds) + (cast_p ? bf16(p) : p)
 // For D = 128 the Pallas qk body is undefined (acc is only 64 wide); here
-// column j of q takes acc[0, j mod 64].
-//
-// The tiles, fragments and reductions are those of csrc/flash_attention.cu
-// (both include mma_tile.cuh), so each component times the flash kernels' own
-// instructions: 128-thread blocks, four warps of 16 rows, mma.sync.m16n8k16
-// (bf16 in, f32 out), p re-packed from C fragments into A fragments every
-// tile, a row spread over four lanes and reduced with two shuffles.  With
-// body = 0 the product or chain is left out and f is just the fed-back row
-// plus 1: the cost of the dependency pass alone.
-//
-// The dependency pass is a cross-warp broadcast: row 0 lives in warp 0
-// (lanes 0-3), so every repetition publishes it to a ping-pong row buffer in
-// shared memory and takes one block barrier, which also orders the next
-// repetition's write after every warp's read of the other buffer.  The flash
-// kernels take two barriers per key tile themselves.
+// column j of q takes acc[0, j mod 64].  With body = 0 the product or chain
+// is left out and f is just the fed-back row plus 1: the cost of the
+// dependency pass alone.
 //
 // What bounds each on the H100: qk and pv are tensor-core operations
 // (2 * 64 * 64 * D flops a tile against 989 TFLOP/s bf16); the chains are
 // exp2 (the MUFU ex2 unit) and FP32 issue (about 8 f32 operations per element
-// against 67 TFLOP/s).  The flash kernels call expf, which costs more than
-// exp2f; the chains time exp2f, as the TPU bodies time exp2.
+// against 67 TFLOP/s).
 //
-// Every block computes the same tile and writes it to its own slice of out
-// ([blocks, 64, W] f32).  The launch reserves max(need, smem) bytes of
-// dynamic shared memory, so a caller can hold the blocks per SM to those of
-// the flash kernel a component models.  Seconds per tile, device-wide, is
-// then the slope of a launch's time over reps divided by the blocks
-// launched.  Every launcher runs on the caller's stream, allocates nothing
-// and returns the launch's error or cudaGetLastError().
+// qk and pv time the flash kernels' own tile (csrc/flash_attention.cu):
+//   * The block.  One producer warpgroup and two consumer warpgroups
+//     (384 threads, setmaxnreg 24/240, one block a SM by registers).  Each
+//     consumer warpgroup repeats the component on its own 64-row tile and
+//     writes its own slice of out, so a block computes two tiles, as a flash
+//     block does.  The producer stages with the others and then gives its
+//     registers back: the loop reads no device memory, so there is nothing
+//     to stream.
+//   * The products.  qk is issue_qk's: wgmma m64n64k16 with q and k both
+//     K-major in shared memory, in the 128-byte-swizzled 64-column boxes TMA
+//     writes (sm90_tile.cuh); the two warpgroups' q copies sit in one
+//     128-row tile as the forward's Q does, and D = 128 takes k-steps 4-7
+//     from the second box.  pv is issue_pv's: p packed once from the f32
+//     tile into the register A operand (acc_to_a), v MN-major in shared
+//     memory, m64nDk16.
+//   * The fed-back row.  Row 0 of a warpgroup's accumulator lives in its
+//     warp 0 (lanes 0-3).  Every repetition publishes it to the warpgroup's
+//     own ping-pong buffer and takes a named barrier (bar.sync 1 + w, 128);
+//     each thread then rewrites its share of the warpgroup's own copy of the
+//     fed operand (q for qk, v for pv) from the pristine values it keeps in
+//     registers plus the row, fences the generic-proxy stores for the async
+//     proxy (fence.proxy.async.shared::cta) and takes the barrier again, so
+//     the product reads the whole new copy.  The barrier also orders the
+//     next repetition's publish after every read of the other buffer.  No
+//     block-wide barrier sits in the loop.
+//   * body = 0 keeps the publish, both barriers, the rewrite and the fence
+//     (the fence's memory clobber keeps the stores) and drops the wgmma, so
+//     us - dep_us is the product.
+// The chains still run the port's first tile: 128-thread blocks of four warps
+// of 16 rows, one tile a block, a row spread over four lanes and reduced with
+// two shuffles, and one block barrier a repetition around the row broadcast.
+// The flash kernels call ex2.approx.ftz; the chains time exp2f, as the TPU
+// bodies time exp2.
+//
+// Every block computes the same tiles: qk and pv write [2 * blocks, 64, W]
+// f32 (slice 2b + w from warpgroup w of block b), the chains [blocks, 64, 64].
+// The launch reserves max(need, smem) bytes of dynamic shared memory, so a
+// caller can hold the blocks per SM to those of the flash kernel a component
+// models.  Seconds per tile, device-wide, is then the slope of a launch's
+// time over reps divided by the tiles computed.  Every launcher runs on the
+// caller's stream, allocates nothing and returns the launch's error or
+// cudaGetLastError().
 
 #include <math.h>
 
-#include "mma_tile.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
 constexpr int kBadArg = -1;
+
+// The flash kernels' block (flash_attention.cu: kConsumers, kSm90Threads,
+// kProducerRegs, kConsumerRegs; they stay there, where
+// benchmarks/flash_variants.py rewrites them).
+constexpr int kConsumers = 2;
+constexpr int kBlockRows = 64 * kConsumers;
+constexpr int kSm90Threads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
   __nv_bfloat162 r = __hadd2(*reinterpret_cast<__nv_bfloat162*>(&a),
@@ -68,19 +98,272 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// --- staging, the row broadcast, the store ---------------------------------
+// ---------------------------------------------------------------------------
+// qk and pv: the wgmma tile
+// ---------------------------------------------------------------------------
 
-// Copy a row-major [64, W] bf16 matrix into smem with row stride S (16-byte
-// chunks).
-template <int W, int S>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src) {
-  constexpr int kChunks = W / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * S + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * W + c * 8);
+// Byte offset of 16-byte chunk c (columns 8c..8c+7) of row r in a bf16 tile
+// of R-row, 64-column boxes with the 128-byte swizzle, as TMA writes it.
+__device__ __forceinline__ uint32_t swizzled(int r, int c, int rows) {
+  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Make this thread's generic-proxy stores to shared memory visible to wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier of consumer warpgroup w's 128 threads alone (id 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// A row-major [64, D] bf16 matrix into rows row0..row0+63 of a swizzled
+// tile of R-row boxes, by all threads of the block.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, int row0, const bf16* src) {
+  for (int i = threadIdx.x; i < kTile * D / 8; i += blockDim.x) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    *reinterpret_cast<uint4*>(tile + swizzled(row0 + r, c, R)) =
+        *reinterpret_cast<const uint4*>(src + r * D + c * 8);
   }
 }
+
+// The transpose of a row-major [D, 64] bf16 matrix (row n of the tile holds
+// column n of src) into a swizzled tile of 64-row boxes, by all threads.
+template <int D>
+__device__ __forceinline__ void stage_transposed(unsigned char* tile, const bf16* src) {
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(src);
+  for (int i = threadIdx.x; i < kTile * D / 8; i += blockDim.x) {
+    const int n = i % kTile, c = i / kTile;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = (uint32_t)u[(8 * c + 2 * e) * kTile + n] |
+             ((uint32_t)u[(8 * c + 2 * e + 1) * kTile + n] << 16);
+    *reinterpret_cast<uint4*>(tile + swizzled(n, c, kTile)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The fed operand's chunks a consumer thread owns (tid 0..127 of its
+// warpgroup): column chunk tid % (D/8) of every (128 / (D/8))-th row from
+// tid / (D/8); D / 16 chunks, 16 (D = 64) or 32 (D = 128) registers.
+template <int D>
+struct Owned {
+  static constexpr int kChunks = D / 16, kCols = D / 8, kRowStep = 128 / kCols;
+};
+
+template <int D>
+__device__ __forceinline__ void load_owned(uint4 (&mine)[D / 16], const bf16* src, int tid) {
+  using O = Owned<D>;
+#pragma unroll
+  for (int i = 0; i < O::kChunks; ++i) {
+    const int r = tid / O::kCols + i * O::kRowStep;
+    mine[i] = *reinterpret_cast<const uint4*>(src + r * D + (tid % O::kCols) * 8);
+  }
+}
+
+// This thread's share of the fed operand, rewritten in the tile (rows
+// row0..row0+63, R-row boxes): bf16(pristine + bf16(fed[(8c + e) mod W])) for
+// column 8c + e.
+template <int D, int W, int R>
+__device__ __forceinline__ void rewrite_owned(unsigned char* tile, int row0,
+                                              const uint4 (&mine)[D / 16], const float* fed,
+                                              int tid) {
+  using O = Owned<D>;
+  const int c = tid % O::kCols;
+  const float4 a = *reinterpret_cast<const float4*>(fed + (8 * c) % W);
+  const float4 b = *reinterpret_cast<const float4*>(fed + (8 * c) % W + 4);
+  const uint32_t f0 = pack_bf16(a.x, a.y), f1 = pack_bf16(a.z, a.w);
+  const uint32_t f2 = pack_bf16(b.x, b.y), f3 = pack_bf16(b.z, b.w);
+#pragma unroll
+  for (int i = 0; i < O::kChunks; ++i) {
+    const int r = tid / O::kCols + i * O::kRowStep;
+    const uint4 x = mine[i];
+    *reinterpret_cast<uint4*>(tile + swizzled(row0 + r, c, R)) =
+        make_uint4(add_bf16x2(x.x, f0), add_bf16x2(x.y, f1), add_bf16x2(x.z, f2),
+                   add_bf16x2(x.w, f3));
+  }
+}
+
+// A wgmma accumulator (64 x 2N) holds element (16 warp + g + 8h, 8j + 2t + i)
+// in d[4j + 2h + i], g = lane / 4, t = lane % 4.  Row 0 (warp 0, lanes 0-3)
+// into buf.
+template <int N>
+__device__ __forceinline__ void publish_row(float* buf, const float (&d)[N], int warp,
+                                            int lane) {
+  if (warp == 0 && lane < 4) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<float2*>(buf + 8 * j + 2 * lane) = make_float2(d[4 * j], d[4 * j + 1]);
+  }
+}
+
+// The dependency pass alone: d <- 0.5 d + (bf16(row[col]) + 1).
+template <int N>
+__device__ __forceinline__ void dep_pass(float (&d)[N], const float* row, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float2 x = *reinterpret_cast<const float2*>(row + 8 * j + 2 * t);
+    const float f0 = round_bf16(x.x) + 1.f, f1 = round_bf16(x.y) + 1.f;
+    d[4 * j + 0] = fmaf(d[4 * j + 0], 0.5f, f0);
+    d[4 * j + 1] = fmaf(d[4 * j + 1], 0.5f, f1);
+    d[4 * j + 2] = fmaf(d[4 * j + 2], 0.5f, f0);
+    d[4 * j + 3] = fmaf(d[4 * j + 3], 0.5f, f1);
+  }
+}
+
+// A warpgroup's accumulator into out, a row-major [64, 2N] f32 tile.
+template <int N>
+__device__ __forceinline__ void store_acc(float* out, const float (&d)[N], int warp, int lane) {
+  const int row = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(out + (row + 8 * h) * 2 * N + 8 * j + col) =
+          make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+}
+
+// q [64, D] bf16, k [D, 64] bf16 -> out [2 blocks, 64, 64] f32
+template <int D>
+struct QkSmem {
+  static constexpr int kQ = kBlockRows * D * 2;  // both warpgroups' q copies
+  static constexpr int kK = kTile * D * 2;       // k^T, shared
+  static constexpr size_t kBytes = 1024 + kQ + kK + kConsumers * 2 * kTile * sizeof(float);
+};
+
+template <int D, bool kBody>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, float* __restrict__ out,
+          int reps) {
+  using L = QkSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sq = align_1024(smem_raw);  // warpgroup w's q in rows 64w..64w+63
+  unsigned char* sk = sq + L::kQ;
+  float* rows = reinterpret_cast<float*>(sk + L::kK);  // [warpgroup][2][64]
+
+  for (int w = 0; w < kConsumers; ++w) stage_rows<D, kBlockRows>(sq, 64 * w, q);
+  stage_transposed<D>(sk, k);
+  fence_async_smem();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: nothing to stream
+    regs_release<kProducerRegs>();
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  uint4 mine[D / 16];
+  load_owned<D>(mine, q, tid);
+  const uint32_t q_addr = smem_u32(sq) + w * 64 * 128, k_addr = smem_u32(sk);
+  float acc[32], s[32];
+  zero(acc);
+  zero(s);
+  for (int r = 0; r < reps; ++r) {
+    float* row = rows + (2 * w + (r & 1)) * kTile;
+    publish_row(row, acc, warp, lane);
+    wg_sync(w);
+    rewrite_owned<D, kTile, kBlockRows>(sq, 64 * w, mine, row, tid);
+    fence_async_smem();
+    wg_sync(w);
+    if constexpr (!kBody) {
+      dep_pass(acc, row, lane & 3);
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // issue_qk: kk = 0 overwrites s
+        wgmma_ss_n64(s, desc_k_major(q_addr, kBlockRows, kk), desc_k_major(k_addr, kTile, kk),
+                     kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], 0.5f, s[i]);
+    }
+  }
+  store_acc(out + (size_t)(kConsumers * blockIdx.x + w) * kTile * kTile, acc, warp, lane);
+}
+
+// p16 [64, 64] bf16, v [64, D] bf16 -> out [2 blocks, 64, D] f32
+template <int D>
+struct PvSmem {
+  static constexpr int kV = kTile * D * 2;  // one warpgroup's v copy
+  static constexpr size_t kBytes = 1024 + kConsumers * kV + kConsumers * 2 * D * sizeof(float);
+};
+
+template <int D, bool kBody>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+pv_kernel(const bf16* __restrict__ p16, const bf16* __restrict__ v, float* __restrict__ out,
+          int reps) {
+  using L = PvSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sv = align_1024(smem_raw);  // warpgroup w's v at w * kV
+  float* rows = reinterpret_cast<float*>(sv + kConsumers * L::kV);  // [warpgroup][2][D]
+
+  for (int w = 0; w < kConsumers; ++w) stage_rows<D, kTile>(sv + w * L::kV, 0, v);
+  fence_async_smem();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: nothing to stream
+    regs_release<kProducerRegs>();
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  unsigned char* my_v = sv + w * L::kV;
+  uint4 mine[D / 16];
+  load_owned<D>(mine, v, tid);
+  // p as the forward holds it before P.V: an f32 accumulator, packed into
+  // the register A operand (here once).
+  uint32_t pa[4][4];
+  {
+    float p[32];
+    const int row = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p16 + (row + 8 * h) * kTile + 8 * j + col));
+        p[4 * j + 2 * h] = x.x;
+        p[4 * j + 2 * h + 1] = x.y;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], p, kk);
+  }
+  const uint32_t v_addr = smem_u32(my_v);
+  float acc[D / 2];
+  zero(acc);
+  for (int r = 0; r < reps; ++r) {
+    float* row = rows + (2 * w + (r & 1)) * D;
+    publish_row(row, acc, warp, lane);
+    wg_sync(w);
+    rewrite_owned<D, D, kTile>(my_v, 0, mine, row, tid);
+    fence_async_smem();
+    wg_sync(w);
+    if constexpr (!kBody) {
+      dep_pass(acc, row, lane & 3);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= 0.5f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // issue_pv
+        wgmma_rs<D>(acc, pa[kk], desc_mn_major(v_addr, kTile, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+  }
+  store_acc(out + (size_t)(kConsumers * blockIdx.x + w) * kTile * D, acc, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// The chains: the first (mma.sync-layout) tile, one per 128-thread block
+// ---------------------------------------------------------------------------
 
 // A row-major [64, 64] f32 matrix into this warp's C fragments: element
 // (warp*16 + g + 8*(i>>1), nt*8 + 2t + (i&1)) is c[nt][i].
@@ -122,17 +405,16 @@ __device__ __forceinline__ const float* publish_row0(float* buf,
   return buf;
 }
 
-// The dependency pass alone: acc <- 0.5 acc + (fed + 1), fed = row[col],
-// rounded to bf16 where the full body rounds it.
-template <int NT, bool kRound>
+// The dependency pass alone: acc <- 0.5 acc + (fed + 1), fed = row[col].
+template <int NT>
 __device__ __forceinline__ void dep_only(float (&acc)[NT][4], const float* row,
                                          int lane) {
   const int t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const float2 x = *reinterpret_cast<const float2*>(row + nt * 8 + 2 * t);
-    const float f0 = (kRound ? round_bf16(x.x) : x.x) + 1.f;
-    const float f1 = (kRound ? round_bf16(x.y) : x.y) + 1.f;
+    const float f0 = x.x + 1.f;
+    const float f1 = x.y + 1.f;
     acc[nt][0] = fmaf(acc[nt][0], 0.5f, f0);
     acc[nt][1] = fmaf(acc[nt][1], 0.5f, f1);
     acc[nt][2] = fmaf(acc[nt][2], 0.5f, f0);
@@ -157,140 +439,9 @@ __device__ __forceinline__ void store_c(float* out, const float (&c)[NT][4],
 // Keeps the compiler from hoisting arithmetic on a loop-invariant operand.
 __device__ __forceinline__ void opaque(float& x) { asm volatile("" : "+f"(x)); }
 
-// ---------------------------------------------------------------------------
-// qk: q [64, D] bf16, k [D, 64] bf16 -> out [blocks, 64, 64] f32
-// ---------------------------------------------------------------------------
-template <int D>
-constexpr size_t qk_smem() {
-  return 2 * kTile * (D + 8) * sizeof(bf16) + 2 * kTile * sizeof(float);
-}
-
-template <int D, bool kBody>
-__global__ void __launch_bounds__(kThreads)
-qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          float* __restrict__ out, int reps) {
-  constexpr int S = D + 8;  // padded smem row stride, as in the flash kernels
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile * S;  // k transposed: row n holds column n of k
-  float* rows = reinterpret_cast<float*>(ks + kTile * S);  // [2][64]
-
-  stage_rows<D, S>(qs, q);
-  for (int i = threadIdx.x; i < D * kTile; i += kThreads)
-    ks[(i % kTile) * S + i / kTile] = k[i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  float acc[8][4];
-  zero(acc);
-  for (int r = 0; r < reps; ++r) {
-    const float* row = publish_row0(rows + (r & 1) * kTile, acc, warp, lane);
-    if (!kBody) {
-      dep_only<8, true>(acc, row, lane);
-      continue;
-    }
-    float s[8][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<S>(a, qs, warp * 16, kk * 16, lane);
-      const int c = (kk * 16) % kTile + 2 * t;  // q column j takes acc[0, j mod 64]
-      const uint32_t lo = pack_bf16(row[c], row[c + 1]);
-      const uint32_t hi = pack_bf16(row[c + 8], row[c + 9]);
-      a[0] = add_bf16x2(a[0], lo);
-      a[1] = add_bf16x2(a[1], lo);
-      a[2] = add_bf16x2(a[2], hi);
-      a[3] = add_bf16x2(a[3], hi);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b[2];
-        frag_b_rows<S>(b, ks, nt * 8, kk * 16, lane);
-        mma16816(s[nt], a, b);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = fmaf(acc[nt][i], 0.5f, s[nt][i]);
-  }
-  store_c(out + (size_t)blockIdx.x * kTile * kTile, acc, warp, lane);
-}
-
-// ---------------------------------------------------------------------------
-// pv: p16 [64, 64] bf16, v [64, D] bf16 -> out [blocks, 64, D] f32
-// ---------------------------------------------------------------------------
-template <int D>
-constexpr size_t pv_smem() {
-  return kTile * (kTile + 8) * sizeof(bf16) + kTile * (D + 8) * sizeof(bf16) +
-         2 * D * sizeof(float);
-}
-
-template <int D, bool kBody>
-__global__ void __launch_bounds__(kThreads)
-pv_kernel(const bf16* __restrict__ p16, const bf16* __restrict__ v,
-          float* __restrict__ out, int reps) {
-  constexpr int S = D + 8, SP = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ps = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ps + kTile * SP;
-  float* rows = reinterpret_cast<float*>(vs + kTile * S);  // [2][D]
-
-  stage_rows<kTile, SP>(ps, p16);
-  stage_rows<D, S>(vs, v);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
-  // p as the flash kernels hold it before p.V: f32 C fragments, re-packed
-  // into bf16 A fragments every tile.
-  float p[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[nt][i] = __bfloat162float(
-          ps[(warp * 16 + g + 8 * (i >> 1)) * SP + nt * 8 + (lane & 3) * 2 + (i & 1)]);
-
-  float acc[D / 8][4];
-  zero(acc);
-  for (int r = 0; r < reps; ++r) {
-    const float* row = publish_row0(rows + (r & 1) * D, acc, warp, lane);
-    if (!kBody) {
-      dep_only<D / 8, true>(acc, row, lane);
-      continue;
-    }
-    uint32_t fed[D / 8];  // bf16(acc[0, n]) twice, n = dt*8 + g: B's column
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const float x = row[dt * 8 + g];
-      fed[dt] = pack_bf16(x, x);
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[dt][i] *= 0.5f;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b[2];
-        frag_b_cols<S>(b, vs, kk * 16, dt * 8, lane);
-        b[0] = add_bf16x2(b[0], fed[dt]);
-        b[1] = add_bf16x2(b[1], fed[dt]);
-        mma16816(acc[dt], a, b);
-      }
-    }
-  }
-  store_c(out + (size_t)blockIdx.x * kTile * D, acc, warp, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Forward softmax chain: s0 [64, 64] f32 -> out [blocks, 64, 64] f32
-// ---------------------------------------------------------------------------
 constexpr size_t chain_smem() { return 2 * kTile * sizeof(float); }
 
+// Forward softmax chain: s0 [64, 64] f32 -> out [blocks, 64, 64] f32
 template <bool kBody>
 __global__ void __launch_bounds__(kThreads)
 softmax_chain_kernel(const float* __restrict__ s0, float* __restrict__ out,
@@ -306,7 +457,7 @@ softmax_chain_kernel(const float* __restrict__ s0, float* __restrict__ out,
   for (int r = 0; r < reps; ++r) {
     const float* row = publish_row0(rows + (r & 1) * kTile, acc, warp, lane);
     if (!kBody) {
-      dep_only<8, false>(acc, row, lane);
+      dep_only<8>(acc, row, lane);
       continue;
     }
     float s[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -338,10 +489,8 @@ softmax_chain_kernel(const float* __restrict__ s0, float* __restrict__ out,
   store_c(out + (size_t)blockIdx.x * kTile * kTile, acc, warp, lane);
 }
 
-// ---------------------------------------------------------------------------
 // Backward chain: s0, dp [64, 64] f32 -> out [blocks, 64, 64] f32.  The dK/dV
 // kernel rounds both p and dS to bf16 (cast_p); the dQ kernel only dS.
-// ---------------------------------------------------------------------------
 template <bool kCastP, bool kBody>
 __global__ void __launch_bounds__(kThreads)
 bwd_chain_kernel(const float* __restrict__ s0, const float* __restrict__ dp,
@@ -358,7 +507,7 @@ bwd_chain_kernel(const float* __restrict__ s0, const float* __restrict__ dp,
   for (int r = 0; r < reps; ++r) {
     const float* row = publish_row0(rows + (r & 1) * kTile, acc, warp, lane);
     if (!kBody) {
-      dep_only<8, false>(acc, row, lane);
+      dep_only<8>(acc, row, lane);
       continue;
     }
 #pragma unroll
@@ -385,58 +534,64 @@ typedef void (*BinaryFn)(const bf16*, const bf16*, float*, int);
 typedef void (*ChainFn)(const float*, float*, int);
 typedef void (*BwdFn)(const float*, const float*, float*, int);
 
-// The kernel instance of component `which` (0 qk, 1 pv, 2 softmax, 3 bwd)
-// and the shared memory it needs; nullptr for arguments it does not take.
-const void* pick(int which, int d, int cast_p, int body, size_t* need) {
-  if (which == 0 && d == 64) {
-    *need = qk_smem<64>();
-    return body ? (const void*)(BinaryFn)qk_kernel<64, true>
-                : (const void*)(BinaryFn)qk_kernel<64, false>;
-  }
-  if (which == 0 && d == 128) {
-    *need = qk_smem<128>();
-    return body ? (const void*)(BinaryFn)qk_kernel<128, true>
-                : (const void*)(BinaryFn)qk_kernel<128, false>;
-  }
-  if (which == 1 && d == 64) {
-    *need = pv_smem<64>();
-    return body ? (const void*)(BinaryFn)pv_kernel<64, true>
-                : (const void*)(BinaryFn)pv_kernel<64, false>;
-  }
-  if (which == 1 && d == 128) {
-    *need = pv_smem<128>();
-    return body ? (const void*)(BinaryFn)pv_kernel<128, true>
-                : (const void*)(BinaryFn)pv_kernel<128, false>;
-  }
-  *need = chain_smem();
-  if (which == 2)
-    return body ? (const void*)(ChainFn)softmax_chain_kernel<true>
-                : (const void*)(ChainFn)softmax_chain_kernel<false>;
-  if (which == 3 && cast_p)
-    return body ? (const void*)(BwdFn)bwd_chain_kernel<true, true>
-                : (const void*)(BwdFn)bwd_chain_kernel<true, false>;
-  if (which == 3)
-    return body ? (const void*)(BwdFn)bwd_chain_kernel<false, true>
-                : (const void*)(BwdFn)bwd_chain_kernel<false, false>;
-  return nullptr;
+// One kernel instance: the function, the shared memory it needs, its
+// threads and the tiles a block computes.
+struct Instance {
+  const void* fn;
+  size_t need;
+  int threads, tiles;
+};
+
+template <int D>
+Instance qk_instance(int body) {
+  return {body ? (const void*)(BinaryFn)qk_kernel<D, true>
+               : (const void*)(BinaryFn)qk_kernel<D, false>,
+          QkSmem<D>::kBytes, kSm90Threads, kConsumers};
 }
 
-// Allow max(need, smem) bytes of dynamic shared memory for fn; returns the
-// byte count through *bytes.
-int reserve(const void* fn, size_t need, int smem, size_t* bytes) {
-  *bytes = smem > 0 && (size_t)smem > need ? (size_t)smem : need;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int D>
+Instance pv_instance(int body) {
+  return {body ? (const void*)(BinaryFn)pv_kernel<D, true>
+               : (const void*)(BinaryFn)pv_kernel<D, false>,
+          PvSmem<D>::kBytes, kSm90Threads, kConsumers};
+}
+
+// The instance of component `which` (0 qk, 1 pv, 2 softmax, 3 bwd); fn is
+// nullptr for arguments it does not take.
+Instance pick(int which, int d, int cast_p, int body) {
+  if (which == 0 && d == 64) return qk_instance<64>(body);
+  if (which == 0 && d == 128) return qk_instance<128>(body);
+  if (which == 1 && d == 64) return pv_instance<64>(body);
+  if (which == 1 && d == 128) return pv_instance<128>(body);
+  Instance chain = {nullptr, chain_smem(), kThreads, 1};
+  if (which == 2)
+    chain.fn = body ? (const void*)(ChainFn)softmax_chain_kernel<true>
+                    : (const void*)(ChainFn)softmax_chain_kernel<false>;
+  else if (which == 3 && cast_p)
+    chain.fn = body ? (const void*)(BwdFn)bwd_chain_kernel<true, true>
+                    : (const void*)(BwdFn)bwd_chain_kernel<true, false>;
+  else if (which == 3)
+    chain.fn = body ? (const void*)(BwdFn)bwd_chain_kernel<false, true>
+                    : (const void*)(BwdFn)bwd_chain_kernel<false, false>;
+  return chain;
+}
+
+// Allow max(need, smem) bytes of dynamic shared memory for the instance;
+// returns the byte count through *bytes.
+int reserve(const Instance& in, int smem, size_t* bytes) {
+  *bytes = smem > 0 && (size_t)smem > in.need ? (size_t)smem : in.need;
+  return (int)cudaFuncSetAttribute(in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*bytes);
 }
 
 int launch(int which, int d, int cast_p, int body, int blocks, int smem,
            int reps, void** args, void* stream) {
-  size_t need = 0, bytes = 0;
-  const void* fn = pick(which, d, cast_p, body, &need);
-  if (!fn || blocks < 1 || reps < 0) return kBadArg;
-  int err = reserve(fn, need, smem, &bytes);
+  const Instance in = pick(which, d, cast_p, body);
+  if (!in.fn || blocks < 1 || reps < 0) return kBadArg;
+  size_t bytes = 0;
+  int err = reserve(in, smem, &bytes);
   if (err) return err;
-  err = (int)cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, bytes,
+  err = (int)cudaLaunchKernel(in.fn, dim3(blocks), dim3(in.threads), args, bytes,
                               (cudaStream_t)stream);
   const int last = (int)cudaGetLastError();
   return err ? err : last;
@@ -472,20 +627,22 @@ int bf_bwd_chain_component(const void* s0, const void* dp, void* out,
 }
 
 // out[0] = resident blocks per SM at max(need, smem) bytes of dynamic shared
-// memory, out[1] = those bytes, out[2] = registers per thread.
+// memory, out[1] = those bytes, out[2] = registers per thread, out[3] = tiles
+// a block computes.
 int bf_component_occupancy(int which, int d, int cast_p, int body, int smem,
                            int* out) {
-  size_t need = 0, bytes = 0;
-  const void* fn = pick(which, d, cast_p, body, &need);
-  if (!fn) return kBadArg;
-  int err = reserve(fn, need, smem, &bytes);
+  const Instance in = pick(which, d, cast_p, body);
+  if (!in.fn) return kBadArg;
+  size_t bytes = 0;
+  int err = reserve(in, smem, &bytes);
   if (err) return err;
   cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, fn);
+  err = (int)cudaFuncGetAttributes(&attr, in.fn);
   if (err) return err;
   out[1] = (int)bytes;
   out[2] = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kThreads,
+  out[3] = in.tiles;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], in.fn, in.threads,
                                                             bytes);
 }
 

@@ -87,11 +87,6 @@ constexpr int kSm90Threads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24*128 + 240*256 <= 64K
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// Round up to the 1024-byte alignment of the 128-byte swizzle.
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
 // Store one warpgroup's 64 x D f32 accumulator (times `mul` per row half)
 // as bf16; row_g is this thread's first row, rows past `rows` are dropped.
 template <int D>

@@ -2,8 +2,9 @@
 // fwd_kernel, dkv_kernel and dq_kernel): TMA tile loads through 3-D tensor
 // maps, mbarrier rings, warpgroup matrix products (wgmma) with operands in
 // 128-byte-swizzled shared memory, and register reallocation between a
-// producer and its consumer warpgroups.  The roofline's microkernels
-// (attention_components.cu) keep to mma_tile.cuh alone.
+// producer and its consumer warpgroups.  The roofline's product
+// microkernels (attention_components.cu: qk_kernel, pv_kernel) run the same
+// wgmma products on the same shared-memory layout.
 //
 // Shared-memory tiles: TMA writes a box of R rows x 64 bf16 columns (128
 // bytes a row) with the 128-byte swizzle, so 16-byte chunk c of row r lands
@@ -28,6 +29,11 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Round up to the 1024-byte alignment of the 128-byte swizzle.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -145,8 +151,8 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 }
 
 // Columns 16kk..16kk+15 of a 64-row wgmma accumulator, rounded to bf16 and
-// laid out as the register A operand of the next product (the accumulator
-// of n-tiles 2kk and 2kk+1 is the A fragment, as c_to_a does for mma.sync).
+// laid out as the register A operand of the next product (thread by thread,
+// the accumulator's n-tiles 2kk and 2kk+1 are the A fragment).
 template <int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
   a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);

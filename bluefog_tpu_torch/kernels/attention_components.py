@@ -18,8 +18,11 @@ Each computes ``reps`` repetitions of ``acc <- 0.5 * acc + f(acc)`` on one
 64-row tile, with ``f`` reading row 0 of ``acc`` back into an operand (the
 source's header gives each ``f``).  ``body=False`` leaves the product or
 chain out (``f`` = the fed-back row + 1): the cost of that dependency pass
-alone.  ``blocks`` copies of the tile are computed, one per CUDA block; the
-result is ``[blocks, 64, W]`` f32 with every slice equal.  ``smem_bytes``
+alone.  A CUDA block computes :data:`TILES_PER_BLOCK` copies of the tile:
+qk and pv run the flash kernels' block, two consumer warpgroups of 64 rows
+on ``wgmma``, each on its own tile; the chains one tile on four warps.  The
+result is ``[blocks * TILES_PER_BLOCK[name], 64, W]`` f32 with every slice
+equal, from the kernel and from the plain version alike.  ``smem_bytes``
 reserves that much dynamic shared memory a block (at least what the kernel
 needs), to hold the blocks per SM to those of the flash kernel a component
 models.
@@ -57,6 +60,7 @@ __all__ = [
     "launches",
     "reset_launches",
     "TILE",
+    "TILES_PER_BLOCK",
     "HEAD_DIMS",
     "MAX_SMEM",
 ]
@@ -65,6 +69,9 @@ TILE = 64
 HEAD_DIMS = (64, 128)
 MAX_SMEM = 232448  # the H100's opt-in dynamic shared memory per block
 _IDS = {"qk": 0, "pv": 1, "softmax_chain": 2, "bwd_chain": 3}
+# Tiles a CUDA block computes (csrc/attention_components.cu: kConsumers for
+# qk and pv, one for the chains).
+TILES_PER_BLOCK = {"qk": 2, "pv": 2, "softmax_chain": 1, "bwd_chain": 1}
 
 # Kernel launches per wrapper since the last reset_launches().  Only a
 # launch of the CUDA kernel counts; a plain-version call does not.
@@ -77,7 +84,7 @@ def reset_launches() -> None:
 
 
 # --------------------------------------------------------------------------
-# Plain PyTorch versions (any leading batch; [blocks, rows, cols] out)
+# Plain PyTorch versions ([blocks * TILES_PER_BLOCK[name], rows, cols] out)
 # --------------------------------------------------------------------------
 
 
@@ -94,13 +101,14 @@ def _fed_row(acc, width):
     return row
 
 
-def _zeros(blocks, rows, cols, like):
-    return torch.zeros(blocks, rows, cols, dtype=torch.float32, device=like.device)
+def _zeros(name, blocks, rows, cols, like):
+    return torch.zeros(blocks * TILES_PER_BLOCK[name], rows, cols, dtype=torch.float32,
+                       device=like.device)
 
 
 def qk_component_plain(q, k, reps: int, *, body: bool = True, blocks: int = 1):
-    """``q [64, D]`` and ``k [D, 64]`` bf16 -> ``[blocks, 64, 64]`` f32."""
-    acc = _zeros(blocks, q.shape[0], k.shape[1], q)
+    """``q [64, D]`` and ``k [D, 64]`` bf16 -> ``[2 blocks, 64, 64]`` f32."""
+    acc = _zeros("qk", blocks, q.shape[0], k.shape[1], q)
     qf, kf = q.float(), k.float()
     for _ in range(reps):
         if body:
@@ -112,8 +120,8 @@ def qk_component_plain(q, k, reps: int, *, body: bool = True, blocks: int = 1):
 
 
 def pv_component_plain(p16, v, reps: int, *, body: bool = True, blocks: int = 1):
-    """``p16 [64, 64]`` and ``v [64, D]`` bf16 -> ``[blocks, 64, D]`` f32."""
-    acc = _zeros(blocks, p16.shape[0], v.shape[1], p16)
+    """``p16 [64, 64]`` and ``v [64, D]`` bf16 -> ``[2 blocks, 64, D]`` f32."""
+    acc = _zeros("pv", blocks, p16.shape[0], v.shape[1], p16)
     pf, vf = p16.float(), v.float()
     for _ in range(reps):
         if body:
@@ -126,7 +134,7 @@ def pv_component_plain(p16, v, reps: int, *, body: bool = True, blocks: int = 1)
 def softmax_chain_component_plain(s0, reps: int, *, body: bool = True,
                                   blocks: int = 1):
     """``s0 [64, 64]`` f32 -> ``[blocks, 64, 64]`` f32."""
-    acc = _zeros(blocks, *s0.shape, s0)
+    acc = _zeros("softmax_chain", blocks, *s0.shape, s0)
     for _ in range(reps):
         if body:
             s = s0 + acc[:, 0:1, :]
@@ -142,7 +150,7 @@ def softmax_chain_component_plain(s0, reps: int, *, body: bool = True,
 def bwd_chain_component_plain(s0, dp, reps: int, *, cast_p: bool,
                               body: bool = True, blocks: int = 1):
     """``s0``, ``dp [64, 64]`` f32 -> ``[blocks, 64, 64]`` f32."""
-    acc = _zeros(blocks, *s0.shape, s0)
+    acc = _zeros("bwd_chain", blocks, *s0.shape, s0)
     for _ in range(reps):
         if body:
             p = torch.exp2(s0 + acc[:, 0:1, :] - 1.7)
@@ -251,7 +259,8 @@ def _head_dim(name, d):
 
 
 def _run(name, fn, ptrs, cols, dev, blocks, ints):
-    out = torch.empty(blocks, TILE, cols, dtype=torch.float32, device=dev)
+    out = torch.empty(blocks * TILES_PER_BLOCK[name], TILE, cols, dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):
         err = fn(*ptrs, out.data_ptr(), *ints,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -312,10 +321,12 @@ def bwd_chain_component(s0, dp, reps: int, *, cast_p: bool, body: bool = True,
 
 def occupancy(name: str, *, d: int = 64, cast_p: bool = False, body: bool = True,
               smem_bytes: int = 0) -> Dict[str, int]:
-    """``blocks_per_sm``, ``smem`` (bytes reserved a block) and ``regs`` (a
-    thread) of one microkernel instance at ``smem_bytes``.  Needs the card."""
-    out = (_I * 3)()
+    """``blocks_per_sm``, ``smem`` (bytes reserved a block), ``regs`` (a
+    thread) and ``tiles_per_block`` of one microkernel instance at
+    ``smem_bytes``.  Needs the card."""
+    out = (_I * 4)()
     err = _lib().bf_component_occupancy(_IDS[name], int(d), int(cast_p), int(body),
                                         int(smem_bytes), out)
     _raise_on(f"occupancy({name})", err)
-    return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2]}
+    return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2],
+            "tiles_per_block": out[3]}

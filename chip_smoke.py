@@ -5,12 +5,14 @@
 Phases, each printing one JSON line:
 
 1. device   -- nvidia-smi name and power limit, torch/CUDA versions, and the
-               nvcc builds of csrc/flash_attention.cu (with the headers
-               sm90_tile.cuh and mma_tile.cuh) and
-               csrc/attention_components.cu, side by side (seconds, ptxas);
-               the three flash kernels, built for Hopper, must hold wgmma
-               (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA) in
-               their SASS where cuobjdump is found.
+               nvcc builds of csrc/flash_attention.cu and
+               csrc/attention_components.cu (both with the headers
+               sm90_tile.cuh and mma_tile.cuh), side by side (seconds,
+               ptxas); the three flash kernels, built for Hopper, must hold
+               wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
+               in their SASS where cuobjdump is found, and the qk and pv
+               microkernels HGMMA (with their body) and no HMMA at both
+               head dims.
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
                PyTorch version on the same bf16 inputs, over seven cases
@@ -28,9 +30,10 @@ Phases, each printing one JSON line:
                2 x 2048, AdamW under ATC gossip on ExponentialTwoGraph(4),
                3 steps; the launch counts must be 12 x 4 x 3 per kernel.
 5. components -- each roofline microkernel instance (qk and pv at D 64 and
-               128, the softmax chain, the backward chain with and without
-               cast_p) against its plain version at reps 1 and 2, with its
-               body and with the dependency pass alone, on 3 blocks.
+               128 at reps 1, 2 and 3; the softmax chain, the backward chain
+               with and without cast_p at reps 1 and 2) against its plain
+               version, with its body and with the dependency pass alone,
+               on 3 blocks (6 tiles for qk and pv, one a warpgroup).
 6. roofline -- the second path: the counted roofline of the flash kernels
                (bluefog_tpu_torch.benchmarks.attention_roofline) at the main
                path's shape [24, 2048, 64], forward and backward; every
@@ -120,20 +123,29 @@ def visible_pairs(tq, tk, q_start, k_start, causal):
     return total
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
 def sass_ops(_build):
-    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} over the flash
-    library's kernels (both head dims together), from cuobjdump's SASS; None
-    where cuobjdump is not found."""
-    funcs = _build.sass("flash_attention")
-    if funcs is None:
+    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} from cuobjdump's SASS:
+    the flash library's kernels (both head dims together) and the qk and pv
+    microkernels per head dim and body ("qk_kernel<64, body>"); None where
+    cuobjdump is not found."""
+    flash = _build.sass("flash_attention")
+    if flash is None:
         return None
+    found = [(re.search(r"fwd_kernel|dkv_kernel|dq_kernel", f), b) for f, b in flash.items()]
+    named = [(m.group(0), b) for m, b in found if m]
+    for fname, body in _build.sass("attention_components").items():
+        m = re.search(r"(qk|pv)_kernelILi(\d+)ELb([01])E", fname)
+        if m:
+            named.append((f"{m.group(1)}_kernel<{m.group(2)}, "
+                          f"{'body' if m.group(3) == '1' else 'dep'}>", body))
     counts = {}
-    for fname, body in funcs.items():
-        found = re.search(r"fwd_kernel|dkv_kernel|dq_kernel", fname)
-        if found:
-            ops = counts.setdefault(found.group(0), {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0})
-            for op in ops:
-                ops[op] += len(re.findall(rf"\b{op}\b", body))
+    for kname, body in named:
+        ops = counts.setdefault(kname, dict.fromkeys(SASS_OPS, 0))
+        for op in ops:
+            ops[op] += len(re.findall(rf"\b{op}\b", body))
     return counts
 
 
@@ -155,6 +167,12 @@ def phase_device(torch, _build, fa, ac):
         ops = sass.get(kname, {})
         check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
               f"device: {kname} holds no wgmma, no TMA load, or mma.sync ({ops})")
+    for name in ("qk", "pv") if sass else ():
+        for d in (64, 128):
+            body, dep = (sass.get(f"{name}_kernel<{d}, {b}>") for b in ("body", "dep"))
+            check(body is not None and dep is not None, f"device: {name} d={d} not in the SASS")
+            check(body["HGMMA"] > 0 and body["HMMA"] == 0 and dep["HMMA"] == 0,
+                  f"device: {name}_kernel<{d}> holds no wgmma, or mma.sync ({body}, {dep})")
     return smi
 
 
@@ -374,16 +392,21 @@ def phase_main(torch, fa):
 
 
 COMPONENT_BLOCKS = 3
+# reps 1 runs the body on the staged operands, 2 the fed-back row, 3 a fed
+# operand rewritten over one that was rewritten before (qk and pv rewrite
+# their shared-memory copy every repetition)
+COMPONENT_REPS = {"qk": (1, 2, 3), "pv": (1, 2, 3), "softmax_chain": (1, 2),
+                  "bwd_chain": (1, 2)}
 
 
 def phase_components(torch, ac, roof):
     """Each microkernel instance against its plain version on the card, on
-    the same inputs, at reps 1 (the body) and 2 (the fed-back row), with
-    the body and with the dependency pass alone.  The rule is
-    attention_components.compare (stated there): every element within
-    1e-5 (|ref| + rms(ref)), beyond it only a one-step bf16 rounding flip,
-    bounded through the product.  Every block must hold the same tile.
-    Returns the worst absolute error per microkernel."""
+    the same inputs, at COMPONENT_REPS, with the body and with the
+    dependency pass alone.  The rule is attention_components.compare
+    (stated there): every element within 1e-5 (|ref| + rms(ref)), beyond it
+    only a one-step bf16 rounding flip, bounded through the product.  Every
+    slice (each tile of every block) must hold the same tile.  Returns the
+    worst absolute error per microkernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     inputs = {d: roof.component_inputs(d, seed=2) for d in (64, 128)}
     worst = {name: 0.0 for name in ac.PLAIN}
@@ -391,13 +414,15 @@ def phase_components(torch, ac, roof):
     for name, d, kw in ac.INSTANCES:
         args = inputs[d][name]
         for body in (True, False):
-            for reps in (1, 2):
+            for reps in COMPONENT_REPS[name]:
                 got = roof.WRAPPERS[name](*args, reps, body=body, blocks=COMPONENT_BLOCKS, **kw)
                 ref = ac.PLAIN[name](*args, reps, body=body, blocks=COMPONENT_BLOCKS, **kw)
                 torch.cuda.synchronize()
                 what = f"{name} d={d} {kw} body={body} reps={reps}"
+                slices = COMPONENT_BLOCKS * ac.TILES_PER_BLOCK[name]
+                check(got.shape[0] == slices, f"components: {got.shape[0]} slices, {what}")
                 check(torch.isfinite(got).all().item(), f"components: non-finite {what}")
-                check(bool((got == got[:1]).all().item()), f"components: blocks differ, {what}")
+                check(bool((got == got[:1]).all().item()), f"components: slices differ, {what}")
                 res = ac.compare(name, got, ref, args, reps, body=body, **kw)
                 if not res["ok"]:
                     failures.append(f"{what}: {res}")
@@ -424,6 +449,11 @@ def phase_roofline(torch, fa, ac, roof):
             # a hoisted loop body would make later repetitions cheaper
             check(0.5 <= c["linearity"] <= 2.0,
                   f"roofline: {kname} {cname} time not linear in reps ({c['linearity']})")
+            check(c["tiles_per_block"] == ac.TILES_PER_BLOCK[cname]
+                  and c["component_tile"] == roof.COMPONENT_TILE[cname],
+                  f"roofline: {kname} {cname} tiles a block or tile name ({c})")
+    check(sorted(row["component_tile"]) == sorted(ac.PLAIN),
+          f"roofline: component_tile {row['component_tile']}")
     for name, n in counts["components"].items():
         check(n > 0, f"roofline: microkernel {name} was not launched")
     emit({"phase": "roofline", **row, "launches": counts})
@@ -439,7 +469,8 @@ def component_times(torch, ac, roof, row):
     """Each microkernel's kernel-table entry at the roofline's configuration
     for the forward (the dK/dV one for the backward chain): its blocks and
     shared memory there, LINE_REPS repetitions, one launch; its plain
-    version on the same inputs and the same number of blocks."""
+    version on the same inputs and the same number of blocks.  The bound
+    counts every tile computed: blocks x TILES_PER_BLOCK x LINE_REPS."""
     ops = roof.component_inputs(64)
     timed = {}
     for name, model, kw in (("qk", "fwd", {}), ("pv", "fwd", {}),
@@ -450,14 +481,16 @@ def component_times(torch, ac, roof, row):
                                                  smem_bytes=smem, **kw), iters=10)
         plain_ms = cuda_ms(lambda: ac.PLAIN[name](*args, LINE_REPS, blocks=blocks, **kw),
                            iters=2, warmup=1)
-        t_ops = roof.tile_bound_us(name, 64) * 1e-3 * blocks * LINE_REPS
+        tiles = blocks * ac.TILES_PER_BLOCK[name]
+        t_ops = roof.tile_bound_us(name, 64) * 1e-3 * tiles * LINE_REPS
         in_bytes = sum(x.numel() * x.element_size() for x in args)
-        out_bytes = 4 * blocks * 64 * 64
+        out_bytes = 4 * tiles * 64 * 64
         t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                        "library_ms": None, "library_note": LIBRARY_NONE,
-                       "config": {"blocks": blocks, "reps": LINE_REPS, "smem": smem, **kw}}
+                       "config": {"blocks": blocks, "tiles": tiles, "reps": LINE_REPS,
+                                  "smem": smem, **kw}}
     emit({"phase": "component_times", **timed})
     return timed
 

@@ -3,7 +3,8 @@ Pallas bodies (``benchmarks/attention_roofline.py``, run in interpret mode on
 the CPU).  The script's ``_pallas_component`` is replaced by a capture of
 ``(make_kernel, inputs, out_shape)``, so ``component_times`` and
 ``bwd_component_times`` hand over exactly the bodies and inputs they would
-time; each body runs at ``reps`` 1 and 2 and the same inputs go to the port.
+time; each body runs at ``reps`` 1 and 2 and the same inputs go to the port,
+whose every slice (``TILES_PER_BLOCK`` tiles a block) is held against it.
 On the CPU the port's wrappers run their plain versions; the CUDA kernels
 are held against those on the card (``chip_smoke.py``, ``test_torch_cuda.py``).
 
@@ -94,8 +95,8 @@ def test_component_matches_pallas_body(captured, instance, reps):
     name, call, kw = PORT[instance]
     args = [_torch(x) for x in inputs]
     got = call(args, reps)
-    assert got.shape == (1, *want.shape)
-    res = ac.compare(name, got[0], torch.from_numpy(want), args, reps, **kw)
+    assert got.shape == (ac.TILES_PER_BLOCK[name], *want.shape)
+    res = ac.compare(name, got, torch.from_numpy(want).expand_as(got), args, reps, **kw)
     assert res["ok"], res
     assert res["tol_ratio"] <= 1.0, res  # no bf16 flip happens with these inputs
 
@@ -114,8 +115,9 @@ def test_qk_at_d128_feeds_the_row_to_every_column(captured, reps):
         row = np.tile(bf(acc[0:1]), (1, 2))
         acc = acc * 0.5 + bf(q + row) @ k
     args = [_torch(q).to(torch.bfloat16), _torch(k).to(torch.bfloat16)]
-    got = ac.qk_component(*args, reps)[0]
-    res = ac.compare("qk", got, torch.from_numpy(acc), args, reps)
+    got = ac.qk_component(*args, reps)
+    assert got.shape == (ac.TILES_PER_BLOCK["qk"], 64, 64)
+    res = ac.compare("qk", got, torch.from_numpy(acc).expand_as(got), args, reps)
     assert res["ok"] and res["tol_ratio"] <= 1.0, res
 
 
@@ -134,8 +136,33 @@ def test_dependency_pass_alone(name):
     kw = {"cast_p": True} if name == "bwd_chain" else {}
     wrapper = getattr(ac, f"{name}_component")
     out = wrapper(*args, 3, body=False, blocks=2, **kw)
-    assert out.shape[0] == 2 and torch.equal(out[0], out[1])
+    assert out.shape[0] == 2 * ac.TILES_PER_BLOCK[name]
     assert torch.equal(out, torch.full_like(out, 4.75))  # 1 -> 2.5 -> 4.75
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3])
+@pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
+def test_every_block_computes_tiles_per_block_equal_slices(name, d, kw, blocks):
+    """A wrapper and its plain version both return ``blocks x
+    TILES_PER_BLOCK[name]`` slices of the tile (two a block for qk and pv,
+    one for each consumer warpgroup; one for the chains), every slice the
+    one-block tile."""
+    gen = torch.Generator().manual_seed(d + blocks)
+    bf, f32 = torch.bfloat16, torch.float32
+    args = {"qk": (torch.randn(64, d, generator=gen).to(bf),
+                   torch.randn(d, 64, generator=gen).to(bf)),
+            "pv": (torch.randn(64, 64, generator=gen).to(bf),
+                   torch.randn(64, d, generator=gen).to(bf)),
+            "softmax_chain": (torch.randn(64, 64, generator=gen, dtype=f32) * 0.1,),
+            "bwd_chain": (torch.randn(64, 64, generator=gen, dtype=f32) * 0.1,) * 2}[name]
+    width = d if name == "pv" else 64
+    want_shape = (blocks * ac.TILES_PER_BLOCK[name], 64, width)
+    one = ac.PLAIN[name](*args, 2, **kw)
+    assert one.shape == (ac.TILES_PER_BLOCK[name], 64, width)
+    for fn in (getattr(ac, f"{name}_component"), ac.PLAIN[name]):
+        out = fn(*args, 2, blocks=blocks, **kw)
+        assert out.shape == want_shape
+        assert torch.equal(out, one[:1].expand(want_shape))
 
 
 def test_wrappers_check_inputs_and_count_only_launches():

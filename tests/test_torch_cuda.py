@@ -129,17 +129,48 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
 def test_components_match_plain_versions(cuda_device, name, d, kw, body):
     """Each roofline microkernel against its plain version at reps 1 (the
-    body) and 2 (the fed-back row), on several blocks; the rule is
+    body), 2 (the fed-back row) and, for qk and pv, 3 (a shared-memory
+    operand rewritten over a rewritten one), on several blocks, every slice
+    (both warpgroups of every qk or pv block) equal; the rule is
     attention_components.compare."""
     args = roof.component_inputs(d, seed=3)[name]
     before = ac.launches[name]
-    for reps in (1, 2):
+    all_reps = (1, 2, 3) if name in ("qk", "pv") else (1, 2)
+    for reps in all_reps:
         got = roof.WRAPPERS[name](*args, reps, body=body, blocks=5, **kw)
         ref = ac.PLAIN[name](*args, reps, body=body, blocks=5, **kw)
+        assert got.shape[0] == 5 * ac.TILES_PER_BLOCK[name]
         assert bool((got == got[:1]).all())
         res = ac.compare(name, got, ref, args, reps, body=body, **kw)
         assert res["ok"], res
-    assert ac.launches[name] - before == 2
+    assert ac.launches[name] - before == len(all_reps)
+
+
+def test_product_microkernels_run_on_wgmma(cuda_device):
+    """qk and pv with their body hold warpgroup products (HGMMA) at both
+    head dims; no instance holds mma.sync (HMMA)."""
+    funcs = _build.sass("attention_components")
+    if funcs is None:
+        pytest.skip("cuobjdump not found")
+    for name in ("qk", "pv"):
+        for d in (64, 128):
+            for body in (1, 0):
+                found = [b for f, b in funcs.items()
+                         if re.search(rf"{name}_kernelILi{d}ELb{body}E", f)]
+                assert len(found) == 1, sorted(funcs)
+                assert ("HGMMA" in found[0]) == bool(body)
+                assert not re.search(r"\bHMMA\b", found[0])
+
+
+@pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
+def test_microkernel_occupancy_reports_tiles_per_block(cuda_device, name, d, kw):
+    """qk and pv run the flash block: one a SM (by registers, at the least
+    shared memory) and two tiles a block; the chains one tile a block."""
+    for body in (True, False):
+        occ = ac.occupancy(name, d=d, body=body, **kw)
+        assert occ["tiles_per_block"] == ac.TILES_PER_BLOCK[name]
+        if name in ("qk", "pv"):
+            assert occ["blocks_per_sm"] == 1 and occ["regs"] >= 128, occ
 
 
 def test_matched_smem_holds_the_flash_kernels_blocks_per_sm(cuda_device):

@@ -6,6 +6,7 @@ visible tiles, and the measurement path's refusal to run without a card."""
 import importlib.util
 import os
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from bluefog_tpu_torch import profiling
 from bluefog_tpu_torch.benchmarks import attention_roofline as roof
 from bluefog_tpu_torch.benchmarks import flash_variants
+from bluefog_tpu_torch.kernels import attention_components as ac
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,3 +184,90 @@ def test_flash_variants_refuse_to_run_without_a_card(monkeypatch, capsys):
     assert flash_variants.main([]) == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def _fake_component_timing(monkeypatch, per_tile, dep_share):
+    """Every microkernel launch timed as 3 us + reps x tiles x its per-tile
+    seconds (x ``dep_share`` without the body), tiles = blocks x
+    TILES_PER_BLOCK; returns the launches seen as (name, reps, body, blocks)."""
+    seen = []
+
+    def wrapper(name):
+        def launch(*args, body, blocks, smem_bytes, **kw):
+            seen.append((name, args[-1], body, blocks))
+        return launch
+
+    def timed_region(run, cuda):
+        assert cuda
+        run()
+        name, reps, body, blocks = seen[-1]
+        tiles = blocks * ac.TILES_PER_BLOCK[name]
+        return 3e-6 + reps * tiles * per_tile[name] * (1.0 if body else dep_share)
+
+    for name in ac.PLAIN:
+        monkeypatch.setitem(roof.WRAPPERS, name, wrapper(name))
+    monkeypatch.setattr(roof, "timed_region", timed_region)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    return seen
+
+
+PER_TILE = {"qk": 1.5e-9, "pv": 2e-9, "softmax_chain": 3e-9, "bwd_chain": 4e-9}
+
+
+@pytest.mark.parametrize("name,blocks", [("qk", 396), ("pv", 3), ("softmax_chain", 396),
+                                         ("bwd_chain", 5)])
+def test_component_seconds_divides_the_slope_by_the_tiles(monkeypatch, name, blocks):
+    """A launch of ``blocks`` blocks computes blocks x TILES_PER_BLOCK
+    tiles; the per-tile time is the slope over reps divided by those."""
+    seen = _fake_component_timing(monkeypatch, PER_TILE, 0.25)
+    tiles = blocks * ac.TILES_PER_BLOCK[name]
+
+    def launch(reps):
+        roof.WRAPPERS[name](reps, body=True, blocks=blocks, smem_bytes=0)
+
+    s, lin = roof.component_seconds(launch, tiles)
+    assert s == pytest.approx(PER_TILE[name], rel=1e-6)
+    assert lin == pytest.approx(1.0, rel=1e-6)
+    assert {reps for _, reps, _, _ in seen} == set(roof.REPS)
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_roofline_row_prices_tiles_and_names_each_component_tile(monkeypatch, bwd):
+    """roofline_row on fake timings (no card): each component's ``us`` and
+    ``dep_us`` are per tile computed (two a block for qk and pv), its launch
+    covers whole waves of the flash kernel's blocks, and the row names the
+    tile each component times, once per component."""
+    seen = _fake_component_timing(monkeypatch, PER_TILE, 0.25)
+    sms, flash_smem = 3, 83016
+    monkeypatch.setattr(roof, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(multi_processor_count=sms))
+    monkeypatch.setattr(roof.fa, "occupancy", lambda kname, d: {
+        "blocks_per_sm": 1, "smem": flash_smem, "regs": 168, "threads": 384})
+    monkeypatch.setattr(roof.ac, "occupancy", lambda name, d=64, smem_bytes=0, **kw: {
+        "blocks_per_sm": 1, "smem": smem_bytes, "regs": 168,
+        "tiles_per_block": ac.TILES_PER_BLOCK[name]})
+    monkeypatch.setattr(roof, "measured_seconds", lambda fn, label: (1e-4, False))
+    monkeypatch.setattr(roof, "graph_seconds", lambda fn: 5e-5)
+    cfg = dict(B=1, H=2, T=256, D=64)
+    row = roof.roofline_row("tiny", cfg, bwd=bwd)
+    kernels = ("fwd", "dkv", "dq") if bwd else ("fwd",)
+    used = {"qk", "pv", "softmax_chain"} | ({"bwd_chain"} if bwd else set())
+    assert row["component_tile"] == {c: roof.COMPONENT_TILE[c] for c in used}
+    assert roof.COMPONENT_TILE["qk"] == roof.COMPONENT_TILE["pv"] == \
+        "wgmma, 2 consumer warpgroups"
+    for kname in kernels:
+        grid = row["grid"][kname]
+        for cname, c in row["components"][kname].items():
+            assert c["component_tile"] == roof.COMPONENT_TILE[cname]
+            assert c["tiles_per_block"] == ac.TILES_PER_BLOCK[cname]
+            assert c["blocks"] == roof.whole_waves(grid, sms) and c["smem"] == flash_smem
+            assert c["us"] == pytest.approx(PER_TILE[cname] * 1e6, rel=1e-6)
+            assert c["dep_us"] == pytest.approx(0.25 * PER_TILE[cname] * 1e6, rel=1e-6)
+            assert c["linearity"] == pytest.approx(1.0, rel=1e-6)
+        n_qk, n_pv, (chain, _) = roof.MODELS[kname]
+        tile_us = n_qk * PER_TILE["qk"] * 1e6 + n_pv * PER_TILE["pv"] * 1e6 \
+            + PER_TILE[chain] * 1e6
+        assert row[f"{kname}_pred_serial_ms"] == pytest.approx(row["tiles"] * tile_us * 1e-3)
+    launched = {name for name, _, _, _ in seen}
+    assert launched == used
