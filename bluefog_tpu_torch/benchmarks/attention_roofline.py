@@ -29,6 +29,11 @@ slope over the lower half (1 when every repetition costs the same, well
 below 1 if the compiler hoisted work out of the loop).  Each component
 is timed once more with its product or chain removed, the dependency pass
 alone (``dep_us``, ``dep_share``); the bands carry it, as the TPU's do.
+The flash kernels pay no such pass, so every band, ``sched`` and
+``longest_block`` is priced a second time without it (the ``_nodep``
+fields): a component's tile then costs ``nodep_us = max(us - dep_us,
+bound_us)``, floored at its bound because a dependency pass that overlaps
+the work can leave ``us - dep_us`` near 0.
 
 ``*_pred_sched_ms`` adds the flash kernel's own tail to the serial edge: the
 serial cost of each block's causal tiles, taken by the resident blocks in
@@ -41,14 +46,15 @@ rows of its longest blocks alone (``longest_block_calls``), replayed from a
 CUDA graph: such a launch is shorter than its wrapper's host time, which
 events around eager calls would time instead.
 
-The product microkernels (qk, pv) run the flash kernels' own tile: the
-same ``wgmma`` products on the same swizzled shared-memory layout, in the
-same block of two consumer warpgroups, one block a SM.  The chains still
-run the port's first tile (four warps, one tile a block), which no flash
-kernel runs any more; each row says which tile each component times
-(``tile_design``, ``component_tile``).  So the product part of every band,
-``sched`` and ``longest_block_ms`` describes the kernels that run, and the
-chain part the old tile's rate.
+Every microkernel runs the flash kernels' own block: two consumer
+warpgroups of 64 rows beside a producer, one block a SM; the products are
+the same ``wgmma`` instructions on the same swizzled shared-memory layout,
+the chains run on the accumulator's registers with ``ex2.approx``, as the
+flash kernels do.  Each row says which tile each component times
+(``tile_design``, ``component_tile``).  ``bound_us`` is the least time a
+tile could take: the products' flops at the bf16 peak, and a chain's
+instructions on the SM pipe they fill first (``bound_pipe``, see
+:func:`tile_bound`).
 
 Unlike the JAX script, nothing is subtracted from a measured time: the card
 times each flash kernel alone, between CUDA events.  The script's
@@ -68,6 +74,7 @@ import heapq
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 from typing import Dict, List, Sequence, Tuple
@@ -96,7 +103,50 @@ ROUNDS = 3
 MEASURE_ITERS = 20
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
-CHAIN_FLOPS = 8           # f32 operations per element and repetition (exp2 is one)
+# Instructions an SM pipe class issues a clock on compute capability 9.0
+# (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions): f32 add, multiply and FMA 128; integer multiply-add,
+# compare, min, max, shifts and bitwise operations 64; exp2 16.  The packed
+# f32-to-bf16 conversion (F2FP) issues on the ALU (Nsight Compute's pipe
+# descriptions) and is taken at that 64.  The f32 peak counts an FMA as two
+# operations, so a pipe issues PEAK_F32_FLOPS / 2 x rate / 128 instructions
+# a second, device-wide.
+PIPE_RATES = {"fp32": 128, "alu": 64, "mufu": 16}
+PIPE_OPS = {"fp32": ("FADD", "FMUL", "FFMA"),
+            "alu": ("FMNMX", "F2FP", "SHF", "LOP3", "IMAD.U32"),
+            "mufu": ("MUFU.EX2",)}
+# Instructions an element and repetition of each chain on each pipe, as
+# loop_pipe_counts reads them off the chain kernels' SASS
+# (csrc/attention_components.cu, sm_90a, CUDA 12.8; test_torch_cuda.py
+# recounts them on the card).
+CHAIN_PIPES = {
+    ("softmax_chain", False): {"fp32": 5.1875, "alu": 2.8125, "mufu": 1.0},
+    ("bwd_chain", True): {"fp32": 5.0, "alu": 3.15625, "mufu": 1.0},
+    ("bwd_chain", False): {"fp32": 5.0, "alu": 1.65625, "mufu": 1.0},
+}
+
+
+def loop_pipe_counts(sass: str, elements: int = 32) -> Dict[str, float]:
+    """Instructions an element on each pipe (:data:`PIPE_OPS`) in the
+    longest loop of one kernel's SASS (``cuobjdump -sass``): from the
+    target of its longest backward branch to that branch, over the
+    ``elements`` values a thread holds (32: a 64 x 64 tile on 128
+    threads)."""
+    ops, branches = [], []
+    for m in re.finditer(r"/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)\s*([^;]*);", sass):
+        addr, op = int(m.group(1), 16), m.group(3)
+        ops.append((addr, op))
+        target = re.match(r"0x([0-9a-f]+)", m.group(4))
+        if op == "BRA" and m.group(2) and target and int(target.group(1), 16) < addr:
+            branches.append((int(target.group(1), 16), addr))
+    if not branches:
+        raise ValueError("loop_pipe_counts: no backward branch in the SASS")
+    lo, hi = max(branches, key=lambda b: b[1] - b[0])
+    body = [op for addr, op in ops if lo <= addr <= hi]
+    return {pipe: sum(op == name or op.startswith(name + ".") for op in body
+                      for name in names) / elements
+            for pipe, names in PIPE_OPS.items()}
+
 
 MODELS = {  # flash kernel -> (qk products, pv products, (chain, its arguments))
     "fwd": (1, 1, ("softmax_chain", {})),
@@ -115,8 +165,8 @@ TILE_DESIGN = {
 }
 # What each microkernel's tile runs on (see the module docstring).
 COMPONENT_TILE = {"qk": "wgmma, 2 consumer warpgroups", "pv": "wgmma, 2 consumer warpgroups",
-                  "softmax_chain": "4-warp block, one tile; redesign queued (ROADMAP K1b)",
-                  "bwd_chain": "4-warp block, one tile; redesign queued (ROADMAP K1b)"}
+                  "softmax_chain": "accumulator registers, ex2.approx, 2 consumer warpgroups",
+                  "bwd_chain": "accumulator registers, ex2.approx, 2 consumer warpgroups"}
 
 
 def tile_counts(T: int, tile: int = TILE, q_start: int = 0,
@@ -181,13 +231,18 @@ def _band_gap(meas, overlap, serial):
     return 0.0
 
 
-def tile_bound_us(name: str, d: int) -> float:
-    """The least time the card could take for one tile of a component:
-    tensor-core flops at the bf16 peak, or chain operations at the f32
-    peak (its operands never leave the SM)."""
+def tile_bound(name: str, d: int, cast_p: bool = False) -> Tuple[float, str]:
+    """``(us, pipe)``: the least time the card could take for one tile of a
+    component, and what binds it.  qk and pv: tensor-core flops at the bf16
+    peak (``"tensor"``).  A chain (its operands never leave the SM): on
+    each pipe, its instructions (:data:`CHAIN_PIPES`) over the pipe's
+    device-wide rate; the slowest pipe binds."""
     if name in ("qk", "pv"):
-        return 2 * TILE * TILE * d / PEAK_BF16_FLOPS * 1e6
-    return CHAIN_FLOPS * TILE * TILE / PEAK_F32_FLOPS * 1e6
+        return 2 * TILE * TILE * d / PEAK_BF16_FLOPS * 1e6, "tensor"
+    per_pipe = {pipe: n * TILE * TILE / (PEAK_F32_FLOPS / 2 * PIPE_RATES[pipe] / 128) * 1e6
+                for pipe, n in CHAIN_PIPES[name, cast_p].items()}
+    pipe = max(per_pipe, key=per_pipe.get)
+    return per_pipe[pipe], pipe
 
 
 def component_inputs(d: int, seed: int = 0) -> Dict[str, tuple]:
@@ -301,6 +356,26 @@ def longest_block_calls(q, k, v, g, lse, corr, kw) -> Dict[str, object]:
             "dq": lambda: fa.flash_dq(*dq_in, **kw)}
 
 
+def band_fields(kname: str, comps: Dict[str, dict], cost: str, suffix: str, tiles: int,
+                per_block: Sequence[int], slots: int, measured_ms: float) -> Dict[str, float]:
+    """Flash kernel ``kname``'s bands priced at each component's ``cost``
+    (``"us"``, or ``"nodep_us"`` without the dependency pass), under names
+    ending in ``suffix``: the overlap and serial edges over ``tiles``, the
+    schedule of ``per_block`` tiles on ``slots`` resident blocks, the
+    longest block, and how far ``measured_ms`` lies outside the band."""
+    n_qk, n_pv, (chain, _) = MODELS[kname]
+    products = n_qk * comps["qk"][cost] + n_pv * comps["pv"][cost]
+    chain_us = comps[chain][cost]
+    overlap = tiles * max(products, chain_us) * 1e-3
+    serial = tiles * (products + chain_us) * 1e-3
+    tile_s = (products + chain_us) * 1e-6
+    return {f"{kname}_pred_overlap{suffix}_ms": overlap,
+            f"{kname}_pred_serial{suffix}_ms": serial,
+            f"{kname}_pred_sched{suffix}_ms": scheduled_ms(per_block, slots, tile_s),
+            f"{kname}_longest_block{suffix}_ms": max(per_block) * tile_s * slots * 1e3,
+            f"{kname}_unexplained{suffix}_pct": _band_gap(measured_ms, overlap, serial) * 100}
+
+
 def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
     """Components, bands, measured times and gaps at one shape."""
     B, H, T, D = cfg["B"], cfg["H"], cfg["T"], cfg["D"]
@@ -337,9 +412,11 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
                 return {"shape": name, "invalid": True,
                         "reason": f"{kname} {cname}: slope not positive in any round"}
             (s, lin), (s_dep, _) = timed[True], timed[False]
+            bound_us, pipe = tile_bound(cname, D, **kw)
             comps[kname][cname] = {
                 "us": s * 1e6, "dep_us": s_dep * 1e6, "dep_share": s_dep / s,
-                "linearity": lin, "bound_us": tile_bound_us(cname, D), "blocks": blocks,
+                "nodep_us": max(s - s_dep, bound_us * 1e-6) * 1e6,
+                "linearity": lin, "bound_us": bound_us, "bound_pipe": pipe, "blocks": blocks,
                 "tiles_per_block": o["tiles_per_block"], "blocks_per_sm": o["blocks_per_sm"],
                 "smem": smem, "regs": o["regs"], "component_tile": COMPONENT_TILE[cname]}
 
@@ -355,25 +432,17 @@ def roofline_row(name: str, cfg: Dict[str, int], *, bwd: bool) -> dict:
            "tile_design": {k: TILE_DESIGN[k] for k in kernels},
            "component_tile": {c: COMPONENT_TILE[c] for k in kernels for c in comps[k]}}
     for kname in kernels:
-        n_qk, n_pv, (chain, _) = MODELS[kname]
-        c = comps[kname]
-        products = n_qk * c["qk"]["us"] + n_pv * c["pv"]["us"]
-        chain_us = c[chain]["us"]
         meas, fb = measured_seconds(calls[kname], f"roofline-{name}-{kname}")
         meas_longest = graph_seconds(longest[kname])
-        overlap = tiles * max(products, chain_us) * 1e-3
-        serial = tiles * (products + chain_us) * 1e-3
         slots = flash[kname]["blocks_per_sm"] * sms
-        tile_s = (products + chain_us) * 1e-6
-        sched = scheduled_ms(per_block[kname], slots, tile_s)
+        for cost, suffix in (("us", ""), ("nodep_us", "_nodep")):
+            row.update(band_fields(kname, comps[kname], cost, suffix, tiles,
+                                   per_block[kname], slots, meas * 1e3))
+        sched = row[f"{kname}_pred_sched_ms"]
         row.update({
-            f"{kname}_pred_overlap_ms": overlap, f"{kname}_pred_serial_ms": serial,
-            f"{kname}_pred_sched_ms": sched,
-            f"{kname}_longest_block_ms": max(per_block[kname]) * tile_s * slots * 1e3,
             f"{kname}_longest_block_measured_ms": meas_longest * 1e3,
             f"{kname}_unexplained_sched_pct": max(0.0, meas * 1e3 - sched) / sched * 100,
             f"{kname}_measured_ms": meas * 1e3,
-            f"{kname}_unexplained_pct": _band_gap(meas * 1e3, overlap, serial) * 100,
             f"{kname}_estimator_fallbacks": int(fb)})
     # the JAX script's field names
     row.update({"qk_us": comps["fwd"]["qk"]["us"], "pv_us": comps["fwd"]["pv"]["us"],

@@ -26,17 +26,18 @@
 //
 // What bounds each on the H100: qk and pv are tensor-core operations
 // (2 * 64 * 64 * D flops a tile against 989 TFLOP/s bf16); the chains are
-// exp2 (the MUFU ex2 unit) and FP32 issue (about 8 f32 operations per element
-// against 67 TFLOP/s).
+// SM issue, on whichever of the FP32, ALU (min, max, F2FP, shifts) and MUFU
+// (ex2) pipes their instructions fill first
+// (bluefog_tpu_torch/benchmarks/attention_roofline.py: tile_bound).
 //
-// qk and pv time the flash kernels' own tile (csrc/flash_attention.cu):
+// All four time the flash kernels' own block (csrc/flash_attention.cu):
 //   * The block.  One producer warpgroup and two consumer warpgroups
 //     (384 threads, setmaxnreg 24/240, one block a SM by registers).  Each
 //     consumer warpgroup repeats the component on its own 64-row tile and
 //     writes its own slice of out, so a block computes two tiles, as a flash
-//     block does.  The producer stages with the others and then gives its
-//     registers back: the loop reads no device memory, so there is nothing
-//     to stream.
+//     block does.  The producer (for qk and pv after staging with the
+//     others) gives its registers back: the loop reads no device memory, so
+//     there is nothing to stream.
 //   * The products.  qk is issue_qk's: wgmma m64n64k16 with q and k both
 //     K-major in shared memory, in the 128-byte-swizzled 64-column boxes TMA
 //     writes (sm90_tile.cuh); the two warpgroups' q copies sit in one
@@ -44,27 +45,28 @@
 //     from the second box.  pv is issue_pv's: p packed once from the f32
 //     tile into the register A operand (acc_to_a), v MN-major in shared
 //     memory, m64nDk16.
+//   * The chains run on the wgmma accumulator's registers: s0 (and dp) are
+//     loaded once into its layout, a row is spread over four lanes and
+//     reduced with two shuffles, and exp2 is ex2.approx.ftz, as in the flash
+//     kernels.
 //   * The fed-back row.  Row 0 of a warpgroup's accumulator lives in its
 //     warp 0 (lanes 0-3).  Every repetition publishes it to the warpgroup's
-//     own ping-pong buffer and takes a named barrier (bar.sync 1 + w, 128);
-//     each thread then rewrites its share of the warpgroup's own copy of the
-//     fed operand (q for qk, v for pv) from the pristine values it keeps in
-//     registers plus the row, fences the generic-proxy stores for the async
-//     proxy (fence.proxy.async.shared::cta) and takes the barrier again, so
-//     the product reads the whole new copy.  The barrier also orders the
-//     next repetition's publish after every read of the other buffer.  No
-//     block-wide barrier sits in the loop.
-//   * body = 0 keeps the publish, both barriers, the rewrite and the fence
-//     (the fence's memory clobber keeps the stores) and drops the wgmma, so
-//     us - dep_us is the product.
-// The chains still run the port's first tile: 128-thread blocks of four warps
-// of 16 rows, one tile a block, a row spread over four lanes and reduced with
-// two shuffles, and one block barrier a repetition around the row broadcast.
-// The flash kernels call ex2.approx.ftz; the chains time exp2f, as the TPU
-// bodies time exp2.
+//     own ping-pong buffer and takes a named barrier (bar.sync 1 + w, 128),
+//     which also orders the next repetition's publish after every read of
+//     the other buffer.  qk and pv then rewrite each thread's share of the
+//     warpgroup's own copy of the fed operand (q for qk, v for pv) from the
+//     pristine values it keeps in registers plus the row, fence the
+//     generic-proxy stores for the async proxy
+//     (fence.proxy.async.shared::cta) and take the barrier again, so the
+//     product reads the whole new copy.  The chains rewrite no shared-memory
+//     operand and take the barrier once.  No block-wide barrier sits in the
+//     loop.
+//   * body = 0 keeps the publish, the barriers (and for qk and pv the
+//     rewrite and the fence, whose memory clobber keeps the stores) and
+//     drops the product or chain, so us - dep_us is the product or chain.
 //
-// Every block computes the same tiles: qk and pv write [2 * blocks, 64, W]
-// f32 (slice 2b + w from warpgroup w of block b), the chains [blocks, 64, 64].
+// Every block computes the same tiles: each writes [2 * blocks, 64, W] f32,
+// slice 2b + w from warpgroup w of block b.
 // The launch reserves max(need, smem) bytes of dynamic shared memory, so a
 // caller can hold the blocks per SM to those of the flash kernel a component
 // models.  Seconds per tile, device-wide, is then the slope of a launch's
@@ -199,13 +201,15 @@ __device__ __forceinline__ void publish_row(float* buf, const float (&d)[N], int
   }
 }
 
-// The dependency pass alone: d <- 0.5 d + (bf16(row[col]) + 1).
-template <int N>
+// The dependency pass alone: d <- 0.5 d + (fed + 1), fed = bf16(row[col])
+// where the component feeds a bf16 operand (kRound: qk, pv), else row[col].
+template <bool kRound, int N>
 __device__ __forceinline__ void dep_pass(float (&d)[N], const float* row, int t) {
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const float2 x = *reinterpret_cast<const float2*>(row + 8 * j + 2 * t);
-    const float f0 = round_bf16(x.x) + 1.f, f1 = round_bf16(x.y) + 1.f;
+    const float f0 = (kRound ? round_bf16(x.x) : x.x) + 1.f;
+    const float f1 = (kRound ? round_bf16(x.y) : x.y) + 1.f;
     d[4 * j + 0] = fmaf(d[4 * j + 0], 0.5f, f0);
     d[4 * j + 1] = fmaf(d[4 * j + 1], 0.5f, f1);
     d[4 * j + 2] = fmaf(d[4 * j + 2], 0.5f, f0);
@@ -269,7 +273,7 @@ qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, float* __restr
     fence_async_smem();
     wg_sync(w);
     if constexpr (!kBody) {
-      dep_pass(acc, row, lane & 3);
+      dep_pass<true>(acc, row, lane & 3);
     } else {
       wgmma_fence();
 #pragma unroll
@@ -345,7 +349,7 @@ pv_kernel(const bf16* __restrict__ p16, const bf16* __restrict__ v, float* __res
     fence_async_smem();
     wg_sync(w);
     if constexpr (!kBody) {
-      dep_pass(acc, row, lane & 3);
+      dep_pass<true>(acc, row, lane & 3);
     } else {
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= 0.5f;
@@ -362,168 +366,136 @@ pv_kernel(const bf16* __restrict__ p16, const bf16* __restrict__ v, float* __res
 }
 
 // ---------------------------------------------------------------------------
-// The chains: the first (mma.sync-layout) tile, one per 128-thread block
+// The chains: the same block, on the accumulator's registers
 // ---------------------------------------------------------------------------
 
-// A row-major [64, 64] f32 matrix into this warp's C fragments: element
-// (warp*16 + g + 8*(i>>1), nt*8 + 2t + (i&1)) is c[nt][i].
-__device__ __forceinline__ void load_c(float (&c)[8][4], const float* src,
-                                       int warp, int lane) {
+// A row-major [64, 2N] f32 tile into a warpgroup accumulator's layout (the
+// inverse of store_acc).
+template <int N>
+__device__ __forceinline__ void load_acc(float (&d)[N], const float* src, int warp, int lane) {
   const int row = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float2 v = *reinterpret_cast<const float2*>(
-          src + (row + 8 * h) * kTile + nt * 8 + col);
-      c[nt][2 * h] = v.x;
-      c[nt][2 * h + 1] = v.y;
+      const float2 x = *reinterpret_cast<const float2*>(src + (row + 8 * h) * 2 * N + 8 * j + col);
+      d[4 * j + 2 * h] = x.x;
+      d[4 * j + 2 * h + 1] = x.y;
     }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
-}
-
-// Row 0 of the block's accumulator (warp 0, lanes 0-3) into buf, then one
-// barrier: after it every warp may read buf.
-template <int NT>
-__device__ __forceinline__ const float* publish_row0(float* buf,
-                                                     const float (&c)[NT][4],
-                                                     int warp, int lane) {
-  if (warp == 0 && lane < 4) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<float2*>(buf + nt * 8 + lane * 2) =
-          make_float2(c[nt][0], c[nt][1]);
-  }
-  __syncthreads();
-  return buf;
-}
-
-// The dependency pass alone: acc <- 0.5 acc + (fed + 1), fed = row[col].
-template <int NT>
-__device__ __forceinline__ void dep_only(float (&acc)[NT][4], const float* row,
-                                         int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const float2 x = *reinterpret_cast<const float2*>(row + nt * 8 + 2 * t);
-    const float f0 = x.x + 1.f;
-    const float f1 = x.y + 1.f;
-    acc[nt][0] = fmaf(acc[nt][0], 0.5f, f0);
-    acc[nt][1] = fmaf(acc[nt][1], 0.5f, f1);
-    acc[nt][2] = fmaf(acc[nt][2], 0.5f, f0);
-    acc[nt][3] = fmaf(acc[nt][3], 0.5f, f1);
-  }
-}
-
-// This warp's C fragments into out, a row-major [64, W] f32 tile.
-template <int NT>
-__device__ __forceinline__ void store_c(float* out, const float (&c)[NT][4],
-                                        int warp, int lane) {
-  constexpr int W = NT * 8;
-  const int row = warp * 16 + (lane >> 2), col = (lane & 3) * 2;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(out + (row + 8 * h) * W + nt * 8 + col) =
-          make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
 }
 
 // Keeps the compiler from hoisting arithmetic on a loop-invariant operand.
 __device__ __forceinline__ void opaque(float& x) { asm volatile("" : "+f"(x)); }
 
-constexpr size_t chain_smem() { return 2 * kTile * sizeof(float); }
-
-// Forward softmax chain: s0 [64, 64] f32 -> out [blocks, 64, 64] f32
-template <bool kBody>
-__global__ void __launch_bounds__(kThreads)
-softmax_chain_kernel(const float* __restrict__ s0, float* __restrict__ out,
-                     int reps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* rows = reinterpret_cast<float*>(smem_raw);  // [2][64]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  float s0r[8][4];  // the scores as the flash forward holds them
-  load_c(s0r, s0, warp, lane);
-
-  float acc[8][4];
-  zero(acc);
-  for (int r = 0; r < reps; ++r) {
-    const float* row = publish_row0(rows + (r & 1) * kTile, acc, warp, lane);
-    if (!kBody) {
-      dep_only<8>(acc, row, lane);
-      continue;
-    }
-    float s[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 x = *reinterpret_cast<const float2*>(row + nt * 8 + 2 * t);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = s0r[nt][i] + ((i & 1) ? x.y : x.x);
-        m[i >> 1] = fmaxf(m[i >> 1], s[nt][i]);
-      }
-    }
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = exp2f(s[nt][i] - m[i >> 1]);
-        l[i >> 1] += s[nt][i];
-      }
-    const float ml[2] = {m[0] + quad_sum(l[0]), m[1] + quad_sum(l[1])};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[nt][i] = fmaf(acc[nt][i], 0.5f, round_bf16(s[nt][i])) + ml[i >> 1];
-  }
-  store_c(out + (size_t)blockIdx.x * kTile * kTile, acc, warp, lane);
+// Two values rounded to bf16 by one packed conversion (F2FP, as the flash
+// kernels round p and dS for their products) and widened back to f32.
+__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
+  const uint32_t u = pack_bf16(a, b);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
-// Backward chain: s0, dp [64, 64] f32 -> out [blocks, 64, 64] f32.  The dK/dV
-// kernel rounds both p and dS to bf16 (cast_p); the dQ kernel only dS.
+// Both warpgroups' ping-pong rows: [warpgroup][2][64] f32.
+constexpr size_t kChainSmem = kConsumers * 2 * kTile * sizeof(float);
+
+// Forward softmax chain: s0 [64, 64] f32 -> out [2 blocks, 64, 64] f32
+template <bool kBody>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+softmax_chain_kernel(const float* __restrict__ s0, float* __restrict__ out, int reps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* rows = reinterpret_cast<float*>(smem_raw);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: nothing to stream
+    regs_release<kProducerRegs>();
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  float s0r[32], acc[32];  // the scores as the forward holds them after S = Q.K^T
+  load_acc(s0r, s0, warp, lane);
+  zero(acc);
+  for (int r = 0; r < reps; ++r) {
+    float* row = rows + (2 * w + (r & 1)) * kTile;
+    publish_row(row, acc, warp, lane);
+    wg_sync(w);
+    if constexpr (!kBody) {
+      dep_pass<false>(acc, row, t);
+    } else {
+      float s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(row + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[4 * j + i] = s0r[4 * j + i] + ((i & 1) ? x.y : x.x);
+          m[i >> 1] = fmaxf(m[i >> 1], s[4 * j + i]);
+        }
+      }
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        s[e] = ex2(s[e] - m[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += s[e];
+      }
+      const float ml[2] = {m[0] + quad_sum(l[0]), m[1] + quad_sum(l[1])};
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {  // columns 2t, 2t + 1 of one row
+        const float2 p = round_bf16x2(s[e], s[e + 1]);
+        acc[e] = fmaf(acc[e], 0.5f, p.x) + ml[(e >> 1) & 1];
+        acc[e + 1] = fmaf(acc[e + 1], 0.5f, p.y) + ml[(e >> 1) & 1];
+      }
+    }
+  }
+  store_acc(out + (size_t)(kConsumers * blockIdx.x + w) * kTile * kTile, acc, warp, lane);
+}
+
+// Backward chain: s0, dp [64, 64] f32 -> out [2 blocks, 64, 64] f32.  The
+// dK/dV kernel rounds both p and dS to bf16 (cast_p); the dQ kernel only dS.
 template <bool kCastP, bool kBody>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSm90Threads, 1)
 bwd_chain_kernel(const float* __restrict__ s0, const float* __restrict__ dp,
                  float* __restrict__ out, int reps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* rows = reinterpret_cast<float*>(smem_raw);  // [2][64]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  float s0r[8][4], dpr[8][4];
-  load_c(s0r, s0, warp, lane);
-  load_c(dpr, dp, warp, lane);
-
-  float acc[8][4];
+  float* rows = reinterpret_cast<float*>(smem_raw);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: nothing to stream
+    regs_release<kProducerRegs>();
+    return;
+  }
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, t = lane & 3;
+  float s0r[32], dpr[32], acc[32];
+  load_acc(s0r, s0, warp, lane);
+  load_acc(dpr, dp, warp, lane);
+  // s0 - 1.7 once: the exponent s0 + row - 1.7 then costs one FADD an
+  // element, as the flash kernels' s * scale - lse costs one FFMA
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s0r[e] -= 1.7f;
   zero(acc);
   for (int r = 0; r < reps; ++r) {
-    const float* row = publish_row0(rows + (r & 1) * kTile, acc, warp, lane);
-    if (!kBody) {
-      dep_only<8>(acc, row, lane);
-      continue;
-    }
+    float* row = rows + (2 * w + (r & 1)) * kTile;
+    publish_row(row, acc, warp, lane);
+    wg_sync(w);
+    if constexpr (!kBody) {
+      dep_pass<false>(acc, row, t);
+    } else {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 x = *reinterpret_cast<const float2*>(row + nt * 8 + 2 * t);
+      for (int j = 0; j < 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(row + 8 * j + 2 * t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        opaque(dpr[nt][i]);  // dp + 0.3 stays in the loop, as dP is fresh per tile
-        const float p = exp2f(s0r[nt][i] + ((i & 1) ? x.y : x.x) - 1.7f);
-        const float ds = p * (dpr[nt][i] + 0.3f);
-        const float o = fmaf(acc[nt][i], 0.5f, round_bf16(ds));
-        acc[nt][i] = o + (kCastP ? round_bf16(p) : p);
+        for (int e = 4 * j; e < 4 * j + 4; e += 2) {  // columns 2t, 2t + 1 of one row
+          opaque(dpr[e]);  // dp + 0.3 stays in the loop, as dP is fresh per tile
+          opaque(dpr[e + 1]);
+          const float p0 = ex2(s0r[e] + x.x), p1 = ex2(s0r[e + 1] + x.y);
+          const float2 ds = round_bf16x2(p0 * (dpr[e] + 0.3f), p1 * (dpr[e + 1] + 0.3f));
+          const float2 p = kCastP ? round_bf16x2(p0, p1) : make_float2(p0, p1);
+          acc[e] = fmaf(acc[e], 0.5f, ds.x) + p.x;
+          acc[e + 1] = fmaf(acc[e + 1], 0.5f, ds.y) + p.y;
+        }
       }
     }
   }
-  store_c(out + (size_t)blockIdx.x * kTile * kTile, acc, warp, lane);
+  store_acc(out + (size_t)(kConsumers * blockIdx.x + w) * kTile * kTile, acc, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -563,7 +535,7 @@ Instance pick(int which, int d, int cast_p, int body) {
   if (which == 0 && d == 128) return qk_instance<128>(body);
   if (which == 1 && d == 64) return pv_instance<64>(body);
   if (which == 1 && d == 128) return pv_instance<128>(body);
-  Instance chain = {nullptr, chain_smem(), kThreads, 1};
+  Instance chain = {nullptr, kChainSmem, kSm90Threads, kConsumers};
   if (which == 2)
     chain.fn = body ? (const void*)(ChainFn)softmax_chain_kernel<true>
                     : (const void*)(ChainFn)softmax_chain_kernel<false>;

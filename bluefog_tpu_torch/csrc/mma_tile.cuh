@@ -2,8 +2,7 @@
 // sm90_tile.cuh) and the roofline's microkernels (attention_components.cu):
 // the tile size, bf16 packing, and the max and sum over the four lanes that
 // hold one row of an accumulator (an mma.sync C fragment and a wgmma
-// accumulator spread a row the same way).  The chain microkernels still run
-// 128-thread blocks of four warps of 16 rows (kWarps, kThreads).
+// accumulator spread a row the same way).
 
 #pragma once
 
@@ -15,9 +14,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTile = 64;    // rows per block tile and per inner-loop tile
-constexpr int kWarps = 4;    // each warp owns 16 rows of the block tile
-constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;  // rows per warpgroup tile and per inner-loop tile
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

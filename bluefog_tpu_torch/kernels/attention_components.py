@@ -19,8 +19,9 @@ Each computes ``reps`` repetitions of ``acc <- 0.5 * acc + f(acc)`` on one
 source's header gives each ``f``).  ``body=False`` leaves the product or
 chain out (``f`` = the fed-back row + 1): the cost of that dependency pass
 alone.  A CUDA block computes :data:`TILES_PER_BLOCK` copies of the tile:
-qk and pv run the flash kernels' block, two consumer warpgroups of 64 rows
-on ``wgmma``, each on its own tile; the chains one tile on four warps.  The
+every component runs the flash kernels' block, two consumer warpgroups of
+64 rows, each on its own tile (qk and pv on ``wgmma``, the chains on the
+accumulator's registers with ``ex2.approx``).  The
 result is ``[blocks * TILES_PER_BLOCK[name], 64, W]`` f32 with every slice
 equal, from the kernel and from the plain version alike.  ``smem_bytes``
 reserves that much dynamic shared memory a block (at least what the kernel
@@ -69,9 +70,8 @@ TILE = 64
 HEAD_DIMS = (64, 128)
 MAX_SMEM = 232448  # the H100's opt-in dynamic shared memory per block
 _IDS = {"qk": 0, "pv": 1, "softmax_chain": 2, "bwd_chain": 3}
-# Tiles a CUDA block computes (csrc/attention_components.cu: kConsumers for
-# qk and pv, one for the chains).
-TILES_PER_BLOCK = {"qk": 2, "pv": 2, "softmax_chain": 1, "bwd_chain": 1}
+# Tiles a CUDA block computes (csrc/attention_components.cu: kConsumers).
+TILES_PER_BLOCK = {"qk": 2, "pv": 2, "softmax_chain": 2, "bwd_chain": 2}
 
 # Kernel launches per wrapper since the last reset_launches().  Only a
 # launch of the CUDA kernel counts; a plain-version call does not.
@@ -133,7 +133,7 @@ def pv_component_plain(p16, v, reps: int, *, body: bool = True, blocks: int = 1)
 
 def softmax_chain_component_plain(s0, reps: int, *, body: bool = True,
                                   blocks: int = 1):
-    """``s0 [64, 64]`` f32 -> ``[blocks, 64, 64]`` f32."""
+    """``s0 [64, 64]`` f32 -> ``[2 blocks, 64, 64]`` f32."""
     acc = _zeros("softmax_chain", blocks, *s0.shape, s0)
     for _ in range(reps):
         if body:
@@ -149,7 +149,7 @@ def softmax_chain_component_plain(s0, reps: int, *, body: bool = True,
 
 def bwd_chain_component_plain(s0, dp, reps: int, *, cast_p: bool,
                               body: bool = True, blocks: int = 1):
-    """``s0``, ``dp [64, 64]`` f32 -> ``[blocks, 64, 64]`` f32."""
+    """``s0``, ``dp [64, 64]`` f32 -> ``[2 blocks, 64, 64]`` f32."""
     acc = _zeros("bwd_chain", blocks, *s0.shape, s0)
     for _ in range(reps):
         if body:

@@ -19,12 +19,14 @@ first).
 computes, in the order the card is handed the blocks.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
-f32).  On a CUDA tensor it checks device, dtype, shape and contiguity,
-launches its kernel on the current stream and adds one to its count in
-:data:`launches`; on a CPU tensor it runs its plain version, the blockwise
-recompute of the JAX package's XLA routes (``_blockwise_fwd_xla`` :411 and
-``_blockwise_bwd`` :729, split into dK/dV and dQ) with the kernels'
-rounding points.  There is no fallback from one to the other.
+f32).  On a CUDA tensor it checks device, dtype (bf16), shape and
+contiguity, launches its kernel on the current stream and adds one to its
+count in :data:`launches`.  The kernels are built for D = 64 and 128; a
+head dim up to 128 runs zero-padded to the next of those
+(:func:`pad_head_dim`), and a larger one raises.  On a CPU tensor it runs
+its plain version, the blockwise recompute of the JAX package's XLA routes
+(``_blockwise_fwd_xla`` :411 and ``_blockwise_bwd`` :729, split into dK/dV
+and dQ) with the kernels' rounding points.  There is no fallback from one to the other.
 
 Causal masking uses global positions (``q_start``/``k_start``), so one call
 serves plain attention and one ring-attention hop; rows with no visible key
@@ -58,12 +60,13 @@ __all__ = [
     "reset_launches",
     "occupancy",
     "launch_order",
+    "pad_head_dim",
 ]
 
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 
 # Kernel launches per wrapper since the last reset_launches().  Only a
@@ -194,9 +197,10 @@ def _on_cuda(*tensors) -> bool:
 def _check(name, q, k, v, extra=(), f32=()):
     bh, tq, d = q.shape
     tk = k.shape[1]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
-    if tq < 1 or tk < 1 or bh < 1:
+    if d > _HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS[-1]}, the largest "
+                         f"the kernels take")
+    if tq < 1 or tk < 1 or bh < 1 or d < 1:
         raise ValueError(f"{name}: empty input {tuple(q.shape)} / {tuple(k.shape)}")
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
         raise ValueError(f"{name}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
@@ -233,13 +237,44 @@ def _raise_on(name, err):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def pad_head_dim(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every ``[BH, T, D]`` argument zero-padded
+    in D to the next head dim the kernels are built for, and every
+    ``[BH, T, D]`` result cut back to D.  Exact: the scale is an argument
+    (the caller's, from the unpadded D), zero columns add nothing to
+    q.k or dO.v, lse and corr do not depend on D, and the padded columns
+    of o, dQ, dK and dV are zero.  A D that is built already, or above the
+    largest, passes through unchanged."""
+    d = args[0].shape[-1]
+    kd = next((n for n in _HEAD_DIMS if n >= d), d)
+    if kd == d:
+        return fn(*args, **kwargs)
+
+    def pad(x):
+        if isinstance(x, torch.Tensor) and x.dim() == 3:
+            return torch.nn.functional.pad(x, (0, kd - d))
+        return x
+
+    def cut(x):
+        return x[..., :d].contiguous() if x.dim() == 3 else x
+
+    out = fn(*(pad(x) for x in args), **kwargs)
+    return tuple(cut(x) for x in out) if isinstance(out, tuple) else cut(out)
+
+
 def flash_fwd(q, k, v, q_start: int = 0, k_start: int = 0, *, scale: float,
               causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [BH,Tq,D], lse [BH,Tq] f32)``; the CUDA kernel for CUDA tensors,
     :func:`flash_fwd_plain` for CPU tensors."""
     if not _on_cuda(q, k, v):
         return flash_fwd_plain(q, k, v, q_start, k_start, scale=scale, causal=causal)
-    bh, tq, tk, d = _check("flash_fwd", q, k, v)
+    _check("flash_fwd", q, k, v)
+    return pad_head_dim(_launch_fwd, q, k, v, q_start, k_start, scale=scale, causal=causal)
+
+
+def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -258,7 +293,14 @@ def flash_dkv(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0, *,
     if not _on_cuda(q, k, v, g, lse, corr):
         return flash_dkv_plain(q, k, v, g, lse, corr, q_start, k_start,
                                scale=scale, causal=causal)
-    bh, tq, tk, d = _check("flash_dkv", q, k, v, (g,), (lse, corr))
+    _check("flash_dkv", q, k, v, (g,), (lse, corr))
+    return pad_head_dim(_launch_dkv, q, k, v, g, lse, corr, q_start, k_start,
+                        scale=scale, causal=causal)
+
+
+def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -278,7 +320,14 @@ def flash_dq(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0, *,
     if not _on_cuda(q, k, v, g, lse, corr):
         return flash_dq_plain(q, k, v, g, lse, corr, q_start, k_start,
                               scale=scale, causal=causal)
-    bh, tq, tk, d = _check("flash_dq", q, k, v, (g,), (lse, corr))
+    _check("flash_dq", q, k, v, (g,), (lse, corr))
+    return pad_head_dim(_launch_dq, q, k, v, g, lse, corr, q_start, k_start,
+                        scale=scale, causal=causal)
+
+
+def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _lib().bf_flash_bwd_dq(

@@ -10,14 +10,18 @@ Phases, each printing one JSON line:
                sm90_tile.cuh and mma_tile.cuh), side by side (seconds,
                ptxas); the three flash kernels, built for Hopper, must hold
                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
-               in their SASS where cuobjdump is found, and the qk and pv
+               in their SASS where cuobjdump is found, the qk and pv
                microkernels HGMMA (with their body) and no HMMA at both
-               head dims.
+               head dims, and the chain microkernels MUFU.EX2 (with their
+               body) and no HMMA; each chain's loop must issue per element
+               on each pipe what its bound prices
+               (attention_roofline.CHAIN_PIPES).
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
-               PyTorch version on the same bf16 inputs, over seven cases
+               PyTorch version on the same bf16 inputs, over nine cases
                (the main path's shape, two ring hops with q_start > k_start,
-               a fully masked hop, non-causal, D = 128, a ragged length);
+               a fully masked hop, non-causal, D = 128, D = 16 and 96
+               zero-padded by the wrappers, a ragged length);
                then times at the main path's shape (between events around
                eager calls, and by CUDA-graph replay, which leaves out the
                wrappers' host time) beside the bound, the plain version and
@@ -30,13 +34,14 @@ Phases, each printing one JSON line:
                2 x 2048, AdamW under ATC gossip on ExponentialTwoGraph(4),
                3 steps; the launch counts must be 12 x 4 x 3 per kernel.
 5. components -- each roofline microkernel instance (qk and pv at D 64 and
-               128 at reps 1, 2 and 3; the softmax chain, the backward chain
-               with and without cast_p at reps 1 and 2) against its plain
-               version, with its body and with the dependency pass alone,
-               on 3 blocks (6 tiles for qk and pv, one a warpgroup).
+               128; the softmax chain, the backward chain with and without
+               cast_p) at reps 1, 2 and 3 against its plain version, with
+               its body and with the dependency pass alone, on 3 blocks
+               (6 tiles, one a warpgroup).
 6. roofline -- the second path: the counted roofline of the flash kernels
                (bluefog_tpu_torch.benchmarks.attention_roofline) at the main
-               path's shape [24, 2048, 64], forward and backward; every
+               path's shape [24, 2048, 64], forward and backward, with both
+               band pairs (with and without the dependency pass); every
                microkernel must launch in it.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
@@ -123,33 +128,45 @@ def visible_pairs(tq, tk, q_start, k_start, causal):
     return total
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "MUFU.EX2")
+BODY = {"1": "body", "0": "dep"}
+
+
+def component_name(fname):
+    """A microkernel instance's name ("qk_kernel<64, body>",
+    "bwd_chain_kernel<cast_p=1, dep>") from its mangled name, or None."""
+    m = re.search(r"(qk|pv)_kernelILi(\d+)ELb([01])E", fname)
+    if m:
+        return f"{m.group(1)}_kernel<{m.group(2)}, {BODY[m.group(3)]}>"
+    m = re.search(r"softmax_chain_kernelILb([01])E", fname)
+    if m:
+        return f"softmax_chain_kernel<{BODY[m.group(1)]}>"
+    m = re.search(r"bwd_chain_kernelILb([01])ELb([01])E", fname)
+    if m:
+        return f"bwd_chain_kernel<cast_p={m.group(1)}, {BODY[m.group(2)]}>"
+    return None
 
 
 def sass_ops(_build):
-    """{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}} from cuobjdump's SASS:
-    the flash library's kernels (both head dims together) and the qk and pv
-    microkernels per head dim and body ("qk_kernel<64, body>"); None where
-    cuobjdump is not found."""
+    """{kernel: {op: n for op in SASS_OPS}} from cuobjdump's SASS: the flash
+    library's kernels (both head dims together) and each microkernel
+    instance (component_name); None where cuobjdump is not found."""
     flash = _build.sass("flash_attention")
     if flash is None:
         return None
     found = [(re.search(r"fwd_kernel|dkv_kernel|dq_kernel", f), b) for f, b in flash.items()]
     named = [(m.group(0), b) for m, b in found if m]
-    for fname, body in _build.sass("attention_components").items():
-        m = re.search(r"(qk|pv)_kernelILi(\d+)ELb([01])E", fname)
-        if m:
-            named.append((f"{m.group(1)}_kernel<{m.group(2)}, "
-                          f"{'body' if m.group(3) == '1' else 'dep'}>", body))
+    named += [(component_name(f), b) for f, b in _build.sass("attention_components").items()
+              if component_name(f)]
     counts = {}
     for kname, body in named:
         ops = counts.setdefault(kname, dict.fromkeys(SASS_OPS, 0))
         for op in ops:
-            ops[op] += len(re.findall(rf"\b{op}\b", body))
+            ops[op] += len(re.findall(rf"\b{re.escape(op)}\b", body))
     return counts
 
 
-def phase_device(torch, _build, fa, ac):
+def phase_device(torch, _build, fa, ac, roof):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -160,9 +177,19 @@ def phase_device(torch, _build, fa, ac):
     ptxas = {name: [l.strip() for l in _build.build_logs.get(name, "").splitlines()
                     if "registers" in l or "spill" in l] for name in sources}
     sass = sass_ops(_build)
+    # the chains' instructions an element per pipe, which their bound prices
+    named = {component_name(f): b for f, b in (_build.sass("attention_components") or {}).items()}
+    pipes = {name: roof.loop_pipe_counts(b) for name, b in named.items()
+             if name and "chain" in name and "body" in name}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu": torch.cuda.get_device_name(0),
-          "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found"})
+          "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found",
+          "chain_pipes": pipes})
+    for key, counts in roof.CHAIN_PIPES.items() if sass else ():
+        name = ("softmax_chain_kernel<body>" if key[0] == "softmax_chain"
+                else f"bwd_chain_kernel<cast_p={int(key[1])}, body>")
+        check(pipes.get(name) == counts,
+              f"device: {name} issues {pipes.get(name)} an element, the bound prices {counts}")
     for kname in ("fwd_kernel", "dkv_kernel", "dq_kernel") if sass else ():
         ops = sass.get(kname, {})
         check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
@@ -173,6 +200,13 @@ def phase_device(torch, _build, fa, ac):
             check(body is not None and dep is not None, f"device: {name} d={d} not in the SASS")
             check(body["HGMMA"] > 0 and body["HMMA"] == 0 and dep["HMMA"] == 0,
                   f"device: {name}_kernel<{d}> holds no wgmma, or mma.sync ({body}, {dep})")
+    chains = ["softmax_chain_kernel<{}>", "bwd_chain_kernel<cast_p=1, {}>",
+              "bwd_chain_kernel<cast_p=0, {}>"]
+    for name in chains if sass else ():
+        body, dep = (sass.get(name.format(b)) for b in ("body", "dep"))
+        check(body is not None and dep is not None, f"device: {name} not in the SASS")
+        check(body["MUFU.EX2"] > 0 and body["HMMA"] == 0 and dep["HMMA"] == 0,
+              f"device: {name} holds no MUFU.EX2, or mma.sync ({body}, {dep})")
     return smi
 
 
@@ -202,6 +236,9 @@ def phase_kernels(torch, fa):
         "masked_hop": dict(bh=8, t=1024, d=64, q_start=0, k_start=1024, causal=True),
         "non_causal": dict(bh=8, t=1024, d=64, q_start=0, k_start=0, causal=False),
         "d128": dict(bh=8, t=1024, d=128, q_start=0, k_start=0, causal=True),
+        # head dims the kernels take zero-padded to 64 and to 128
+        "d16": dict(bh=8, t=1024, d=16, q_start=0, k_start=0, causal=True),
+        "d96": dict(bh=8, t=1024, d=96, q_start=0, k_start=0, causal=True),
         "ragged": dict(bh=4, t=1000, d=64, q_start=0, k_start=0, causal=True),
     }
     errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
@@ -394,9 +431,10 @@ def phase_main(torch, fa):
 COMPONENT_BLOCKS = 3
 # reps 1 runs the body on the staged operands, 2 the fed-back row, 3 a fed
 # operand rewritten over one that was rewritten before (qk and pv rewrite
-# their shared-memory copy every repetition)
-COMPONENT_REPS = {"qk": (1, 2, 3), "pv": (1, 2, 3), "softmax_chain": (1, 2),
-                  "bwd_chain": (1, 2)}
+# their shared-memory copy every repetition) and, for every component, a
+# row published into the ping-pong buffer that reps 1 used
+COMPONENT_REPS = {"qk": (1, 2, 3), "pv": (1, 2, 3), "softmax_chain": (1, 2, 3),
+                  "bwd_chain": (1, 2, 3)}
 
 
 def phase_components(torch, ac, roof):
@@ -443,7 +481,9 @@ def phase_roofline(torch, fa, ac, roof):
     check(not row.get("invalid"), f"roofline: {row}")
     check(row["tiles"] == 12672, f"roofline: {row['tiles']} tiles, expected 24 x 528")
     for kname in ("fwd", "dkv", "dq"):
-        for key in ("pred_overlap_ms", "pred_serial_ms", "measured_ms", "unexplained_pct"):
+        for key in ("pred_overlap_ms", "pred_serial_ms", "measured_ms", "unexplained_pct",
+                    "pred_overlap_nodep_ms", "pred_serial_nodep_ms", "pred_sched_nodep_ms",
+                    "longest_block_nodep_ms", "unexplained_nodep_pct"):
             check(math.isfinite(row[f"{kname}_{key}"]), f"roofline: {kname}_{key} not finite")
         for cname, c in row["components"][kname].items():
             # a hoisted loop body would make later repetitions cheaper
@@ -482,12 +522,14 @@ def component_times(torch, ac, roof, row):
         plain_ms = cuda_ms(lambda: ac.PLAIN[name](*args, LINE_REPS, blocks=blocks, **kw),
                            iters=2, warmup=1)
         tiles = blocks * ac.TILES_PER_BLOCK[name]
-        t_ops = roof.tile_bound_us(name, 64) * 1e-3 * tiles * LINE_REPS
+        tile_us, pipe = roof.tile_bound(name, 64, **kw)
+        t_ops = tile_us * 1e-3 * tiles * LINE_REPS
         in_bytes = sum(x.numel() * x.element_size() for x in args)
         out_bytes = 4 * tiles * 64 * 64
         t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
         timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "bound_pipe": pipe,
                        "library_ms": None, "library_note": LIBRARY_NONE,
                        "config": {"blocks": blocks, "tiles": tiles, "reps": LINE_REPS,
                                   "smem": smem, **kw}}
@@ -508,7 +550,7 @@ def main():
     # the package re-exports a function of the module's own name
     fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 
-    smi = phase_device(torch, _build, fa, ac)
+    smi = phase_device(torch, _build, fa, ac, roof)
     table = phase_kernels(torch, fa)
     phase_model(torch, fa)
     counts = phase_main(torch, fa)

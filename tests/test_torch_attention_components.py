@@ -144,9 +144,8 @@ def test_dependency_pass_alone(name):
 @pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
 def test_every_block_computes_tiles_per_block_equal_slices(name, d, kw, blocks):
     """A wrapper and its plain version both return ``blocks x
-    TILES_PER_BLOCK[name]`` slices of the tile (two a block for qk and pv,
-    one for each consumer warpgroup; one for the chains), every slice the
-    one-block tile."""
+    TILES_PER_BLOCK[name]`` slices of the tile (two a block, one for each
+    consumer warpgroup), every slice the one-block tile."""
     gen = torch.Generator().manual_seed(d + blocks)
     bf, f32 = torch.bfloat16, torch.float32
     args = {"qk": (torch.randn(64, d, generator=gen).to(bf),

@@ -52,7 +52,7 @@ def _close_lse(got, want):
     assert err.numel() == 0 or err.max() <= 1e-3, err.max().item()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 96])  # 16 and 96 run zero-padded
 @pytest.mark.parametrize("tq,tk,q_start,k_start,causal", [
     (320, 320, 0, 0, True), (320, 320, 96, 0, True), (320, 320, 0, 0, False),
     (320, 320, 0, 512, True),
@@ -115,9 +115,9 @@ def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 64, 160, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_fwd(q[..., :32].contiguous(), q[..., :32].contiguous(),
-                     q[..., :32].contiguous(), scale=1.0, causal=True)
+        fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
     with pytest.raises(ValueError, match="bf16"):
         fa.flash_fwd(q.float(), q.float(), q.float(), scale=1.0, causal=True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -129,13 +129,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
 def test_components_match_plain_versions(cuda_device, name, d, kw, body):
     """Each roofline microkernel against its plain version at reps 1 (the
-    body), 2 (the fed-back row) and, for qk and pv, 3 (a shared-memory
-    operand rewritten over a rewritten one), on several blocks, every slice
-    (both warpgroups of every qk or pv block) equal; the rule is
+    body), 2 (the fed-back row) and 3 (for qk and pv a shared-memory
+    operand rewritten over a rewritten one; for every component a row
+    published into the ping-pong buffer reps 1 used), on several blocks,
+    every slice (both warpgroups of every block) equal; the rule is
     attention_components.compare."""
     args = roof.component_inputs(d, seed=3)[name]
     before = ac.launches[name]
-    all_reps = (1, 2, 3) if name in ("qk", "pv") else (1, 2)
+    all_reps = (1, 2, 3)
     for reps in all_reps:
         got = roof.WRAPPERS[name](*args, reps, body=body, blocks=5, **kw)
         ref = ac.PLAIN[name](*args, reps, body=body, blocks=5, **kw)
@@ -162,15 +163,44 @@ def test_product_microkernels_run_on_wgmma(cuda_device):
                 assert not re.search(r"\bHMMA\b", found[0])
 
 
+def test_chain_microkernels_run_ex2_without_mma(cuda_device):
+    """The chains with their body hold MUFU.EX2 (ex2.approx); no instance
+    holds mma.sync (HMMA)."""
+    funcs = _build.sass("attention_components")
+    if funcs is None:
+        pytest.skip("cuobjdump not found")
+    patterns = ["softmax_chain_kernelILb{body}E"] + [
+        f"bwd_chain_kernelILb{cast_p}ELb{{body}}E" for cast_p in (1, 0)]
+    for pattern in patterns:
+        for body in (1, 0):
+            found = [b for f, b in funcs.items() if re.search(pattern.format(body=body), f)]
+            assert len(found) == 1, sorted(funcs)
+            assert ("MUFU.EX2" in found[0]) == bool(body)
+            assert not re.search(r"\bHMMA\b", found[0])
+
+
+@pytest.mark.parametrize("name,cast_p", sorted(roof.CHAIN_PIPES))
+def test_chain_bound_counts_match_the_sass(cuda_device, name, cast_p):
+    """The instructions an element per pipe that the chains' bound prices
+    (attention_roofline.CHAIN_PIPES) are those of the built kernels' loop."""
+    funcs = _build.sass("attention_components")
+    if funcs is None:
+        pytest.skip("cuobjdump not found")
+    pattern = ("softmax_chain_kernelILb1E" if name == "softmax_chain"
+               else f"bwd_chain_kernelILb{int(cast_p)}ELb1E")
+    found = [b for f, b in funcs.items() if pattern in f]
+    assert len(found) == 1, sorted(funcs)
+    assert roof.loop_pipe_counts(found[0]) == roof.CHAIN_PIPES[name, cast_p]
+
+
 @pytest.mark.parametrize("name,d,kw", ac.INSTANCES)
 def test_microkernel_occupancy_reports_tiles_per_block(cuda_device, name, d, kw):
-    """qk and pv run the flash block: one a SM (by registers, at the least
-    shared memory) and two tiles a block; the chains one tile a block."""
+    """Every microkernel runs the flash block: one a SM (by registers, at
+    the least shared memory) and two tiles a block."""
     for body in (True, False):
         occ = ac.occupancy(name, d=d, body=body, **kw)
-        assert occ["tiles_per_block"] == ac.TILES_PER_BLOCK[name]
-        if name in ("qk", "pv"):
-            assert occ["blocks_per_sm"] == 1 and occ["regs"] >= 128, occ
+        assert occ["tiles_per_block"] == ac.TILES_PER_BLOCK[name] == 2
+        assert occ["blocks_per_sm"] == 1 and occ["regs"] >= 128, occ
 
 
 def test_matched_smem_holds_the_flash_kernels_blocks_per_sm(cuda_device):
@@ -195,3 +225,17 @@ def test_graph_seconds_reads_the_device_time_of_a_short_launch(cuda_device):
     graph = profiling.graph_seconds(fn, calls=20)
     eager = roof.measured_seconds(fn, "short")[0]
     assert 0 < graph < 1e-3 and graph <= eager
+
+
+def test_tiny_example_trains_on_the_card(cuda_device):
+    """The example's tiny preset (head dim 16) with its defaults, flash
+    attention on the card, for two steps: finite losses, and every flash
+    kernel launched."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    fa.reset_launches()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        ["--preset", "tiny", "--steps", "2"]))
+    losses = [x for step in out["losses"] for x in step]
+    assert len(losses) == 2 * 4 and all(torch.isfinite(torch.tensor(losses)))
+    assert all(n > 0 for n in fa.launches.values()), fa.launches

@@ -103,3 +103,30 @@ def test_wrappers_reject_mixed_devices():
     x = torch.zeros(2, 64, 64)
     with pytest.raises(ValueError):
         fa._on_cuda(x, torch.zeros(2, 64, 64, device="meta"))
+
+
+@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
+def test_head_dim_padding_is_exact(kernel, d):
+    """pad_head_dim, which the CUDA wrappers run a head dim the kernels are
+    not built for through (zero-padded to 64 or 128, results cut back),
+    gives the unpadded result: run here through the plain versions, every
+    output within 1e-6 of the largest (f32 sums over the zero columns in
+    another order), and the sliced outputs have the unpadded shape."""
+    rng = np.random.default_rng(d)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(3, 96, d)).astype(np.float32))
+                  for _ in range(4))
+    kw = dict(scale=d ** -0.5, causal=True)
+    o, lse = fa.flash_fwd_plain(q, k, v, 8, 0, **kw)
+    corr = torch.from_numpy(rng.normal(size=(3, 96)).astype(np.float32)) \
+        - (o * g).sum(-1)
+    args = {"fwd": (q, k, v, 8, 0), "dkv": (q, k, v, g, lse, corr, 8, 0),
+            "dq": (q, k, v, g, lse, corr, 8, 0)}[kernel]
+    plain = getattr(fa, f"flash_{kernel}_plain")
+    want = plain(*args, **kw)
+    got = fa.pad_head_dim(plain, *args, **kw)
+    want, got = (x if isinstance(x, tuple) else (x,) for x in (want, got))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max(), (a - b).abs().max()

@@ -95,9 +95,12 @@ def test_port_initializer_mirrors_flax_distributions(jax_params):
             assert abs(p.std().item() / ref[name].std().item() - 1) < 0.1, name
 
 
-def _train_both(jax_params, jax_opt, torch_opt_fn, steps, flash=True, head_chunks=4):
-    """Run both train steps from the same weights on the same batches; return
-    (jax losses, port losses, jax params per rank, port params)."""
+def _train_both(jax_params, jax_opt, torch_opt_fn, steps, flash=True, head_chunks=4,
+                mode="atc", communication_type="neighbor_allreduce"):
+    """Run both train steps from the same weights on the same batches, with
+    the same ``mode`` and ``communication_type`` (a ``CommunicationType``
+    member's name); return (jax losses, port losses, jax params per rank,
+    port params)."""
     batches = _ids(2, (steps, N, 2, T))
     jbf.init(devices=jax.devices()[:N])
     try:
@@ -105,8 +108,8 @@ def _train_both(jax_params, jax_opt, torch_opt_fn, steps, flash=True, head_chunk
         model = _jax_model(flash, head_chunks)
         lm_apply, lm_loss = jax_lm_loss_fns(model)
         init_fn, step_fn = jax_train_step(
-            lm_apply, jax_opt, ctx.mesh, communication_type=JaxComm.neighbor_allreduce,
-            plan=ctx.plan, loss_fn=lm_loss, donate=False)
+            lm_apply, jax_opt, ctx.mesh, communication_type=JaxComm[communication_type],
+            plan=ctx.plan, mode=mode, loss_fn=lm_loss, donate=False)
         params = jax_replicate(jax.tree_util.tree_map(jnp.asarray, jax_params), N)
         state = init_fn(params)
         jl = []
@@ -125,8 +128,8 @@ def _train_both(jax_params, jax_opt, torch_opt_fn, steps, flash=True, head_chunk
         apply_fn, loss_fn = make_lm_loss_fns(model)
         step_fn = make_decentralized_train_step(
             apply_fn, params, torch_opt_fn(list(params.values())),
-            communication_type=CommunicationType.neighbor_allreduce,
-            plan=tbf.context().plan, loss_fn=loss_fn)
+            communication_type=CommunicationType[communication_type],
+            plan=tbf.context().plan, mode=mode, loss_fn=loss_fn)
         tl = []
         for s in range(steps):
             bx = torch.from_numpy(batches[s])
@@ -141,13 +144,18 @@ def _per_rank_state(jparams, r):
                             CFG["num_layers"])
 
 
-def test_train_step_sgd_momentum_matches_reference(jax_params):
-    """3 ATC steps of momentum SGD with flash attention and the chunked
-    loss: losses and every rank's parameters within rtol 1e-4."""
+@pytest.mark.parametrize("mode,comm", [("atc", "neighbor_allreduce"),
+                                       ("awc", "neighbor_allreduce"),
+                                       ("atc", "allreduce")])
+def test_train_step_sgd_momentum_matches_reference(jax_params, mode, comm):
+    """3 steps of momentum SGD with flash attention and the chunked loss,
+    in each mode of the train step: losses and every rank's parameters
+    within rtol 1e-4."""
     lr = 0.1
     jl, tl, jparams, params = _train_both(
         jax_params, optax.sgd(lr, momentum=0.9),
-        lambda leaves: torch.optim.SGD(leaves, lr=lr, momentum=0.9, dampening=0.0), 3)
+        lambda leaves: torch.optim.SGD(leaves, lr=lr, momentum=0.9, dampening=0.0), 3,
+        mode=mode, communication_type=comm)
     np.testing.assert_allclose(np.stack(tl), np.stack(jl), rtol=1e-4)
     for r in range(N):
         want = _per_rank_state(jparams, r)

@@ -231,13 +231,22 @@ def test_component_seconds_divides_the_slope_by_the_tiles(monkeypatch, name, blo
     assert {reps for _, reps, _, _ in seen} == set(roof.REPS)
 
 
+# Fake tile bounds (us): pv's and bwd_chain's lie above 0.75 x their PER_TILE
+# (us - dep_us at dep_share 0.25), so their no-dependency cost is the bound.
+BOUND_US = {"qk": 1e-4, "pv": 1.8e-3, "softmax_chain": 1e-3, "bwd_chain": 3.5e-3}
+
+
 @pytest.mark.parametrize("bwd", [False, True])
 def test_roofline_row_prices_tiles_and_names_each_component_tile(monkeypatch, bwd):
-    """roofline_row on fake timings (no card): each component's ``us`` and
-    ``dep_us`` are per tile computed (two a block for qk and pv), its launch
+    """roofline_row on fake timings and bounds (no card): each component's
+    ``us`` and ``dep_us`` are per tile computed (two a block), its launch
     covers whole waves of the flash kernel's blocks, and the row names the
-    tile each component times, once per component."""
+    tile each component times, once per component.  The second band pair
+    prices a tile at max(us - dep_us, bound_us): overlap, serial, schedule,
+    longest block and the measurement's gap, each from that cost."""
     seen = _fake_component_timing(monkeypatch, PER_TILE, 0.25)
+    monkeypatch.setattr(roof, "tile_bound",
+                        lambda name, d, cast_p=False: (BOUND_US[name], "fake"))
     sms, flash_smem = 3, 83016
     monkeypatch.setattr(roof, "DEVICE", "cpu")
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -265,9 +274,87 @@ def test_roofline_row_prices_tiles_and_names_each_component_tile(monkeypatch, bw
             assert c["us"] == pytest.approx(PER_TILE[cname] * 1e6, rel=1e-6)
             assert c["dep_us"] == pytest.approx(0.25 * PER_TILE[cname] * 1e6, rel=1e-6)
             assert c["linearity"] == pytest.approx(1.0, rel=1e-6)
+            nodep = max(0.75 * PER_TILE[cname] * 1e6, BOUND_US[cname])
+            assert c["nodep_us"] == pytest.approx(nodep, rel=1e-6)
+            assert c["bound_us"] == BOUND_US[cname] and c["bound_pipe"] == "fake"
         n_qk, n_pv, (chain, _) = roof.MODELS[kname]
         tile_us = n_qk * PER_TILE["qk"] * 1e6 + n_pv * PER_TILE["pv"] * 1e6 \
             + PER_TILE[chain] * 1e6
         assert row[f"{kname}_pred_serial_ms"] == pytest.approx(row["tiles"] * tile_us * 1e-3)
+        # the floor holds pv and the backward chain at their bounds
+        products = n_qk * 0.75 * PER_TILE["qk"] * 1e6 + n_pv * BOUND_US["pv"]
+        chain_us = (0.75 * PER_TILE[chain] * 1e6 if chain == "softmax_chain"
+                    else BOUND_US[chain])
+        serial = row["tiles"] * (products + chain_us) * 1e-3
+        overlap = row["tiles"] * max(products, chain_us) * 1e-3
+        per_block = [len(t) for _, t in roof.fa.launch_order(kname, 256, 256, bh=2)[0]]
+        tile_s = (products + chain_us) * 1e-6
+        assert row[f"{kname}_pred_serial_nodep_ms"] == pytest.approx(serial)
+        assert row[f"{kname}_pred_overlap_nodep_ms"] == pytest.approx(overlap)
+        assert row[f"{kname}_pred_sched_nodep_ms"] == pytest.approx(
+            roof.scheduled_ms(per_block, sms, tile_s))
+        assert row[f"{kname}_longest_block_nodep_ms"] == pytest.approx(
+            max(per_block) * tile_s * sms * 1e3)
+        assert row[f"{kname}_unexplained_nodep_pct"] == pytest.approx(
+            roof._band_gap(0.1, overlap, serial) * 100)
+        assert row[f"{kname}_pred_serial_nodep_ms"] < row[f"{kname}_pred_serial_ms"]
     launched = {name for name, _, _, _ in seen}
     assert launched == used
+
+
+@pytest.mark.parametrize("name,cast_p", sorted(roof.CHAIN_PIPES))
+def test_chain_bound_is_the_slowest_pipe(name, cast_p):
+    """A chain's tile bound: each pipe's instructions an element x 64 x 64
+    over its device-wide rate (the f32 peak's FMA lanes, 128 a clock an SM,
+    scaled to the pipe's rate); the largest binds and is named."""
+    us, pipe = roof.tile_bound(name, 64, cast_p)
+    per_pipe = {p: n * 64 * 64 / (67e12 / 2 * roof.PIPE_RATES[p] / 128) * 1e6
+                for p, n in roof.CHAIN_PIPES[name, cast_p].items()}
+    assert us == pytest.approx(max(per_pipe.values()), rel=1e-12)
+    assert per_pipe[pipe] == us
+    # one ex2 an element on the 16-wide MUFU pipe takes as long as 8 f32
+    # instructions on the 128-wide FP32 pipe
+    assert roof.PIPE_RATES["fp32"] == 8 * roof.PIPE_RATES["mufu"]
+
+
+def test_tile_bound_names_the_pipe_that_binds(monkeypatch):
+    monkeypatch.setitem(roof.CHAIN_PIPES, ("softmax_chain", False),
+                        {"fp32": 16, "alu": 1, "mufu": 1})
+    us, pipe = roof.tile_bound("softmax_chain", 64)
+    assert pipe == "fp32" and us == pytest.approx(16 * 4096 / 33.5e12 * 1e6)
+    monkeypatch.setitem(roof.CHAIN_PIPES, ("softmax_chain", False),
+                        {"fp32": 4, "alu": 2, "mufu": 1})
+    us, pipe = roof.tile_bound("softmax_chain", 64)
+    assert pipe == "mufu" and us == pytest.approx(4096 / 4.1875e12 * 1e6)
+    monkeypatch.setitem(roof.CHAIN_PIPES, ("softmax_chain", False),
+                        {"fp32": 4, "alu": 5, "mufu": 1})
+    us, pipe = roof.tile_bound("softmax_chain", 64)
+    assert pipe == "alu" and us == pytest.approx(5 * 4096 / 16.75e12 * 1e6)
+    for d in (64, 128):
+        assert roof.tile_bound("qk", d) == (2 * 64 * 64 * d / 989e12 * 1e6, "tensor")
+
+
+SASS_LOOP = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FADD R2, R3, R4 ;
+        /*0020*/              @!P0 BRA 0x10 ;
+        /*0030*/                   FFMA R2, R3, 0.5, R4 ;
+        /*0040*/                   MUFU.EX2 R5, R2 ;
+        /*0050*/                   F2FP.BF16.F32.PACK_AB R6, R5, R2 ;
+        /*0060*/                   IMAD.U32 R7, R6, 0x10000, RZ ;
+        /*0070*/                   IMAD.SHL.U32 R8, R6, 0x2, RZ ;
+        /*0080*/                   FMNMX R9, R7, R2, !PT ;
+        /*0090*/               @P1 BRA 0x30 ;
+        /*00a0*/                   FADD R2, R3, R4 ;
+        /*00b0*/                   BRA 0xb0 ;
+"""
+
+
+def test_loop_pipe_counts_read_the_longest_loop():
+    """Only the span of the longest backward branch counts (not the short
+    retry loop before it, nor the trailing self-branch); IMAD.U32 (the
+    bf16 widening) counts on the ALU, IMAD.SHL (addressing) nowhere."""
+    got = roof.loop_pipe_counts(SASS_LOOP, elements=2)
+    assert got == {"fp32": 0.5, "alu": 1.5, "mufu": 0.5}
+    with pytest.raises(ValueError, match="backward branch"):
+        roof.loop_pipe_counts("/*0000*/ FADD R1, R2, R3 ;")
