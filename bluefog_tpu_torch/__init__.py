@@ -30,6 +30,8 @@ from bluefog_tpu_torch.optim import (
     DistributedAdaptThenCombineOptimizer,
     DistributedAdaptWithCombineOptimizer,
     DistributedGradientAllreduceOptimizer,
+    broadcast_optimizer_state,
+    broadcast_parameters,
 )
 
 __all__ = [
@@ -38,4 +40,5 @@ __all__ = [
     "is_topo_weighted", "allreduce", "broadcast", "neighbor_allreduce",
     "CommunicationType", "DistributedAdaptThenCombineOptimizer",
     "DistributedAdaptWithCombineOptimizer", "DistributedGradientAllreduceOptimizer",
+    "broadcast_parameters", "broadcast_optimizer_state",
 ]

@@ -15,9 +15,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import os
-import re
-import tempfile
 import time
 from typing import Dict, Optional, Sequence
 
@@ -29,6 +26,7 @@ from bluefog_tpu_torch import topology_util
 from bluefog_tpu_torch.kernels import make_flash_attention_fn
 from bluefog_tpu_torch.models.transformer import LlamaLM
 from bluefog_tpu_torch.optim import CommunicationType
+from bluefog_tpu_torch.profiling import device_profile
 from bluefog_tpu_torch.training import (
     make_decentralized_train_step,
     make_lm_loss_fns,
@@ -72,59 +70,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--attention", choices=["flash", "dense"], default="flash")
     ap.add_argument("--comm", choices=["neighbor_allreduce", "allreduce"],
                     default="neighbor_allreduce")
+    ap.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
+                    help="compute dtype of the decoder (the flash kernels of that "
+                    "dtype run); parameters are f32 either way")
+    ap.add_argument("--head-bf16", action="store_true",
+                    help="LM head matmul with bf16 operands and f32 accumulation "
+                    "(default: f32 operands)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace the last step with torch.profiler and report "
                     "device time by kernel")
     return ap
-
-
-def _device_timeline(prof) -> Dict:
-    """Busy time and span of the device in the traced step, from the trace's
-    own timeline: the union of kernel, memcpy and memset intervals, over the
-    time from the first device operation's start to the last one's end."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy_us, end = 0.0, spans[0][0] if spans else 0.0
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    span_us = end - spans[0][0] if spans else 0.0
-    return {"device_ops": len(spans), "device_union_busy_ms": busy_us / 1e3,
-            "device_span_ms": span_us / 1e3,
-            "idle_share": 1.0 - busy_us / span_us if span_us else None}
-
-
-def _device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
-    """Device time by kernel name from a torch.profiler trace of one step,
-    and the device's idle share on the trace's own timeline."""
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "cuda_time_total", 0.0)
-        # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels
-        # already counted under their own names
-        if (e.device_type.name == "CUDA" and dev_us > 0
-                and not getattr(e, "is_user_annotation", False)):
-            rows.append((e.key, dev_us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    # the flash kernels by name, whether or not they make the top rows
-    flash = {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
-    for name, ms, n in rows:
-        found = re.search(r"\b(fwd|dkv|dq)_kernel<", name)
-        if found:
-            flash[found.group(1)][0] += ms
-            flash[found.group(1)][1] += n
-    return {"wall_ms": wall_ms, **_device_timeline(prof),
-            "flash_ms_launches": flash,
-            "top": [[name[:90], ms, n] for name, ms, n in rows[:top]]}
 
 
 def run(args: argparse.Namespace) -> Dict:
@@ -141,9 +97,11 @@ def run(args: argparse.Namespace) -> Dict:
         gen = torch.Generator(device="cpu").manual_seed(args.seed)
         model = LlamaLM(
             vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=layers,
-            num_heads=cfg["heads"], dff=cfg["dff"], dtype=torch.bfloat16,
+            num_heads=cfg["heads"], dff=cfg["dff"],
+            dtype=torch.float32 if args.dtype == "f32" else torch.bfloat16,
             attention_fn=make_flash_attention_fn() if args.attention == "flash" else None,
             head_chunks=cfg["head_chunks"], device="cpu", generator=gen,
+            head_dtype=torch.bfloat16 if args.head_bf16 else torch.float32,
         ).to(dev)
         params = replicate_for_mesh(dict(model.named_parameters()), n)
         n_params = sum(v[0].numel() for v in params.values())
@@ -175,7 +133,7 @@ def run(args: argparse.Namespace) -> Dict:
                 if on_cuda:
                     torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                loss = step_fn(data[s], data[s])
+                loss, _ = step_fn(data[s], data[s])
                 if on_cuda:
                     torch.cuda.synchronize(dev)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -186,7 +144,9 @@ def run(args: argparse.Namespace) -> Dict:
         steady = step_ms[1:len(step_ms) - (prof is not None)] or step_ms
         out = {
             "preset": args.preset, "layers": layers, "ranks": n, "batch": B,
-            "seq": T, "params_per_rank": n_params, "losses": losses,
+            "seq": T, "params_per_rank": n_params,
+            "dtype": args.dtype, "head_dtype": "bf16" if args.head_bf16 else "f32",
+            "losses": losses,
             "step_ms": step_ms,
             "tokens_per_s": n * B * T / (float(np.mean(steady)) / 1e3),
             "consensus_spread": spread, "device": str(dev),
@@ -194,7 +154,7 @@ def run(args: argparse.Namespace) -> Dict:
         if on_cuda:
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
         if prof is not None:
-            out["profile"] = _device_profile(prof, step_ms[-1])
+            out["profile"] = device_profile(prof, step_ms[-1])
         return out
     finally:
         bf.shutdown()

@@ -1,11 +1,14 @@
-"""Carry ``LlamaLM`` weights from the JAX package to this one.
+"""Carry model weights from the JAX package to this one.
 
-:func:`llama_state_dict` maps the flax parameter tree of
-``bluefog_tpu.models.transformer.LlamaLM`` (nested dicts of numpy arrays,
-e.g. ``jax.tree_util.tree_map(np.asarray, params)``) to the ``state_dict``
-of :class:`bluefog_tpu_torch.models.transformer.LlamaLM`.  Flax kernels are
-``(in, out)``; ``nn.Linear`` weights are ``(out, in)``, so they transpose.
-This module needs only numpy and torch: it reads arrays, not JAX objects.
+Each function maps a flax tree (nested dicts of numpy arrays, e.g.
+``jax.tree_util.tree_map(np.asarray, params)``) to the ``state_dict`` of
+the port's model: :func:`llama_state_dict` for ``LlamaLM``,
+:func:`lenet_state_dict` for ``LeNet5`` and :func:`resnet_state_dict` for
+``ResNet`` (parameters and ``batch_stats``).  Flax dense kernels are
+``(in, out)``, ``nn.Linear`` weights ``(out, in)``: they transpose.  Flax
+convolution kernels are ``[kh, kw, in, out]``, the port's ``[out, in, kh,
+kw]``.  This module needs only numpy and torch: it reads arrays, not JAX
+objects.
 """
 
 from __future__ import annotations
@@ -15,11 +18,20 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["llama_state_dict"]
+__all__ = ["lenet_state_dict", "llama_state_dict", "resnet_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(kernel) -> torch.Tensor:  # [kh, kw, in, out] -> [out, in, kh, kw]
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _dense(tree, out: Dict[str, torch.Tensor], name: str) -> None:
+    out[name + ".weight"] = _t(np.asarray(tree["kernel"]).T)
+    out[name + ".bias"] = _t(tree["bias"])
 
 
 def llama_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
@@ -37,4 +49,39 @@ def llama_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor
         out[pre + "mlp_norm.scale"] = _t(blk["RMSNorm_1"]["scale"])
     out["norm.scale"] = _t(params["RMSNorm_0"]["scale"])
     out["head.weight"] = _t(np.asarray(params["Dense_0"]["kernel"]).T)
+    return out
+
+
+def lenet_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``LeNet5`` from a flax ``params`` tree."""
+    out: Dict[str, torch.Tensor] = {}
+    for j in range(2):
+        out[f"conv{j + 1}.weight"] = _conv(params[f"Conv_{j}"]["kernel"])
+        out[f"conv{j + 1}.bias"] = _t(params[f"Conv_{j}"]["bias"])
+    for j in range(3):
+        _dense(params[f"Dense_{j}"], out, f"fc{j + 1}")
+    return out
+
+
+def _norm(p, s, out: Dict[str, torch.Tensor], name: str) -> None:
+    out[name + ".scale"] = _t(p["scale"])
+    out[name + ".bias"] = _t(p["bias"])
+    out[name + ".mean"] = _t(s["mean"])
+    out[name + ".var"] = _t(s["var"])
+
+
+def resnet_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict (parameters and BatchNorm statistics as buffers) for the
+    port's ``ResNet`` from flax ``params`` and ``batch_stats`` trees."""
+    out = {"conv_init.weight": _conv(params["conv_init"]["kernel"])}
+    _norm(params["bn_init"], batch_stats["bn_init"], out, "bn_init")
+    blocks = sorted((k for k in params if k.startswith(("BasicBlock_", "BottleneckBlock_"))),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    for i, name in enumerate(blocks):
+        blk, stats = params[name], batch_stats[name]
+        n_conv = sum(k.startswith("Conv_") for k in blk)
+        for j in range(n_conv):
+            out[f"blocks.{i}.convs.{j}.weight"] = _conv(blk[f"Conv_{j}"]["kernel"])
+            _norm(blk[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"], out, f"blocks.{i}.norms.{j}")
+    _dense(params["Dense_0"], out, "fc")
     return out

@@ -1,8 +1,9 @@
 """Flash attention: hand-written CUDA kernels for Hopper, with plain versions.
 
 Counterpart of ``bluefog_tpu/kernels/flash_attention.py``.  The TPU package
-has three Pallas kernels; each has a CUDA C++ kernel here
-(``csrc/flash_attention.cu``, built by :mod:`._build`):
+has three Pallas kernels, which serve bf16 and f32 inputs; each has two CUDA
+C++ instances here, built by :mod:`._build`: a bf16 one
+(``csrc/flash_attention.cu``) and an f32 one (``csrc/flash_attention_f32.cu``):
 
 =============  =======================================  ===================
 wrapper        replaces                                 plain version
@@ -12,16 +13,19 @@ wrapper        replaces                                 plain version
 ``flash_dq``   ``_bwd_dq_kernel`` (:575)                ``flash_dq_plain``
 =============  =======================================  ===================
 
-All three kernels are built for Hopper (``wgmma`` products, TMA-fed tile
+The bf16 kernels are built for Hopper (``wgmma`` products, TMA-fed tile
 rings, 128-row blocks of two consumer warpgroups, launched longest chain
-first).
-:func:`launch_order` says which 64 x 64 tiles each block of a launch
-computes, in the order the card is handed the blocks.
+first); :func:`launch_order` says which 64 x 64 tiles each block of a
+launch computes, in the order the card is handed the blocks.  The f32
+kernels multiply in true f32 FFMA (no TF32) on one 64-row tile a block
+staged through shared memory, and round neither p nor dS, as the
+reference does for f32 inputs.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
-f32).  On a CUDA tensor it checks device, dtype (bf16), shape and
-contiguity, launches its kernel on the current stream and adds one to its
-count in :data:`launches`.  The kernels are built for D = 64 and 128; a
+f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16 or
+all f32), shape and contiguity, launches the kernel of that dtype on the
+current stream and adds one to its count in :data:`launches` (bf16) or
+:data:`launches_f32` (f32).  The kernels are built for D = 64 and 128; a
 head dim up to 128 runs zero-padded to the next of those
 (:func:`pad_head_dim`), and a larger one raises.  On a CPU tensor it runs
 its plain version, the blockwise recompute of the JAX package's XLA routes
@@ -57,6 +61,7 @@ __all__ = [
     "flash_dkv_plain",
     "flash_dq_plain",
     "launches",
+    "launches_f32",
     "reset_launches",
     "occupancy",
     "launch_order",
@@ -69,14 +74,17 @@ _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
 _HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 
-# Kernel launches per wrapper since the last reset_launches().  Only a
-# launch of the CUDA kernel counts; a plain-version call does not.
+# Kernel launches per wrapper since the last reset_launches(), of the bf16
+# kernels and of the f32 kernels.  Only a launch of a CUDA kernel counts; a
+# plain-version call does not.
 launches: Dict[str, int] = {"fwd": 0, "dkv": 0, "dq": 0}
+launches_f32: Dict[str, int] = {"fwd": 0, "dkv": 0, "dq": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_f32):
+        for name in counts:
+            counts[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -172,16 +180,35 @@ def _lib():
     return bind(_build.load("flash_attention"))
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a built ``csrc/flash_attention.cu``."""
-    lib.bf_flash_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_F, _I, _P]
-    lib.bf_flash_bwd_dkv.argtypes = [_P] * 8 + [_I] * 6 + [_F, _I, _P]
-    lib.bf_flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 6 + [_F, _I, _P]
-    lib.bf_flash_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    for fn in (lib.bf_flash_fwd, lib.bf_flash_bwd_dkv, lib.bf_flash_bwd_dq,
-               lib.bf_flash_occupancy):
+@functools.lru_cache(maxsize=1)
+def _lib_f32():
+    return bind(_build.load("flash_attention_f32"), prefix="bf_flash_f32")
+
+
+def bind(lib: ctypes.CDLL, prefix: str = "bf_flash") -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/flash_attention.cu``
+    (``prefix`` "bf_flash") or ``csrc/flash_attention_f32.cu``
+    ("bf_flash_f32"): ``<prefix>_fwd``, ``_bwd_dkv`` and ``_bwd_dq``, and
+    the bf16 library's ``bf_flash_occupancy``."""
+    fns = [getattr(lib, f"{prefix}_{name}") for name in ("fwd", "bwd_dkv", "bwd_dq")]
+    for fn, n_ptr in zip(fns, (5, 8, 7)):
+        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _I, _P]
         fn.restype = ctypes.c_int
+    if prefix == "bf_flash":
+        lib.bf_flash_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.bf_flash_occupancy.restype = ctypes.c_int
     return lib
+
+
+_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' input types
+
+
+def _kernel(dtype, name: str):
+    """(C launcher, launch counts) of kernel ``name`` ("fwd", "bwd_dkv" or
+    "bwd_dq") for inputs of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return getattr(_lib(), f"bf_flash_{name}"), launches
+    return getattr(_lib_f32(), f"bf_flash_f32_{name}"), launches_f32
 
 
 def _on_cuda(*tensors) -> bool:
@@ -210,9 +237,12 @@ def _check(name, q, k, v, extra=(), f32=()):
     if any(x.shape != (bh, tq) for x in f32):
         raise ValueError(f"{name}: lse/corr must be [{bh}, {tq}]")
     dev = q.device
-    for x in (q, k, v, *extra):
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: the CUDA kernels take bf16 or float32, got {q.dtype}")
+    for x in (k, v, *extra):
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v and dO must share one dtype, got "
+                             f"{q.dtype} and {x.dtype}")
     for x in f32:
         if x.dtype != torch.float32:
             raise ValueError(f"{name}: lse/corr must be float32, got {x.dtype}")
@@ -277,13 +307,14 @@ def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal):
     tk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    fn, counts = _kernel(q.dtype, "fwd")
     with torch.cuda.device(q.device):
-        err = _lib().bf_flash_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
-    launches["fwd"] += 1
+    counts["fwd"] += 1
     return o, lse
 
 
@@ -303,14 +334,15 @@ def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
     tk = k.shape[1]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    fn, counts = _kernel(q.dtype, "bwd_dkv")
     with torch.cuda.device(q.device):
-        err = _lib().bf_flash_bwd_dkv(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), corr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_dkv", err)
-    launches["dkv"] += 1
+    counts["dkv"] += 1
     return dk, dv
 
 
@@ -329,14 +361,15 @@ def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
     bh, tq, d = q.shape
     tk = k.shape[1]
     dq = torch.empty_like(q)
+    fn, counts = _kernel(q.dtype, "bwd_dq")
     with torch.cuda.device(q.device):
-        err = _lib().bf_flash_bwd_dq(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), corr.data_ptr(), dq.data_ptr(),
             bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_dq", err)
-    launches["dq"] += 1
+    counts["dq"] += 1
     return dq
 
 

@@ -1,5 +1,7 @@
 """Models of the port (counterpart of ``bluefog_tpu/models``)."""
 
+from bluefog_tpu_torch.models.lenet import LeNet5
+from bluefog_tpu_torch.models.resnet import ResNet, ResNet18, ResNet50
 from bluefog_tpu_torch.models.transformer import LlamaLM
 
-__all__ = ["LlamaLM"]
+__all__ = ["LeNet5", "LlamaLM", "ResNet", "ResNet18", "ResNet50"]

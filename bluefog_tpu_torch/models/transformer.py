@@ -3,7 +3,8 @@
 Only ``LlamaLM``'s default path is ported: unrolled layers, multi-head
 attention, no remat, no vocab-sharded mode.  Parameters are f32 and matmuls
 run in ``dtype`` (bf16 by default), with norms and softmax in f32 and the
-LM head in f32 (the JAX ``_head_matmul`` with ``head_dtype=float32``).
+LM head in ``head_dtype``: f32 by default, or bf16 operands with f32
+accumulation in both directions (the JAX ``_head_matmul``).
 
 Layout: projections are ``nn.Linear`` (weight ``[out, in]``), the transpose
 of flax's ``(in, out)`` kernels; :mod:`bluefog_tpu_torch.interop.jax_weights`
@@ -23,7 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["LlamaLM", "RMSNorm", "dense_attention", "chunked_softmax_cross_entropy"]
+__all__ = ["LlamaLM", "RMSNorm", "dense_attention", "chunked_softmax_cross_entropy",
+           "head_matmul"]
 
 
 def dense_attention(q, k, v, *, causal: bool, dtype=torch.float32):
@@ -103,19 +105,61 @@ class _DecoderBlock(nn.Module):
         return x + self._proj(self.down, mlp)
 
 
-def _head_chunk_loss(xc, head_w, yc, wc):
-    logits = F.linear(xc.float(), head_w)  # [B, tc, V] f32 — the peak
+def _mm_f32(a, b):
+    """``a @ b`` of two bf16 matrices with an f32 output.  On the card one
+    bf16 GEMM that accumulates and writes f32; on the CPU the f32 product
+    of the bf16 values, which is exact in f32 and needs no TF32 switch."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Bf16MatmulF32Acc(torch.autograd.Function):
+    """``x @ W^T`` (``W`` the ``[V, d]`` head) with bf16 operands and f32
+    accumulation in both directions: the twin of the JAX package's custom
+    VJP ``_bf16_matmul_f32_acc``.  The backward rounds the cotangent to
+    bf16 too, so dx = g.W and dW = g^T.x are bf16 GEMMs with f32 results."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.lead = x.shape[:-1]
+        return _mm_f32(xb, wb.t()).reshape(*ctx.lead, w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.reshape(-1, g.shape[-1]).to(torch.bfloat16)
+        dx = _mm_f32(gb, wb).reshape(*ctx.lead, wb.shape[1])
+        return dx, _mm_f32(gb.t(), xb)
+
+
+def head_matmul(x, head_w, head_dtype=torch.float32):
+    """f32 logits ``x @ head_w^T`` whatever ``head_dtype``: f32 operands, or
+    bf16 operands with f32 accumulation (:class:`_Bf16MatmulF32Acc`)."""
+    if head_dtype == torch.bfloat16:
+        return _Bf16MatmulF32Acc.apply(x, head_w)
+    if head_dtype != torch.float32:
+        raise ValueError(f"head_dtype must be float32 or bfloat16, got {head_dtype}")
+    return F.linear(x.float(), head_w)
+
+
+def _head_chunk_loss(xc, head_w, yc, wc, head_dtype):
+    logits = head_matmul(xc, head_w, head_dtype)  # [B, tc, V] f32 — the peak
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, yc[..., None])[..., 0]
     return ((lse - tgt) * wc).sum()
 
 
-def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int):
+def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int,
+                                  head_dtype=torch.float32):
     """Shifted next-token cross-entropy without materializing the full
     ``[B, T, vocab]`` logits: ``mean(CE(logits[:, :-1], labels[:, 1:]))``
     computed per sequence chunk, each chunk under ``torch.utils.checkpoint``
     so its logits are recomputed in the backward.  ``head_weight`` is the
-    ``[vocab, d]`` f32 head."""
+    ``[vocab, d]`` f32 head, multiplied in ``head_dtype``."""
     B, T, _ = hidden.shape
     if T % num_chunks:
         raise ValueError(f"num_chunks {num_chunks} must divide T {T}")
@@ -127,7 +171,7 @@ def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int):
     for c in range(num_chunks):
         sl = slice(c * tc, (c + 1) * tc)
         total = total + checkpoint(_head_chunk_loss, hidden[:, sl], head_weight,
-                                   y[:, sl], w[:, sl], use_reentrant=False)
+                                   y[:, sl], w[:, sl], head_dtype, use_reentrant=False)
     return total / w.sum()
 
 
@@ -136,18 +180,23 @@ class LlamaLM(nn.Module):
 
     ``forward(ids)`` returns f32 logits; ``forward(ids, labels=...)``
     returns the scalar shifted-LM loss (chunked when ``head_chunks > 1``).
+    ``head_dtype=torch.bfloat16`` runs the LM head on bf16 operands with
+    f32 accumulation and f32 logits (:func:`head_matmul`).
     """
 
     def __init__(self, vocab_size: int = 32000, hidden_size: int = 512,
                  num_layers: int = 4, num_heads: int = 8, dff: int = 1376,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
-                 head_chunks: int = 0, device=None,
+                 head_chunks: int = 0, head_dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden {hidden_size} not divisible by heads {num_heads}")
+        if head_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"head_dtype must be float32 or bfloat16, got {head_dtype}")
         self.dtype = dtype
         self.head_chunks = head_chunks
+        self.head_dtype = head_dtype
         self.embed = nn.Embedding(vocab_size, hidden_size, device=device,
                                   dtype=torch.float32)
         self.layers = nn.ModuleList(
@@ -181,10 +230,10 @@ class LlamaLM(nn.Module):
             x = layer(x, positions)
         x = self.norm(x)  # f32
         if labels is None:
-            return F.linear(x, self.head.weight)  # f32 logits
+            return head_matmul(x, self.head.weight, self.head_dtype)  # f32 logits
         if self.head_chunks > 1:
             return chunked_softmax_cross_entropy(x, self.head.weight, labels,
-                                                 self.head_chunks)
-        logits = F.linear(x, self.head.weight)
+                                                 self.head_chunks, self.head_dtype)
+        logits = head_matmul(x, self.head.weight, self.head_dtype)
         return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                                labels[:, 1:].reshape(-1))

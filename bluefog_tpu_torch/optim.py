@@ -25,6 +25,8 @@ from bluefog_tpu_torch.core.plan import CommPlan
 
 __all__ = [
     "CommunicationType",
+    "broadcast_optimizer_state",
+    "broadcast_parameters",
     "make_comm_fn",
     "DistributedAdaptThenCombineOptimizer",
     "DistributedAdaptWithCombineOptimizer",
@@ -126,3 +128,31 @@ class DistributedGradientAllreduceOptimizer(_DistributedOptimizer):
                     p.grad.copy_(g)
         self.base.step()
         self.steps += 1
+
+
+# --------------------------------------------------------------------------
+# Parameter/state broadcast helpers
+# --------------------------------------------------------------------------
+
+
+def broadcast_parameters(params, root_rank: int = 0):
+    """Give every rank the root's parameters (the reference's
+    ``bf.broadcast_parameters``): a consistent initialization.  ``params``
+    is a rank-major tensor or a dict / list / tuple of them; each takes the
+    root's slice in place (leaves that require grad stay leaves), and
+    ``params`` is returned."""
+    with torch.no_grad():
+        ops.tree_map(lambda a: a.copy_(ops.broadcast(a, root_rank=root_rank)), params)
+    return params
+
+
+def broadcast_optimizer_state(optimizer: torch.optim.Optimizer, root_rank: int = 0) -> None:
+    """The reference's ``bf.broadcast_optimizer_state`` for a ``torch.optim``
+    optimizer over rank-major leaves: every rank-major tensor of its state
+    (momentum buffers, Adam moments) takes the root's slice, in place;
+    scalars (step counts) are shared by all ranks already."""
+    with torch.no_grad():
+        for state in optimizer.state.values():
+            for value in state.values():
+                if isinstance(value, torch.Tensor) and value.dim() >= 1:
+                    value.copy_(ops.broadcast(value, root_rank=root_rank))

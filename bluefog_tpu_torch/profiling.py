@@ -13,6 +13,10 @@ events read the card's own clock, so the host's sync round trip is not in
 the reading.  On the CPU the clock is ``time.perf_counter``; such a time
 says how fast the host ran and is never a device number.
 
+:func:`device_profile` reads a ``torch.profiler`` trace of one step: device
+time by kernel name, and the device's busy time and idle share on the
+trace's own timeline (:func:`device_timeline`).
+
 Not ported: ``cost_summary`` and ``cost_delta`` read XLA's compiled cost
 analysis (flops and bytes of a jitted program).  PyTorch runs eagerly and
 has no compiled program whose costs it reports, so there is nothing to port.
@@ -20,14 +24,19 @@ has no compiled program whose costs it reports, so there is nothing to port.
 
 from __future__ import annotations
 
+import json
+import os
+import re
 import sys
+import tempfile
 import time
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["slope_time", "slope_time_fused", "segment_times", "timed_region",
-           "graph_seconds", "paired_slope", "conservative_delta", "subtract_rtt"]
+           "graph_seconds", "paired_slope", "conservative_delta", "subtract_rtt",
+           "device_profile", "device_timeline"]
 
 
 def _on_cuda(obj) -> bool:
@@ -215,3 +224,62 @@ def subtract_rtt(total: float, rt: float, iters: int, label: str = "") -> float:
         )
         return total / iters
     return (total - rt) / iters
+
+
+def device_timeline(prof) -> Dict:
+    """Busy time and span of the device in the traced step, from the trace's
+    own timeline: the union of kernel, memcpy and memset intervals, over the
+    time from the first device operation's start to the last one's end."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, spans[0][0] if spans else 0.0
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    span_us = end - spans[0][0] if spans else 0.0
+    return {"device_ops": len(spans), "device_union_busy_ms": busy_us / 1e3,
+            "device_span_ms": span_us / 1e3,
+            "idle_share": 1.0 - busy_us / span_us if span_us else None}
+
+
+def device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
+    """Device time by kernel name from a torch.profiler trace of one step,
+    and the device's idle share on the trace's own timeline.
+
+    ``flash_ms_launches`` sums each flash kernel over its head dims and its
+    bf16 and f32 instances (a step runs one of the two; its dtype says
+    which).  ``gemm_ms_launches`` sums the GEMM kernels by name: ``ffma``
+    those on the f32 FFMA route (``sgemm``, ``ffma``), ``other`` the rest
+    (the tensor-core GEMMs)."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0.0)
+        # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels
+        # already counted under their own names
+        if (e.device_type.name == "CUDA" and dev_us > 0
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append((e.key, dev_us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    # the flash kernels by name, whether or not they make the top rows
+    flash = {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
+    gemm = {k: [0.0, 0] for k in ("ffma", "other")}
+    for name, ms, n in rows:
+        found = re.search(r"\b(fwd|dkv|dq)(?:_f32)?_kernel<", name)
+        if found:
+            flash[found.group(1)][0] += ms
+            flash[found.group(1)][1] += n
+        elif re.search(r"gemm|nvjet", name, re.IGNORECASE):
+            kind = "ffma" if re.search(r"sgemm|ffma", name) else "other"
+            gemm[kind][0] += ms
+            gemm[kind][1] += n
+    return {"wall_ms": wall_ms, **device_timeline(prof),
+            "flash_ms_launches": flash, "gemm_ms_launches": gemm,
+            "top": [[name[:90], ms, n] for name, ms, n in rows[:top]]}

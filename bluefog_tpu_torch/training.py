@@ -4,12 +4,16 @@ Parameters are rank-major leaves ``[N, ...]`` with ``requires_grad``.  A
 step runs every rank's forward and backward on its own slices through
 ``torch.func.functional_call`` (autograd writes rank r's gradient into
 ``P.grad[r]``), then one optimizer step over the stacked leaves and the
-communication of the chosen mode.  Models with batch statistics (LeNet,
-ResNet) are not ported yet.
+communication of the chosen mode.  Batch statistics (the ResNet's
+BatchNorm buffers) are rank-major too and stay local to each rank, as in
+the reference: rank r normalizes with its own batch and its model moves
+its running averages in place in its own slice ``B[r]``; only parameters
+are communicated.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -26,11 +30,34 @@ from bluefog_tpu_torch.optim import (
 )
 
 __all__ = [
+    "apply_accepts_labels",
+    "make_classifier_apply_fn",
     "make_decentralized_train_step",
     "make_lm_loss_fns",
     "replicate_for_mesh",
     "softmax_cross_entropy",
 ]
+
+
+def apply_accepts_labels(apply_fn: Callable) -> bool:
+    """True when ``apply_fn`` declares a ``labels`` parameter: the marker by
+    which the train step hands the true targets to a model that computes
+    its own loss (the chunked LM head).  A wrapper around such an apply_fn
+    must keep the parameter, or the step stops passing the targets."""
+    try:
+        return "labels" in inspect.signature(apply_fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def make_classifier_apply_fn(model: nn.Module) -> Callable:
+    """``apply_fn(state, x) -> logits`` for an image classifier: ``state``
+    holds one rank's parameters and, for a model with BatchNorm, its
+    statistics buffers, which a model in training mode moves in place."""
+    def apply_fn(state, x):
+        return functional_call(model, state, (x,))
+
+    return apply_fn
 
 
 def softmax_cross_entropy(logits, labels):
@@ -60,11 +87,13 @@ def make_lm_loss_fns(model: nn.Module) -> Tuple[Callable, Callable]:
     return apply_fn, loss_fn
 
 
-def replicate_for_mesh(tree: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
-    """Replicate single-rank tensors into rank-major leaves ``[n, ...]`` that
-    require grad."""
-    return {k: v.detach().unsqueeze(0).repeat((n,) + (1,) * v.dim()).requires_grad_(True)
-            for k, v in tree.items()}
+def replicate_for_mesh(tree: Dict[str, torch.Tensor], n: int,
+                       requires_grad: bool = True) -> Dict[str, torch.Tensor]:
+    """Replicate single-rank tensors into rank-major leaves ``[n, ...]``:
+    parameters that require grad, or (``requires_grad=False``) buffers such
+    as batch statistics."""
+    return {k: v.detach().unsqueeze(0).repeat((n,) + (1,) * v.dim())
+            .requires_grad_(requires_grad) for k, v in tree.items()}
 
 
 def make_decentralized_train_step(
@@ -78,15 +107,29 @@ def make_decentralized_train_step(
     loss_fn: Callable = softmax_cross_entropy,
     num_steps_per_communication: int = 1,
     comm_fuse: bool = False,
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None,
 ):
-    """Build ``step_fn(batch, labels) -> losses [N]`` (f32, detached).
+    """Build ``step_fn(batch, labels) -> (losses [N], accuracy [N])`` (f32,
+    detached).
 
     ``params`` maps names to rank-major leaves; ``base_optimizer`` is a
     ``torch.optim`` optimizer constructed over exactly those leaves.
     ``batch``/``labels`` are rank-major ``[N, B, ...]``.  ``mode`` picks
     ATC or AWC for the neighbor modes; ``CommunicationType.allreduce``
-    averages gradients instead.
+    averages gradients instead.  ``apply_fn(state, x)`` gets one rank's
+    slices, plus ``labels=`` where it declares that parameter
+    (:func:`apply_accepts_labels`).  ``batch_stats``, where given, maps
+    buffer names to rank-major buffers ``[N, ...]``;
+    rank r's slices join its parameters in ``state``, and a model in
+    training mode updates them in place.  Accuracy is the share of argmax
+    hits where ``apply_fn`` returns logits, NaN where it returns the loss
+    itself.
     """
+    stats = batch_stats or {}
+    n = next(iter(params.values())).shape[0]
+    if any(b.shape[0] != n for b in stats.values()):
+        raise ValueError(f"batch_stats must be rank-major with {n} ranks")
+    takes_labels = apply_accepts_labels(apply_fn)
     leaves = {id(p) for g in base_optimizer.param_groups for p in g["params"]}
     if leaves != {id(p) for p in params.values()}:
         raise ValueError("base_optimizer must be built over exactly the params leaves")
@@ -99,17 +142,23 @@ def make_decentralized_train_step(
                "awc": DistributedAdaptWithCombineOptimizer}[mode]
         opt = cls(base_optimizer, communication_type, plan,
                   num_steps_per_communication, comm_fuse)
-    n = next(iter(params.values())).shape[0]
 
     def step_fn(batch, labels):
         opt.zero_grad(set_to_none=True)
-        losses = []
+        losses, accs = [], []
         for r in range(n):
-            p_r = {k: v[r] for k, v in params.items()}
-            loss = loss_fn(apply_fn(p_r, batch[r], labels=labels[r]), labels[r])
+            state = {k: v[r] for k, v in params.items()}
+            state.update((k, b[r]) for k, b in stats.items())
+            kw = {"labels": labels[r]} if takes_labels else {}
+            out = apply_fn(state, batch[r], **kw)
+            loss = loss_fn(out, labels[r])
             loss.backward()
             losses.append(loss.detach().float())
+            if out.dim() >= 2:
+                accs.append((out.detach().argmax(-1) == labels[r]).float().mean())
+            else:  # the model returned its loss: no logits to score
+                accs.append(torch.full_like(losses[-1], float("nan")))
         opt.step()
-        return torch.stack(losses)
+        return torch.stack(losses), torch.stack(accs)
 
     return step_fn

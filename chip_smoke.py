@@ -5,10 +5,10 @@
 Phases, each printing one JSON line:
 
 1. device   -- nvidia-smi name and power limit, torch/CUDA versions, and the
-               nvcc builds of csrc/flash_attention.cu and
-               csrc/attention_components.cu (both with the headers
-               sm90_tile.cuh and mma_tile.cuh), side by side (seconds,
-               ptxas); the three flash kernels, built for Hopper, must hold
+               nvcc builds of csrc/flash_attention.cu,
+               csrc/flash_attention_f32.cu and csrc/attention_components.cu
+               (with the headers sm90_tile.cuh and mma_tile.cuh), side by
+               side (seconds, ptxas); the three flash kernels, built for Hopper, must hold
                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
                in their SASS where cuobjdump is found, the qk and pv
                microkernels HGMMA (with their body) and no HMMA at both
@@ -26,6 +26,21 @@ Phases, each printing one JSON line:
                eager calls, and by CUDA-graph replay, which leaves out the
                wrappers' host time) beside the bound, the plain version and
                scaled_dot_product_attention.
+2b. kernels_f32 -- each f32 CUDA kernel (the flash fwd, dK/dV and dQ
+               instances of csrc/flash_attention_f32.cu, true f32 FFMA)
+               against its plain version on the same f32 inputs: the f32
+               path's shape [24, 2048, 64], D = 128, D = 16 zero-padded,
+               causal with offsets, tq != tk; then
+               times at [24, 2048, 64] and [24, 2048, 128] beside the f32
+               FFMA bound, the plain version and f32
+               scaled_dot_product_attention.
+2c. f32     -- the f32 path: a small f32 LlamaLM with flash attention
+               against the same weights with dense f32 attention (loss and
+               gradients), then examples/llama_pretrain --dtype f32 at the
+               "small" widths (12 layers, hidden 768, D = 64), 4 ranks,
+               per-rank batch 2 x 2048 as in the main path, 2 steps, with
+               every launch count set to 0 just before: each f32 count must
+               be layers x ranks x steps, and no bf16 kernel may launch.
 3. model    -- a small LlamaLM whose attention runs through the kernels,
                against the same weights with the model's dense attention
                in f32, beside dense attention in bf16: loss and gradients.
@@ -44,6 +59,18 @@ Phases, each printing one JSON line:
                band pairs (with and without the dependency pass); every
                microkernel must launch in it.
 
+7. resnet   -- this slice's path, which runs no kernel of the repo
+               (convolutions are cuDNN's, as the JAX package leaves them to
+               XLA): ResNet-50 at 224 x 224 and 1000 classes on 4 ranks,
+               per-rank batch cut from the benchmark's 128 to 32, 3 steps
+               under ATC neighbor_allreduce and 3 under gradient allreduce,
+               with batch statistics: finite losses, every rank's running
+               statistics moved in its own slice, parameters after gossip
+               equal to the plan's weighted mix of the adapted parameters
+               on one leaf, allreduce ranks identical; step ms, images/s and
+               peak memory.  Then examples/torch_mnist (LeNet-5) on the card
+               for 2 epochs: the loss must fall.
+
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It needs one CUDA device and exits non-zero without one.
@@ -55,8 +82,10 @@ import math
 import re
 import subprocess
 import sys
+import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (FFMA)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 STEPS, RANKS, BATCH = 3, 4, 2
 
@@ -72,6 +101,15 @@ STEPS, RANKS, BATCH = 3, 4, 2
 ELEM_REL, ELEM_RMS, NORM_REL, LSE_ABS = 2.0 ** -7, 2.0 ** -6, 1e-2, 1e-3
 TOLERANCE = ("|err| <= 2^-7|ref| + 2^-6 rms(ref) per element, ||err|| <= 1e-2 ||ref||;"
              " lse |err| <= 1e-3 on visible rows")
+# The f32 kernels against their plain versions (both f32 throughout, no
+# rounding to bf16): |got - ref| <= 2^-14 (|ref| + rms(ref)) per element.
+# The two sum the same products in another order (f32 FFMA chains against
+# cuBLAS's), which moves a value by a few f32 steps (2^-23 each) times the
+# sqrt of the terms summed, well below 2^-14 of the value or of the rms.
+# lse: |got - ref| <= 2e-5 on rows with a visible key (about 20 f32 steps
+# at the size lse takes at T = 2048), the sentinel on rows without one.
+F32_ELEM, F32_LSE_ABS = 2.0 ** -14, 2e-5
+TOLERANCE_F32 = "|err| <= 2^-14 (|ref| + rms(ref)) per element; lse |err| <= 2e-5 on visible rows"
 
 
 def emit(obj):
@@ -170,9 +208,10 @@ def phase_device(torch, _build, fa, ac, roof):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    sources = ["flash_attention", "attention_components"]
+    sources = ["flash_attention", "flash_attention_f32", "attention_components"]
     build_s = _build.build_all(sources)
     fa._lib()
+    fa._lib_f32()
     ac._lib()
     ptxas = {name: [l.strip() for l in _build.build_logs.get(name, "").splitlines()
                     if "registers" in l or "spill" in l] for name in sources}
@@ -364,6 +403,281 @@ def phase_kernels(torch, fa):
     return table
 
 
+def compare_f32(got, ref):
+    """(max abs error, worst error / element tolerance) under F32_ELEM."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = F32_ELEM * (ref.abs() + ref.pow(2).mean().sqrt())
+    ratio = (err / tol).masked_fill(err == 0, 0.0)
+    return err.max().item(), ratio.max().item()
+
+
+F32_CASES = {  # bh, tq, tk, d, q_start, k_start, causal
+    "path": (BATCH * 12, 2048, 2048, 64, 0, 0, True),  # phase_f32's: batch 2 x 12 heads
+    "d128": (8, 1024, 1024, 128, 0, 0, True),
+    "d16": (8, 1024, 1024, 16, 0, 0, True),  # zero-padded to 64
+    "offsets": (8, 640, 640, 64, 200, 37, True),
+    "cross": (8, 384, 1000, 64, 616, 0, True),  # tq != tk, a ring hop's shape
+    "cross_non_causal": (8, 1000, 384, 128, 0, 0, False),
+}
+
+
+def f32_work(bh, t, d):
+    """(flops, bytes) of the f32 fwd, dK/dV and dQ at [bh, t, d], causal."""
+    pairs = visible_pairs(t, t, 0, 0, True)
+    e = 4
+    return {
+        "fwd": (4 * d * pairs * bh, (3 * e * t * d + e * t * d + 4 * t) * bh),
+        "dkv": (8 * d * pairs * bh, (4 * e * t * d + 8 * t + 2 * e * t * d) * bh),
+        "dq": (6 * d * pairs * bh, (4 * e * t * d + 8 * t + e * t * d) * bh),
+    }
+
+
+def phase_kernels_f32(torch, fa):
+    """Each f32 kernel against its plain version over F32_CASES, then its
+    times at [24, 2048, 64] (the main path's attention shape) and
+    [24, 2048, 128] beside the f32 FFMA bound, the plain version and f32
+    scaled_dot_product_attention.  Returns the kernel-table entries."""
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    failures = []
+    for name, (bh, tq, tk, d, q_start, k_start, causal) in F32_CASES.items():
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        q, g, k, v = rnd(bh, tq, d), rnd(bh, tq, d), rnd(bh, tk, d), rnd(bh, tk, d)
+        g_lse = rnd(bh, tq)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=causal)
+        before = dict(fa.launches_f32)
+        o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_start, k_start, **kw)
+        corr = (g_lse - (o_ref * g).sum(-1)).contiguous()
+        dk, dv = fa.flash_dkv(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+        dq = fa.flash_dq(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+        dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+        dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+        torch.cuda.synchronize()
+        check({n: fa.launches_f32[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1},
+              f"kernels_f32 {name}: the f32 kernels did not launch once each")
+        row = {"phase": "kernel_case_f32", "case": name, "bh": bh, "tq": tq, "tk": tk, "d": d,
+               "q_start": q_start, "k_start": k_start, "causal": causal}
+        for kname, pairs in (("fwd", [("o", o, o_ref)]),
+                             ("dkv", [("dk", dk, dk_ref), ("dv", dv, dv_ref)]),
+                             ("dq", [("dq", dq, dq_ref)])):
+            worst, worst_ratio = 0.0, 0.0
+            for what, got, ref in pairs:
+                check(torch.isfinite(got).all().item(), f"{name}: non-finite f32 {what}")
+                check(ref.abs().max().item() > 0, f"{name}: f32 {what} reference is all zero")
+                err, ratio = compare_f32(got, ref)
+                if ratio > 1.0:
+                    failures.append(f"{name} {what}: max error {err}, {ratio:.3g} x tolerance")
+                worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            row[f"{kname}_max_abs_err"] = worst
+            row[f"{kname}_tol_ratio"] = worst_ratio
+            errs[kname] = max(errs[kname], worst)
+        visible = lse_ref > -1e29
+        check(bool((lse[~visible] < -1e29).all().item()), f"{name}: f32 lse lost its sentinel")
+        lse_err = (lse - lse_ref)[visible].abs().max().item() if visible.any().item() else 0.0
+        if lse_err > F32_LSE_ABS:
+            failures.append(f"{name} lse: max error {lse_err} > {F32_LSE_ABS}")
+        row["lse_max_abs_err"] = lse_err
+        errs["fwd"] = max(errs["fwd"], lse_err)
+        row["tolerance"] = TOLERANCE_F32
+        emit(row)
+    check(not failures, "f32 kernels vs plain: " + "; ".join(failures))
+
+    counts_before = dict(fa.launches_f32)
+    timing = {"phase": "kernel_times_f32", "causal": True}
+    table = {}
+    for d in (64, 128):
+        bh, t = 24, 2048
+        q, k, v, g = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        corr = (-(o * g).sum(-1)).contiguous()
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+                 "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw),
+                 "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, **kw)}
+        plain = {"fwd": lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                 "dkv": lambda: fa.flash_dkv_plain(q, k, v, g, lse, corr, **kw),
+                 "dq": lambda: fa.flash_dq_plain(q, k, v, g, lse, corr, **kw)}
+        ms = {kname: cuda_ms(fn, iters=10) for kname, fn in calls.items()}
+        plain_ms = {kname: cuda_ms(fn, iters=3, warmup=1) for kname, fn in plain.items()}
+        q4, k4, v4 = (x.view(2, 12, t, d) for x in (q, k, v))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+        g4 = g.view(2, 12, t, d)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g4)
+
+        sdpa_fb = cuda_ms(sdpa_fwd_bwd, iters=10)
+        timing[f"d{d}"] = {"shape": [bh, t, d], "sdpa_fwd_ms": sdpa, "sdpa_fwd_bwd_ms": sdpa_fb}
+        for kname, (flops, nbytes) in f32_work(bh, t, d).items():
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            entry = {"ms": ms[kname], "plain_ms": plain_ms[kname],
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": sdpa if kname == "fwd" else None,
+                     "tflops": flops / (ms[kname] * 1e-3) / 1e12}
+            timing[f"d{d}"][kname] = entry
+            if d == 64:
+                table[kname] = {"max_abs_err": errs[kname],
+                                **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")}}
+            else:
+                table[kname].update({"ms_d128": entry["ms"], "bound_ms_d128": entry["bound_ms"],
+                                     "library_ms_d128": entry["library_ms"]})
+    fa.launches_f32.update(counts_before)  # timing launches are not the path's
+    emit(timing)
+    return table
+
+
+def phase_f32(torch, fa):
+    """The f32 path: a small f32 LlamaLM with flash attention (D = 64)
+    against the same weights with dense f32 attention on the card (loss
+    within 1e-5, each parameter's gradient within 1e-4 of its norm: both
+    f32 throughout); then the example's small preset in f32 on 4 ranks
+    at the main path's per-rank batch, 2 steps, with every launch count set
+    to 0 just before and read just after.  Returns the f32 launch counts."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def build(attention_fn):
+        gen = torch.Generator().manual_seed(4)
+        return LlamaLM(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2, dff=256,
+                       dtype=torch.float32, attention_fn=attention_fn, head_chunks=4,
+                       device="cpu", generator=gen).cuda()
+
+    models = {"flash": build(fa.make_flash_attention_fn()), "dense": build(None)}
+    ids = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(5)).cuda()
+    before = dict(fa.launches_f32)
+    loss = {}
+    for name, m in models.items():
+        out = m(ids, labels=ids)
+        out.backward()
+        loss[name] = out.item()
+    check(all(fa.launches_f32[k] > before[k] for k in before),
+          f"f32: the f32 model did not launch every f32 kernel ({fa.launches_f32})")
+    dense = dict(models["dense"].named_parameters())
+    grad_err = max(((p.grad - dense[n].grad).norm() / dense[n].grad.norm()).item()
+                   for n, p in models["flash"].named_parameters())
+    row = {"phase": "f32_model", "loss_flash": loss["flash"], "loss_dense": loss["dense"],
+           "loss_abs_err": abs(loss["flash"] - loss["dense"]), "grad_norm_rel_err": grad_err,
+           "tolerance": "|loss - loss_dense| <= 1e-5; per parameter ||g - g_dense|| <= "
+                        "1e-4 ||g_dense|| (both f32, sums in another order)"}
+    emit(row)
+    check(row["loss_abs_err"] <= 1e-5, f"f32: flash loss {loss['flash']} vs dense {loss['dense']}")
+    check(grad_err <= 1e-4, f"f32: flash gradients {grad_err} from the dense f32 model's")
+
+    fa.reset_launches()
+    steps = 2
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        ["--preset", "small", "--dtype", "f32", "--steps", str(steps), "--size", str(RANKS),
+         "--batch", str(BATCH), "--device", "cuda"]))
+    counts, bf16_counts = dict(fa.launches_f32), dict(fa.launches)
+    losses = [x for step in out["losses"] for x in step]
+    check(all(math.isfinite(x) for x in losses), f"f32: non-finite loss {losses}")
+    want = out["layers"] * RANKS * steps
+    for kname, n in counts.items():
+        check(n == want, f"f32: {kname}_f32 launched {n} times, expected {want}")
+    check(not any(bf16_counts.values()), f"f32: a bf16 kernel launched ({bf16_counts})")
+    emit({"phase": "f32_path", **out, "launches_f32": counts})
+    return counts
+
+
+RESNET_BATCH, RESNET_STEPS = 32, 3
+
+
+def _plan_mix(plan, a):
+    """The plan's weighted mix of rank-major ``a``, in float64 on the host:
+    out[d] = w_dd a[d] + sum over classes of w_c[d] a[src_c[d]]."""
+    a = a.double().cpu()
+    shape = (plan.size,) + (1,) * (a.dim() - 1)
+    out = a * a.new_tensor(plan.self_weights).view(shape)
+    for cls in plan.classes:
+        out += a.new_tensor(cls.recv_weights).view(shape) * a[list(cls.sources())]
+    return out
+
+
+def phase_resnet(torch):
+    """This slice's path at full width (ResNet-50, 224 x 224, 1000 classes,
+    4 ranks, per-rank batch RESNET_BATCH) under both communications, with
+    batch statistics; then LeNet-5 through examples/torch_mnist."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology_util
+    from bluefog_tpu_torch.benchmarks import resnet50 as rb
+    from bluefog_tpu_torch.examples import torch_mnist
+    from bluefog_tpu_torch.models import ResNet50
+
+    bf.init(topology_util.ExponentialTwoGraph(RANKS), size=RANKS, device="cuda")
+    try:
+        plan = bf.context().plan
+        model = ResNet50(num_classes=1000, device="cpu",
+                         generator=torch.Generator().manual_seed(0)).cuda()
+        x, y = rb.synthetic_batch(RANKS, RESNET_BATCH, 224, 1000, "cuda", seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        row = {"phase": "resnet", "model": "ResNet50", "image": 224, "classes": 1000,
+               "ranks": RANKS, "per_rank_batch": RESNET_BATCH,
+               "reduced": "per-rank batch 128 -> 32 (the benchmark's 128 in "
+                          "bluefog_tpu_torch.benchmarks.resnet50)"}
+        for mode in rb.MODES:
+            params, stats = rb.rank_major_state(model, RANKS)
+            step_fn, opt = rb.make_step(model, params, stats, mode)
+            leaf = "blocks.3.convs.1.weight"
+            adapted = {}
+            if mode == "neighbor_allreduce":  # ATC: after the local step, before the combine
+                opt.register_step_post_hook(
+                    lambda *_: adapted.__setitem__("w", params[leaf].detach().clone()))
+            stat = "blocks.3.norms.1.mean"
+            losses, step_ms = [], []
+            for s in range(RESNET_STEPS):
+                before = stats[stat].clone()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, acc = step_fn(x, y)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.tolist())
+                check(torch.isfinite(loss).all().item(), f"resnet {mode}: non-finite loss {loss}")
+                check(acc.shape == (RANKS,) and not torch.isnan(acc).any().item(),
+                      f"resnet {mode}: accuracy {acc}")
+                moved = [(stats[stat][r] != before[r]).any().item() for r in range(RANKS)]
+                check(all(moved), f"resnet {mode} step {s}: running statistics of ranks "
+                                  f"{[r for r, m in enumerate(moved) if not m]} did not move")
+                # each rank's statistics come from its own batch: no two agree
+                check(all(not torch.equal(stats[stat][r], stats[stat][0])
+                          for r in range(1, RANKS)),
+                      f"resnet {mode} step {s}: ranks share running statistics")
+                if mode == "neighbor_allreduce":
+                    want = _plan_mix(plan, adapted["w"])
+                    err = (params[leaf].detach().double().cpu() - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    check(err <= 1e-6 * scale, f"resnet gossip step {s}: {leaf} is {err} "
+                                               f"from the plan's mix of the adapted values")
+                else:
+                    p = params[leaf].detach()
+                    check(bool((p == p[:1]).all().item()), f"resnet allreduce step {s}: "
+                                                           f"ranks' parameters differ")
+            steady = step_ms[1:]
+            row[mode] = {"losses": losses, "step_ms": step_ms,
+                         "images_per_s": RANKS * RESNET_BATCH / (sum(steady) / len(steady) / 1e3)}
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        emit(row)
+    finally:
+        bf.shutdown()
+
+    out = torch_mnist.run(torch_mnist._parser().parse_args(
+        ["--epochs", "2", "--train-size", "1024", "--device", "cuda"]))
+    first, last = out["epochs"][0]["train_loss"], out["epochs"][-1]["train_loss"]
+    emit({"phase": "lenet", **out})
+    check(math.isfinite(last) and last < first, f"lenet: train loss {first} -> {last}")
+
+
 def phase_model(torch, fa):
     """A small LlamaLM (D = 64) with flash attention on bf16 compute, held
     against the same weights with the model's dense attention in f32 (the
@@ -552,11 +866,14 @@ def main():
 
     smi = phase_device(torch, _build, fa, ac, roof)
     table = phase_kernels(torch, fa)
+    table_f32 = phase_kernels_f32(torch, fa)
+    counts_f32 = phase_f32(torch, fa)
     phase_model(torch, fa)
     counts = phase_main(torch, fa)
     comp_err = phase_components(torch, ac, roof)
     row, comp_counts = phase_roofline(torch, fa, ac, roof)
     comp_table = component_times(torch, ac, roof, row)
+    phase_resnet(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",
@@ -568,6 +885,10 @@ def main():
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k], "launches": counts[k], **table[k]}
+        for k in ("fwd", "dkv", "dq")] + [
+        {"name": f"flash_{k}_f32", "route": "cuda",
+         "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",
+         "replaces": replaces[k], "launches": counts_f32[k], **table_f32[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"{k}_component", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/attention_components.cu",

@@ -118,8 +118,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     wide = torch.zeros(2, 64, 160, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
-    with pytest.raises(ValueError, match="bf16"):
-        fa.flash_fwd(q.float(), q.float(), q.float(), scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        fa.flash_fwd(q.half(), q.half(), q.half(), scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa.flash_fwd(q, q.float(), q, scale=1.0, causal=True)
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_fwd(t, t, t, scale=1.0, causal=True)
@@ -239,3 +241,160 @@ def test_tiny_example_trains_on_the_card(cuda_device):
     losses = [x for step in out["losses"] for x in step]
     assert len(losses) == 2 * 4 and all(torch.isfinite(torch.tensor(losses)))
     assert all(n > 0 for n in fa.launches.values()), fa.launches
+
+
+def _close_f32(got, want):
+    """f32 kernel against its plain version, both f32 throughout:
+    |err| <= 2^-14 (|want| + rms(want)) per element (the same products
+    summed in another order move a value by a few f32 steps)."""
+    err = (got - want).abs()
+    tol = 2.0 ** -14 * (want.abs() + want.pow(2).mean().sqrt())
+    assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
+
+
+@pytest.mark.parametrize("d", [64, 128, 16])  # 16 runs zero-padded to 64
+@pytest.mark.parametrize("tq,tk,q_start,k_start,causal", [
+    (320, 320, 0, 0, True), (320, 320, 96, 0, True), (320, 320, 0, 0, False),
+    (320, 320, 0, 512, True), (320, 192, 128, 0, True), (192, 448, 0, 0, False),
+    (200, 200, 37, 0, True), (256, 320, 0, 45, True), (40, 40, 0, 0, True)])
+def test_f32_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(d + tq + tk + q_start + k_start)
+    q, g = (torch.randn(4, tq, d, generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(4, tk, d, generator=gen, device=cuda_device) for _ in range(2))
+    g_lse = torch.randn(4, tq, generator=gen, device=cuda_device)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    before, before_bf16 = dict(fa.launches_f32), dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_start, k_start, **kw)
+    corr = (g_lse - (o_ref * g).sum(-1)).contiguous()
+    dk, dv = fa.flash_dkv(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq = fa.flash_dq(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    visible = lse_ref > -1e29
+    assert (lse[~visible] < -1e29).all()
+    assert ((lse - lse_ref)[visible].abs() <= 2e-5).all()
+    for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
+        assert got.dtype == torch.float32
+        _close_f32(got, want)
+    assert {n: fa.launches_f32[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1}
+    assert fa.launches == before_bf16
+
+
+def test_f32_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    x = [torch.randn(2, 192, 4, 64, generator=gen) for _ in range(3)]
+    g = torch.randn(2, 192, 4, 64, generator=gen)
+    g_lse = torch.randn(2, 4, 192, generator=gen)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        leaves = [t.to(dev).requires_grad_(True) for t in x]
+        o, lse = flash_attention_with_lse(*leaves, q_start=0, k_start=0, causal=True)
+        grads = torch.autograd.grad((o, lse), leaves, (g.to(dev), g_lse.to(dev)))
+        outs.append([t.detach().cpu() for t in (o, lse, *grads)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_f32_llama_with_flash_trains_on_the_card(cuda_device):
+    """LlamaLM(dtype=float32) with flash attention: the example's tiny
+    preset in f32 (head dim 16, zero-padded), two steps on 4 ranks, every
+    f32 kernel launched layers x ranks x steps times and no bf16 kernel."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    fa.reset_launches()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        ["--preset", "tiny", "--dtype", "f32", "--steps", "2"]))
+    losses = [x for step in out["losses"] for x in step]
+    assert len(losses) == 2 * 4 and all(torch.isfinite(torch.tensor(losses)))
+    assert fa.launches_f32 == {k: out["layers"] * 4 * 2 for k in ("fwd", "dkv", "dq")}
+    assert not any(fa.launches.values()), fa.launches
+
+
+@pytest.mark.parametrize("head_chunks", [0, 4])
+def test_bf16_head_tracks_the_f32_head_on_the_card(cuda_device, head_chunks):
+    """head_dtype=bf16 rounds the head's operands (and its cotangent) to
+    bf16 and accumulates in f32: on the card the loss stays within rtol
+    5e-3 of the f32 head's and every gradient within 2e-2, the tolerance
+    the reference's own bf16-head test holds; the logits stay f32."""
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids = torch.randint(0, 97, (2, 64), generator=torch.Generator().manual_seed(1))
+    ids = ids.to(cuda_device)
+    results = []
+    for head_dtype in (torch.float32, torch.bfloat16):
+        model = LlamaLM(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4, dff=128,
+                        dtype=torch.float32, head_chunks=head_chunks, head_dtype=head_dtype,
+                        device="cpu", generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        assert model(ids).dtype == torch.float32
+        loss = model(ids, labels=ids)
+        loss.backward()
+        results.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
+    (want, g_want), (got, g_got) = results
+    assert abs(got - want) <= 5e-3 * abs(want)
+    for name, g in g_got.items():
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, g_want[name], rtol=2e-2, atol=2e-2, msg=name)
+
+
+def _flax_resnet_tree(model):
+    """A flax-shaped (params, batch_stats) tree of numpy arrays holding a
+    port ResNet's weights, for resnet_state_dict to carry back."""
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    params, stats = {}, {}
+
+    def norm(src, dst_name, tree_p, tree_s):
+        tree_p[dst_name] = {"scale": sd[src + ".scale"], "bias": sd[src + ".bias"]}
+        tree_s[dst_name] = {"mean": sd[src + ".mean"], "var": sd[src + ".var"]}
+
+    params["conv_init"] = {"kernel": sd["conv_init.weight"].transpose(2, 3, 1, 0)}
+    norm("bn_init", "bn_init", params, stats)
+    for i, block in enumerate(model.blocks):
+        name = f"{type(block).__name__}_{i}"
+        params[name], stats[name] = {}, {}
+        for j in range(len(block.convs)):
+            w = sd[f"blocks.{i}.convs.{j}.weight"]
+            params[name][f"Conv_{j}"] = {"kernel": w.transpose(2, 3, 1, 0)}
+            norm(f"blocks.{i}.norms.{j}", f"BatchNorm_{j}", params[name], stats[name])
+    params["Dense_0"] = {"kernel": sd["fc.weight"].T, "bias": sd["fc.bias"]}
+    return params, stats
+
+
+def test_resnet_state_dict_gives_the_same_logits_on_the_card(cuda_device):
+    """Weights carried by resnet_state_dict into a bf16 ResNet-18 give the
+    same logits on the card (cuDNN) as on the CPU, in training mode (batch
+    statistics) and in eval mode: ||err|| <= 2^-5 ||ref||, a few bf16 steps
+    (2^-8 each) compounded over the layers."""
+    from bluefog_tpu_torch.interop.jax_weights import resnet_state_dict
+    from bluefog_tpu_torch.models import ResNet18
+
+    src = ResNet18(num_classes=10, num_filters=8, small_images=True, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # nonzero last-norm scales and statistics
+        for name, t in src.state_dict().items():
+            if name.endswith((".scale", ".var")):
+                t.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(len(name)))
+    sd = resnet_state_dict(*_flax_resnet_tree(src))
+    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    for train in (True, False):
+        logits = []
+        for dev in ("cpu", cuda_device):
+            model = ResNet18(num_classes=10, num_filters=8, small_images=True, device="cpu")
+            model.load_state_dict(sd)
+            model.to(dev).train(train)
+            logits.append(model(x.to(dev)).detach().cpu())
+        want, got = logits
+        assert (got - want).norm() <= 2.0 ** -5 * want.norm(), (train, (got - want).norm())
+
+
+def test_mnist_example_trains_on_the_card(cuda_device):
+    """examples/torch_mnist (LeNet-5, 4 ranks, gossip) on the card: the
+    train loss falls from the first epoch to the second."""
+    from bluefog_tpu_torch.examples import torch_mnist
+
+    out = torch_mnist.run(torch_mnist._parser().parse_args(
+        ["--epochs", "2", "--train-size", "1024"]))
+    assert out["device"].startswith("cuda")
+    first, last = (out["epochs"][i]["train_loss"] for i in (0, -1))
+    assert last < first, (first, last)

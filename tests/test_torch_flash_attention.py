@@ -130,3 +130,71 @@ def test_head_dim_padding_is_exact(kernel, d):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert (a - b).abs().max() <= 1e-6 * b.abs().max(), (a - b).abs().max()
+
+
+def _inputs_cross(seed, tq, tk, d):
+    rng = np.random.default_rng(seed)
+    q, g = (rng.normal(size=(B, tq, H, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, tk, H, d)).astype(np.float32) for _ in range(2))
+    g_lse = rng.normal(size=(B, H, tq)).astype(np.float32)
+    return q, k, v, g, g_lse
+
+
+F32_CASES = {  # tq, tk, d, q_start, k_start, causal: the f32 kernels' head dims and shapes
+    "d64": (64, 64, 64, 0, 0, True),
+    "d128": (64, 64, 128, 0, 0, True),
+    "cross_hop": (32, 96, 64, 64, 0, True),       # tq != tk, queries after the keys
+    "cross_non_causal": (96, 32, 128, 0, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_f32_route_matches_pallas_kernel_in_f32(case):
+    """The port's f32 route (on the CPU its plain versions, which the f32
+    CUDA kernels are held against on the card) against the JAX kernel in
+    f32, interpret mode, at the f32 kernels' head dims 64 and 128 and with
+    tq != tk: o, lse and all three gradients within ATOL (f32 on both
+    sides, sums in another order)."""
+    tq, tk, d, q_start, k_start, causal = F32_CASES[case]
+    args = _inputs_cross(sorted(F32_CASES).index(case) + 20, tq, tk, d)
+    want = _jax_ref(*args, q_start, k_start, causal)
+    got = _port(*args, q_start, k_start, causal)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert a.dtype == np.float32, name
+        np.testing.assert_allclose(a, b, rtol=1e-6 if name == "lse" else 0, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_check_takes_f32_or_bf16_of_one_dtype():
+    """The wrappers' check accepts f32 and bf16 inputs (each dtype has its
+    kernels) and rejects q, k, v and dO of mixed dtypes, or another dtype."""
+    lse = torch.zeros(2, 64)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.zeros(2, 64, 64, dtype=dt)
+        assert fa._check("flash_fwd", q, q, q) == (2, 64, 64, 64)
+        assert fa._check("flash_dkv", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 64)
+    q = torch.zeros(2, 64, 64)
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa._check("flash_fwd", q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa._check("flash_dq", q, q, q, (q.bfloat16(),), (lse, lse))
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        fa._check("flash_fwd", q.half(), q.half(), q.half())
+
+
+def test_each_dtype_launches_its_own_kernel(monkeypatch):
+    """bf16 inputs reach csrc/flash_attention.cu's launchers and count in
+    ``launches``; f32 inputs reach csrc/flash_attention_f32.cu's and count
+    in ``launches_f32``."""
+    from types import SimpleNamespace
+
+    names = ("fwd", "bwd_dkv", "bwd_dq")
+    bf16 = SimpleNamespace(**{f"bf_flash_{n}": f"bf16 {n}" for n in names})
+    f32 = SimpleNamespace(**{f"bf_flash_f32_{n}": f"f32 {n}" for n in names})
+    monkeypatch.setattr(fa, "_lib", lambda: bf16)
+    monkeypatch.setattr(fa, "_lib_f32", lambda: f32)
+    for n in names:
+        assert fa._kernel(torch.bfloat16, n) == (f"bf16 {n}", fa.launches)
+        assert fa._kernel(torch.float32, n) == (f"f32 {n}", fa.launches_f32)
+    fa.reset_launches()
+    assert fa.launches == fa.launches_f32 == {"fwd": 0, "dkv": 0, "dq": 0}

@@ -133,7 +133,7 @@ def _train_both(jax_params, jax_opt, torch_opt_fn, steps, flash=True, head_chunk
         tl = []
         for s in range(steps):
             bx = torch.from_numpy(batches[s])
-            tl.append(step_fn(bx, bx).numpy())
+            tl.append(step_fn(bx, bx)[0].numpy())
     finally:
         tbf.shutdown()
     return jl, tl, jparams, params
@@ -209,7 +209,7 @@ def test_train_step_modes_train_and_mix(mode, comm, fuse):
             mode=mode, loss_fn=loss_fn, comm_fuse=fuse)
         toks = make_streams(np.random.default_rng(0), CFG["vocab_size"], N * 2, 33 * 8)
         data = torch.from_numpy(toks).view(N, 2, 8, 33).permute(2, 0, 1, 3)
-        losses = [step_fn(data[s], data[s]).mean().item() for s in range(8)]
+        losses = [step_fn(data[s], data[s])[0].mean().item() for s in range(8)]
         assert losses[-1] < losses[0] - 0.1, losses
         spread = max(v.std(dim=0).max().item() for v in params.values())
         assert spread < (1e-6 if comm == "allreduce" else 0.05)
@@ -236,17 +236,19 @@ def test_example_runs_on_the_cpu_and_profiles():
     assert out["consensus_spread"] < 0.01
     assert set(out["profile"]) == {"wall_ms", "device_ops",
                                    "device_union_busy_ms", "device_span_ms",
-                                   "idle_share", "flash_ms_launches", "top"}
+                                   "idle_share", "flash_ms_launches", "gemm_ms_launches",
+                                   "top"}
     # the plain versions run no device operation on the CPU
     assert out["profile"]["device_ops"] == 0 and out["profile"]["idle_share"] is None
     assert out["profile"]["flash_ms_launches"] == {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
+    assert out["profile"]["gemm_ms_launches"] == {k: [0.0, 0] for k in ("ffma", "other")}
 
 
 def test_device_idle_share_reads_the_union_of_device_intervals():
     """Overlapping kernels count once; the span runs from the first device
     operation's start to the last one's end; host events are not device
     time."""
-    from bluefog_tpu_torch.examples import llama_pretrain
+    from bluefog_tpu_torch import profiling
 
     class Trace:
         def export_chrome_trace(self, path):
@@ -255,23 +257,28 @@ def test_device_idle_share_reads_the_union_of_device_intervals():
             with open(path, "w") as f:
                 json.dump({"traceEvents": ev}, f)
 
-    out = llama_pretrain._device_timeline(Trace())
+    out = profiling.device_timeline(Trace())
     assert out == {"device_ops": 3, "device_union_busy_ms": 0.025,
                    "device_span_ms": 0.04, "idle_share": 0.375}
 
 
 def test_profile_sums_each_flash_kernel_outside_the_top_rows():
     """Each flash kernel's device ms and launches are summed over its head
-    dims, however far down the kernel list it falls."""
+    dims and its bf16 and f32 instances, however far down the kernel list
+    it falls; GEMM rows are summed apart, FFMA from tensor-core."""
     from types import SimpleNamespace
 
-    from bluefog_tpu_torch.examples import llama_pretrain
+    from bluefog_tpu_torch import profiling
 
     cuda = SimpleNamespace(name="CUDA")
     names = [("gemm", 9000.0)] * 3 + [
+        ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x128_8x4_nt_align1>", 4000.0),
+        ("nvjet_tst_192x128_64x5_1x2_h_bz_coopB_NNT", 3000.0),
         ("void (anonymous namespace)::dkv_kernel<64>(CUtensorMap_st)", 2000.0),
         ("void (anonymous namespace)::fwd_kernel<64>(CUtensorMap_st)", 1000.0),
-        ("void (anonymous namespace)::fwd_kernel<128>(CUtensorMap_st)", 500.0)]
+        ("void (anonymous namespace)::fwd_kernel<128>(CUtensorMap_st)", 500.0),
+        ("void (anonymous namespace)::dq_f32_kernel<64>(float const*, float const*)", 250.0),
+        ("void (anonymous namespace)::fwd_f32_kernel<128>(float const*)", 125.0)]
 
     class Prof:
         def key_averages(self):
@@ -282,6 +289,51 @@ def test_profile_sums_each_flash_kernel_outside_the_top_rows():
             with open(path, "w") as f:
                 json.dump({"traceEvents": []}, f)
 
-    out = llama_pretrain._device_profile(Prof(), 1.0, top=2)
+    out = profiling.device_profile(Prof(), 1.0, top=2)
     assert len(out["top"]) == 2
-    assert out["flash_ms_launches"] == {"fwd": [1.5, 4], "dkv": [2.0, 2], "dq": [0.0, 0]}
+    assert out["flash_ms_launches"] == {"fwd": [1.625, 6], "dkv": [2.0, 2], "dq": [0.25, 2]}
+    assert out["gemm_ms_launches"] == {"ffma": [4.0, 2], "other": [30.0, 8]}
+
+
+@pytest.mark.parametrize("head_chunks", [0, 4])
+def test_bf16_head_matches_reference(jax_params, head_chunks):
+    """head_dtype=bf16 on both sides: bf16 operands (the cotangent too, in
+    the backward) and f32 accumulation, the custom VJP
+    ``_bf16_matmul_f32_acc`` against the port's autograd Function.  Both
+    round the same f32 values to bf16 and sum exact bf16 products in f32,
+    in another order.  The f32 values rounded differ between the two models
+    by f32 roundoff (~1e-7), and an entry that sits on a bf16 rounding
+    boundary rounds the other way on one side, moving a product by one bf16
+    step (2^-8 of it): logits within 1e-3 of the largest logit, the loss
+    within rtol 1e-4, every gradient within 1e-3 of its largest entry."""
+    ids = _ids(3, (2, T))
+    jm = JaxLlama(**CFG, dtype=jnp.float32, head_chunks=head_chunks,
+                  head_dtype=jnp.bfloat16)
+    want_logits = np.asarray(jm.apply({"params": jax_params}, jnp.asarray(ids)))
+    want, jgrads = jax.value_and_grad(
+        lambda p: jm.apply({"params": p}, jnp.asarray(ids), labels=jnp.asarray(ids)))(
+            jax.tree_util.tree_map(jnp.asarray, jax_params))
+    jgrads = llama_state_dict(jax.tree_util.tree_map(np.asarray, jgrads), CFG["num_layers"])
+
+    model = LlamaLM(**CFG, dtype=torch.float32, head_chunks=head_chunks,
+                    head_dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(llama_state_dict(jax_params, CFG["num_layers"]))
+    t_ids = torch.from_numpy(ids)
+    logits = model(t_ids)
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, rtol=0,
+                               atol=1e-3 * np.abs(want_logits).max())
+    loss = model(t_ids, labels=t_ids)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
+    for name, p in model.named_parameters():
+        assert p.grad.dtype == torch.float32
+        w = jgrads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-3,
+                                   atol=1e-3 * np.abs(w).max(), err_msg=name)
+
+
+def test_head_dtype_is_float32_or_bfloat16():
+    with pytest.raises(ValueError, match="head_dtype"):
+        LlamaLM(**CFG, head_dtype=torch.float16, device="cpu")
+    assert LlamaLM(**CFG, device="cpu").head_dtype == torch.float32
