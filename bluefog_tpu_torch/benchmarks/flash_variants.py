@@ -1,22 +1,29 @@
 """Block shape and ring depth of the Hopper flash kernels, by measurement.
 
-The flash kernels of ``csrc/flash_attention.cu`` fix at compile time how
-many consumer warpgroups of 64 rows share a block and how deep their TMA
-rings are.  This script builds copies of the source with other values (one
-nvcc each, side by side, into ``bluefog_tpu_torch/_build/``), binds each
-like the package's own library, and times the forward, dK/dV and dQ of
-every build on the same inputs at the roofline's ``path`` and ``134m``
-shapes, by CUDA-graph replay, the builds taken in turns over ``ROUNDS``
-rounds (the least time of each kept).  The ``chosen`` build is the source
-as it stands.
+The flash kernels fix at compile time how many rows a block owns and how
+deep their TMA rings are: ``csrc/flash_attention.cu`` (bf16: consumer
+warpgroups of 64 rows) and ``csrc/flash_attention_f32.cu`` (f32: the
+3xTF32 forward and dK/dV: warps of 16 rows, dK/dV's query rows a ring
+stage; and ablations, each pricing one part of the kernel).  This script
+builds copies of one of the two sources with other values (one nvcc each,
+side by side, into ``bluefog_tpu_torch/_build/``),
+binds each like the package's own library, and times the forward, dK/dV
+and dQ of every build on the same inputs by CUDA-graph replay, the builds
+taken in turns over ``ROUNDS`` rounds (the least time of each kept).  The
+bf16 builds run at the roofline's ``path`` and ``134m`` shapes, the f32
+builds at [24, 2048, 64] and [24, 2048, 128] (causal).  The ``chosen``
+build is the source as it stands; ``--source NAME=PATH`` adds a build of
+another copy of the file (say, an earlier commit's), timed in the same
+turns.
 
-    python -m bluefog_tpu_torch.benchmarks.flash_variants
+    python -m bluefog_tpu_torch.benchmarks.flash_variants [--f32] [--source NAME=PATH]
 
 prints one JSON line.  Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import importlib
@@ -25,7 +32,7 @@ import os
 import re
 import subprocess
 import sys
-from typing import Dict
+from typing import Dict, Optional
 from unittest import mock
 
 import torch
@@ -49,84 +56,159 @@ VARIANTS: Dict[str, Dict[str, str]] = {
                      r"__launch_bounds__\(kSm90Threads, 1\)":
                          "__launch_bounds__(kSm90Threads, 2)"},
 }
+F32_VARIANTS: Dict[str, Dict[str, str]] = {
+    "chosen": {},
+    # rows a block: warps of 16 rows (two blocks of four warps share a SM)
+    "fwd64_warps_8": {r"kFwdWarps64 = \d+": "kFwdWarps64 = 8"},
+    "fwd128_warps_4": {r"kFwdWarps128 = \d+": "kFwdWarps128 = 4"},
+    "dkv64_warps_8": {r"kDkvWarps64 = \d+": "kDkvWarps64 = 8"},
+    "dkv128_warps_4": {r"kDkvWarps128 = \d+": "kDkvWarps128 = 4"},
+    # three warps a SM sub-partition (168 registers a thread)
+    "fwd64_warps_12": {r"kFwdWarps64 = \d+": "kFwdWarps64 = 12"},
+    "fwd128_warps_12": {r"kFwdWarps128 = \d+": "kFwdWarps128 = 12"},
+    # query rows a dK/dV stage, ring depths (a build whose shared memory
+    # does not fit raises at launch, a result of its own)
+    "dkv_qrows_64": {r"kDkvQRows = \d+": "kDkvQRows = 64"},
+    "fwd_stages_3": {r"kFwdStages = \d+;": "kFwdStages = 3;"},
+    "dkv_stages_3": {r"kDkvStages = \d+;": "kDkvStages = 3;"},
+    # ablations: each computes another function (max_abs_diff_vs_chosen
+    # says how far); its time prices the part it leaves out
+    "ablate_split": {re.escape('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));'):
+                         "big = __float_as_uint(x);",
+                     re.escape("return {big, __float_as_uint(x - __uint_as_float(big))};"):
+                         "return {big, 0u};"},
+    "ablate_small_products": {re.escape("for (int term = 0; term < 3; ++term)"):
+                                "for (int term = 2; term < 3; ++term)"},
+    "ablate_fwd_softmax": {r"online_softmax\(sc,[^;]*;": "alpha[0] = alpha[1] = 1.f;"},
+    "ablate_fwd_pv": {r"mma_mnmajor<D, kTile>\(acc[^;]*;": ""},
+}
 ROUNDS = 3
 TIMED_SHAPES = ("path", "134m")
+F32_SHAPES = {"d64": (24, 2048, 64), "d128": (24, 2048, 128)}
 
 
-def variant_source(subs: Dict[str, str]) -> str:
-    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+def variant_source(subs: Dict[str, str], source: str = "flash_attention") -> str:
+    with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
         src = f.read()
     for pattern, repl in subs.items():
         src, n = re.subn(pattern, repl, src)
         if not n:
-            raise ValueError(f"pattern {pattern!r} not in flash_attention.cu")
+            raise ValueError(f"pattern {pattern!r} not in {source}.cu")
     return src
 
 
-def build_variant(name: str) -> ctypes.CDLL:
-    """Compile one variant beside the package's build and bind it."""
+def build_variant(name: str, src_text: str, prefix: str = "bf_flash") -> ctypes.CDLL:
+    """Compile one variant's source beside the package's build and bind it."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build.BUILD_DIR, f"flash_variant_{name}.cu")
-    out = os.path.join(_build.BUILD_DIR, f"libflash_variant_{name}.so")
+    src = os.path.join(_build.BUILD_DIR, f"flash_variant_{prefix}_{name}.cu")
+    out = os.path.join(_build.BUILD_DIR, f"libflash_variant_{prefix}_{name}.so")
     with open(src, "w") as f:
-        f.write(variant_source(VARIANTS[name]))
+        f.write(src_text)
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
                            "-o", out, src], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
-    return fa.bind(ctypes.CDLL(out))
+    return fa.bind(ctypes.CDLL(out), prefix=prefix)
 
 
-def main(argv=None) -> int:
+def f32_inputs(bh: int, t: int, d: int, seed: int = 1):
+    """(q, k, v, dO, lse, corr) in f32 for one causal call at [bh, t, d]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, scale=d ** -0.5, causal=True)
+    corr = (torch.randn(bh, t, generator=gen, device="cuda") - (o * g).sum(-1)).contiguous()
+    return q, k, v, g, lse, corr
+
+
+def _calls(q, k, v, g, lse, corr):
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=True)
+    return {"fwd": lambda: fa.flash_fwd(q, k, v, **kw)[0],
+            "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw),
+            "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, **kw)}
+
+
+def main(argv: Optional[list] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--f32", action="store_true",
+                        help="time flash_attention_f32.cu's builds (default: the bf16 file's)")
+    parser.add_argument("--source", action="append", default=[], metavar="NAME=PATH",
+                        help="also build and time this copy of the source file")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_variants: no CUDA device", file=sys.stderr)
         return 1
+    source, prefix, lib_attr = (("flash_attention_f32", "bf_flash_f32", "_lib_f32") if args.f32
+                                else ("flash_attention", "bf_flash", "_lib"))
+    variants = {name: variant_source(subs, source)
+                for name, subs in (F32_VARIANTS if args.f32 else VARIANTS).items()}
+    subs_of = dict(F32_VARIANTS if args.f32 else VARIANTS)
+    for spec in args.source:
+        name, path = spec.split("=", 1)
+        with open(path) as f:
+            variants[name] = f.read()
+        subs_of[name] = {"source": path}
 
     def try_build(name):
         try:
-            return build_variant(name)
+            return build_variant(name, variants[name], prefix)
         except RuntimeError as err:  # a variant the compiler refuses is a result
             return str(err)[-2000:]
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(try_build, VARIANTS)))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        built = dict(zip(variants, pool.map(try_build, variants)))
     libs = {v: lib for v, lib in built.items() if not isinstance(lib, str)}
     if "chosen" not in libs:
         raise RuntimeError(f"the source as it stands does not build: {built['chosen']}")
-    inputs = {s: flash_inputs(SHAPES[s]) for s in TIMED_SHAPES}
-    best: Dict[str, Dict[str, float]] = {v: {} for v in VARIANTS}
+    if args.f32:
+        inputs = {s: f32_inputs(*shape) for s, shape in F32_SHAPES.items()}
+    else:
+        inputs = {s: flash_inputs(SHAPES[s]) for s in TIMED_SHAPES}
+    diff_shape = next(iter(inputs))
+    best: Dict[str, Dict[str, float]] = {v: {} for v in variants}
+    errors: Dict[str, Dict[str, str]] = {v: {} for v in variants}
     occ, outputs = {}, {}
-    for vname, lib in libs.items():  # each build's outputs at the path shape
-        q, k, v, g, lse, corr = inputs["path"]
-        kw = dict(scale=q.shape[-1] ** -0.5, causal=True)
-        with mock.patch.object(fa, "_lib", lambda lib=lib: lib):
-            outputs[vname] = (fa.flash_fwd(q, k, v, **kw)[0],
-                              *fa.flash_dkv(q, k, v, g, lse, corr, **kw),
-                              fa.flash_dq(q, k, v, g, lse, corr, **kw))
+    for vname, lib in libs.items():  # each build's outputs at the first shape
+        with mock.patch.object(fa, lib_attr, lambda lib=lib: lib):
+            try:
+                outputs[vname] = [fn() for fn in _calls(*inputs[diff_shape]).values()]
+            except RuntimeError as err:  # a build whose blocks do not fit the card
+                errors[vname]["launch"] = str(err)
     diff = {v: max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(out, outputs["chosen"])) for v, out in outputs.items()}
+                   for a, b in zip(_flat(out), _flat(outputs["chosen"])))
+            for v, out in outputs.items()}
     for _ in range(ROUNDS):
         for vname, lib in libs.items():
-            with mock.patch.object(fa, "_lib", lambda lib=lib: lib):
-                occ[vname] = {k: fa.occupancy(k, 64) for k in ("fwd", "dkv", "dq")}
-                for sname, (q, k, v, g, lse, corr) in inputs.items():
-                    kw = dict(scale=q.shape[-1] ** -0.5, causal=True)
-                    for kname, fn in (
-                            ("fwd", lambda: fa.flash_fwd(q, k, v, **kw)),
-                            ("dkv", lambda: fa.flash_dkv(q, k, v, g, lse, corr, **kw)),
-                            ("dq", lambda: fa.flash_dq(q, k, v, g, lse, corr, **kw))):
-                        ms = graph_seconds(fn, calls=20) * 1e3
+            if vname not in outputs:
+                continue
+            with mock.patch.object(fa, lib_attr, lambda lib=lib: lib):
+                if not args.f32:
+                    occ[vname] = {k: fa.occupancy(k, 64) for k in ("fwd", "dkv", "dq")}
+                for sname, x in inputs.items():
+                    for kname, fn in _calls(*x).items():
                         key = f"{sname}_{kname}_ms"
+                        try:
+                            ms = graph_seconds(fn, calls=20) * 1e3
+                        except RuntimeError as err:
+                            errors[vname][key] = str(err)
+                            continue
                         best[vname][key] = min(best[vname].get(key, ms), ms)
+    shapes = ({s: list(v) for s, v in F32_SHAPES.items()} if args.f32
+              else {s: SHAPES[s] for s in TIMED_SHAPES})
     print(json.dumps({
         "metric": "flash fwd / dK/dV / dQ ms per build variant (CUDA-graph replay, least of "
                   f"{ROUNDS} rounds in turns)",
+        "source": f"bluefog_tpu_torch/csrc/{source}.cu", "shapes": shapes,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi(),
-        "variants": {v: ({"subs": VARIANTS[v], **best[v], "occupancy": occ[v],
-                          "max_abs_diff_vs_chosen": diff[v]} if v in libs
-                         else {"subs": VARIANTS[v], "build_error": built[v]})
-                     for v in VARIANTS}}), flush=True)
+        "variants": {v: ({"subs": subs_of[v], **best[v], "occupancy": occ.get(v),
+                          "max_abs_diff_vs_chosen": diff.get(v), "errors": errors[v]}
+                         if v in libs else {"subs": subs_of[v], "build_error": built[v]})
+                     for v in variants}}), flush=True)
     return 0
+
+
+def _flat(outs):
+    """Every tensor of a list of wrapper results, tuples opened."""
+    return [t for x in outs for t in (x if isinstance(x, tuple) else (x,))]
 
 
 if __name__ == "__main__":

@@ -17,9 +17,13 @@ The bf16 kernels are built for Hopper (``wgmma`` products, TMA-fed tile
 rings, 128-row blocks of two consumer warpgroups, launched longest chain
 first); :func:`launch_order` says which 64 x 64 tiles each block of a
 launch computes, in the order the card is handed the blocks.  The f32
-kernels multiply in true f32 FFMA (no TF32) on one 64-row tile a block
-staged through shared memory, and round neither p nor dS, as the
-reference does for f32 inputs.
+forward and dK/dV run f32-accurate products on the tensor cores: every
+operand is split into a TF32 part and the rest (:func:`split_tf32` is the
+split in plain torch, for the tests), and a.b is three TF32 products
+(small.big + big.small + big.big, the dropped small.small below 2^-22
+|a||b|), on ``mma.sync`` with TMA-fed tile rings; the f32 dQ multiplies in
+true f32 FFMA on one 64-row tile a block.  No f32 kernel rounds p or dS to
+a narrower type, as the reference does not for f32 inputs.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
 f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16 or
@@ -66,6 +70,7 @@ __all__ = [
     "occupancy",
     "launch_order",
     "pad_head_dim",
+    "split_tf32",
 ]
 
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
@@ -103,10 +108,25 @@ def _mask(s, q_start, k_start, j0, causal):
     return s.masked_fill(kpos[None, None, :] > qpos[None, :, None], _NEG_INF)
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` of f32 ``x`` as the f32 forward and dK/dV kernels
+    split an operand: ``big`` is ``x`` rounded to nearest, ties away from
+    zero, at TF32's 10 mantissa bits (``cvt.rna.tf32.f32``), ``small = x -
+    big``, exact in f32.  Used by the tests, which emulate the kernels'
+    products with it; the kernels split on the card."""
+    bits = x.float().contiguous().view(torch.int32)
+    # adding half a TF32 step to the sign-magnitude pattern rounds the
+    # magnitude, ties away from zero; the mask drops the 13 low bits
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return big, x.float() - big
+
+
 def flash_fwd_plain(q, k, v, q_start: int = 0, k_start: int = 0, *,
-                    scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    scale: float, causal: bool,
+                    bmm: Callable = torch.bmm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online-softmax blockwise forward: ``(o [BH,Tq,D] in q.dtype,
-    lse [BH,Tq] f32)``."""
+    lse [BH,Tq] f32)``.  ``bmm`` computes every product (the tests pass an
+    emulation of the kernels' TF32 split)."""
     bh, tq, d = q.shape
     qf = q.float()
     o = torch.zeros(bh, tq, d, dtype=torch.float32, device=q.device)
@@ -114,43 +134,46 @@ def flash_fwd_plain(q, k, v, q_start: int = 0, k_start: int = 0, *,
     l = torch.zeros(bh, tq, 1, dtype=torch.float32, device=q.device)
     for j0 in range(0, k.shape[1], _BLOCK):
         kb, vb = k[:, j0:j0 + _BLOCK], v[:, j0:j0 + _BLOCK]
-        s = _mask(torch.bmm(qf, kb.float().transpose(1, 2)) * scale,
+        s = _mask(bmm(qf, kb.float().transpose(1, 2)) * scale,
                   q_start, k_start, j0, causal)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         # fully-masked rows: m_new is the sentinel and exp(0) would be 1
         p = torch.where(s > _MASK_THRESH, torch.exp(s - m_new), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + torch.bmm(p.to(v.dtype).float(), vb.float())
+        o = o * alpha + bmm(p.to(v.dtype).float(), vb.float())
         m = m_new
     out = (o / l.clamp_min(1e-30)).to(q.dtype)
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
     return out, lse
 
 
-def _recompute(q, k, v, g, lse, corr, q_start, k_start, j0, *, scale, causal):
+def _recompute(q, k, v, g, lse, corr, q_start, k_start, j0, *, scale, causal,
+               bmm=torch.bmm):
     """(p, ds) for the key block starting at j0: p = exp(s - lse) with
     masked entries 0, ds = p * (g.v^T + corr) rounded to q's dtype."""
     kb, vb = k[:, j0:j0 + _BLOCK], v[:, j0:j0 + _BLOCK]
-    s = _mask(torch.bmm(q.float(), kb.float().transpose(1, 2)) * scale,
+    s = _mask(bmm(q.float(), kb.float().transpose(1, 2)) * scale,
               q_start, k_start, j0, causal)
     p = torch.exp(torch.where(s > _MASK_THRESH, s - lse[..., None], _NEG_INF))
-    dp = torch.bmm(g.float(), vb.float().transpose(1, 2))
+    dp = bmm(g.float(), vb.float().transpose(1, 2))
     ds = (p * (dp + corr[..., None])).to(q.dtype)
     return p, ds
 
 
 def flash_dkv_plain(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0,
-                    *, scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dK, dV)`` by per-key-block recompute from lse."""
+                    *, scale: float, causal: bool,
+                    bmm: Callable = torch.bmm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` by per-key-block recompute from lse; ``bmm`` as in
+    :func:`flash_fwd_plain`."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     for j0 in range(0, k.shape[1], _BLOCK):
         p, ds = _recompute(q, k, v, g, lse, corr, q_start, k_start, j0,
-                           scale=scale, causal=causal)
-        dv[:, j0:j0 + _BLOCK] = torch.bmm(
+                           scale=scale, causal=causal, bmm=bmm)
+        dv[:, j0:j0 + _BLOCK] = bmm(
             p.to(g.dtype).float().transpose(1, 2), g.float()).to(v.dtype)
-        dk[:, j0:j0 + _BLOCK] = (torch.bmm(
+        dk[:, j0:j0 + _BLOCK] = (bmm(
             ds.float().transpose(1, 2), q.float()) * scale).to(k.dtype)
     return dk, dv
 

@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
                head dims, and the chain microkernels MUFU.EX2 (with their
                body) and no HMMA; each chain's loop must issue per element
                on each pipe what its bound prices
-               (attention_roofline.CHAIN_PIPES).
+               (attention_roofline.CHAIN_PIPES); the f32 forward and dK/dV
+               (csrc/flash_attention_f32.cu, 3xTF32) must hold TF32
+               tensor-core products (HMMA.1688.F32.TF32 or HGMMA ... TF32)
+               at both head dims, the f32 dQ (FFMA) none.
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
                PyTorch version on the same bf16 inputs, over nine cases
@@ -27,13 +30,15 @@ Phases, each printing one JSON line:
                wrappers' host time) beside the bound, the plain version and
                scaled_dot_product_attention.
 2b. kernels_f32 -- each f32 CUDA kernel (the flash fwd, dK/dV and dQ
-               instances of csrc/flash_attention_f32.cu, true f32 FFMA)
+               instances of csrc/flash_attention_f32.cu: fwd and dK/dV on
+               the tensor cores by the 3xTF32 split, dQ in f32 FFMA)
                against its plain version on the same f32 inputs: the f32
                path's shape [24, 2048, 64], D = 128, D = 16 zero-padded,
                causal with offsets, tq != tk; then
-               times at [24, 2048, 64] and [24, 2048, 128] beside the f32
-               FFMA bound, the plain version and f32
-               scaled_dot_product_attention.
+               times at [24, 2048, 64] and [24, 2048, 128] beside the
+               bound at three TF32 products a product (the old FFMA bound
+               beside it as bound_ffma_ms), the plain version and f32
+               scaled_dot_product_attention, forward and forward+backward.
 2c. f32     -- the f32 path: a small f32 LlamaLM with flash attention
                against the same weights with dense f32 attention (loss and
                gradients), then examples/llama_pretrain --dtype f32 at the
@@ -86,6 +91,8 @@ import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (FFMA)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
+TF32_SPLIT = 3            # TF32 products a 3xTF32 product takes
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 STEPS, RANKS, BATCH = 3, 4, 2
 
@@ -101,11 +108,19 @@ STEPS, RANKS, BATCH = 3, 4, 2
 ELEM_REL, ELEM_RMS, NORM_REL, LSE_ABS = 2.0 ** -7, 2.0 ** -6, 1e-2, 1e-3
 TOLERANCE = ("|err| <= 2^-7|ref| + 2^-6 rms(ref) per element, ||err|| <= 1e-2 ||ref||;"
              " lse |err| <= 1e-3 on visible rows")
-# The f32 kernels against their plain versions (both f32 throughout, no
-# rounding to bf16): |got - ref| <= 2^-14 (|ref| + rms(ref)) per element.
-# The two sum the same products in another order (f32 FFMA chains against
-# cuBLAS's), which moves a value by a few f32 steps (2^-23 each) times the
-# sqrt of the terms summed, well below 2^-14 of the value or of the rms.
+# The f32 kernels against their plain versions (no rounding to bf16):
+# |got - ref| <= 2^-14 (|ref| + rms(ref)) per element.  Three sources move
+# a value: the order of the sums (the kernels' against cuBLAS's), a few f32
+# steps (2^-23 each) times the sqrt of the terms summed; in the forward and
+# dK/dV, the 3xTF32 split, whose dropped small.small term and TF32 read of
+# small move each product by under 2^-21 |a||b| (the CPU test
+# tests/test_torch_flash_f32_split.py emulates the split against the JAX
+# kernel: it stays over 15x inside this rule, one TF32 product lands over
+# 20x outside it); and there too the tensor cores' sums, which round toward
+# zero, so the kernels keep each chain of products to a short partial sum
+# (that test's model of it: a hundredth of this rule with 32-row partial
+# sums, against half for one chain over T = 2048).  All are well below
+# 2^-14 of the value or of the rms.
 # lse: |got - ref| <= 2e-5 on rows with a visible key (about 20 f32 steps
 # at the size lse takes at T = 2048), the sentinel on rows without one.
 F32_ELEM, F32_LSE_ABS = 2.0 ** -14, 2e-5
@@ -204,6 +219,24 @@ def sass_ops(_build):
     return counts
 
 
+TF32_MMA = r"\bHMMA\.\w+\.F32\.TF32\b|\bHGMMA\.\S*TF32"
+
+
+def sass_tf32(_build):
+    """{f32 flash kernel: [TF32 tensor-core instructions of each instance]}
+    from cuobjdump's SASS of csrc/flash_attention_f32.cu; None where
+    cuobjdump is not found."""
+    funcs = _build.sass("flash_attention_f32")
+    if funcs is None:
+        return None
+    counts = {}
+    for fname, body in sorted(funcs.items()):
+        m = re.search(r"(fwd|dkv|dq)_f32_kernel", fname)
+        if m:
+            counts.setdefault(m.group(0), []).append(len(re.findall(TF32_MMA, body)))
+    return counts
+
+
 def phase_device(torch, _build, fa, ac, roof):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -216,6 +249,7 @@ def phase_device(torch, _build, fa, ac, roof):
     ptxas = {name: [l.strip() for l in _build.build_logs.get(name, "").splitlines()
                     if "registers" in l or "spill" in l] for name in sources}
     sass = sass_ops(_build)
+    tf32 = sass_tf32(_build)
     # the chains' instructions an element per pipe, which their bound prices
     named = {component_name(f): b for f, b in (_build.sass("attention_components") or {}).items()}
     pipes = {name: roof.loop_pipe_counts(b) for name, b in named.items()
@@ -223,7 +257,13 @@ def phase_device(torch, _build, fa, ac, roof):
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "gpu": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found",
-          "chain_pipes": pipes})
+          "sass_f32_tf32_mma": tf32 or "cuobjdump not found", "chain_pipes": pipes})
+    for kname in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel") if tf32 else ():
+        n = tf32.get(kname, [])
+        want = "none" if kname == "dq_f32_kernel" else "TF32 tensor-core products"
+        check(len(n) == 2 and (all(x == 0 for x in n) if kname == "dq_f32_kernel"
+                               else all(x > 0 for x in n)),
+              f"device: {kname} must hold {want} at both head dims ({n})")
     for key, counts in roof.CHAIN_PIPES.items() if sass else ():
         name = ("softmax_chain_kernel<body>" if key[0] == "softmax_chain"
                 else f"bwd_chain_kernel<cast_p={int(key[1])}, body>")
@@ -423,7 +463,8 @@ F32_CASES = {  # bh, tq, tk, d, q_start, k_start, causal
 
 
 def f32_work(bh, t, d):
-    """(flops, bytes) of the f32 fwd, dK/dV and dQ at [bh, t, d], causal."""
+    """(flops, bytes) of the f32 fwd, dK/dV and dQ at [bh, t, d], causal;
+    flops count each f32 product once (multiply and add)."""
     pairs = visible_pairs(t, t, 0, 0, True)
     e = 4
     return {
@@ -436,8 +477,13 @@ def f32_work(bh, t, d):
 def phase_kernels_f32(torch, fa):
     """Each f32 kernel against its plain version over F32_CASES, then its
     times at [24, 2048, 64] (the main path's attention shape) and
-    [24, 2048, 128] beside the f32 FFMA bound, the plain version and f32
-    scaled_dot_product_attention.  Returns the kernel-table entries."""
+    [24, 2048, 128] beside the plain version and f32
+    scaled_dot_product_attention (forward; forward+backward beside the sum
+    of the three kernels).  The bound is the f32-accurate one on this card:
+    three TF32 tensor-core products a product (3 x flops / 495 TFLOP/s), or
+    the bytes, whichever is longer; the FFMA bound (flops / 67 TFLOP/s) of
+    the first f32 design stands beside it as bound_ffma_ms, for all three
+    kernels.  Returns the kernel-table entries."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -514,21 +560,27 @@ def phase_kernels_f32(torch, fa):
             F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g4)
 
         sdpa_fb = cuda_ms(sdpa_fwd_bwd, iters=10)
-        timing[f"d{d}"] = {"shape": [bh, t, d], "sdpa_fwd_ms": sdpa, "sdpa_fwd_bwd_ms": sdpa_fb}
+        timing[f"d{d}"] = {"shape": [bh, t, d], "sdpa_fwd_ms": sdpa, "sdpa_fwd_bwd_ms": sdpa_fb,
+                           "fwd_dkv_dq_ms": sum(ms.values())}
         for kname, (flops, nbytes) in f32_work(bh, t, d).items():
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            t_ops = TF32_SPLIT * flops / PEAK_TF32_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
             entry = {"ms": ms[kname], "plain_ms": plain_ms[kname],
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "bound_pipe": "tensor cores, 3 TF32 products a product (3xTF32)",
+                     "bound_ffma_ms": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
                      "library_ms": sdpa if kname == "fwd" else None,
                      "tflops": flops / (ms[kname] * 1e-3) / 1e12}
             timing[f"d{d}"][kname] = entry
             if d == 64:
                 table[kname] = {"max_abs_err": errs[kname],
                                 **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                         "bound_by", "library_ms")}}
+                                                         "bound_by", "bound_pipe",
+                                                         "bound_ffma_ms", "library_ms")}}
             else:
                 table[kname].update({"ms_d128": entry["ms"], "bound_ms_d128": entry["bound_ms"],
+                                     "bound_ffma_ms_d128": entry["bound_ffma_ms"],
                                      "library_ms_d128": entry["library_ms"]})
     fa.launches_f32.update(counts_before)  # timing launches are not the path's
     emit(timing)

@@ -258,10 +258,22 @@ def _close_f32(got, want):
     (320, 320, 0, 512, True), (320, 192, 128, 0, True), (192, 448, 0, 0, False),
     (200, 200, 37, 0, True), (256, 320, 0, 45, True), (40, 40, 0, 0, True)])
 def test_f32_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, causal):
+    _check_f32_kernels(cuda_device, 4, d, tq, tk, q_start, k_start, causal)
+
+
+@pytest.mark.parametrize("bh,t,d", [(24, 2048, 64), (8, 1024, 128)])
+def test_f32_kernels_match_plain_versions_at_full_size(cuda_device, bh, t, d):
+    """The f32 path's own shape (batch 2 x 12 heads, T = 2048, D = 64), and
+    D = 128 at T = 1024, where dK/dV's shared memory is fullest: many
+    blocks a SM in turn, every ring wrapping 16 times."""
+    _check_f32_kernels(cuda_device, bh, d, t, t, 0, 0, True)
+
+
+def _check_f32_kernels(cuda_device, bh, d, tq, tk, q_start, k_start, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(d + tq + tk + q_start + k_start)
-    q, g = (torch.randn(4, tq, d, generator=gen, device=cuda_device) for _ in range(2))
-    k, v = (torch.randn(4, tk, d, generator=gen, device=cuda_device) for _ in range(2))
-    g_lse = torch.randn(4, tq, generator=gen, device=cuda_device)
+    q, g = (torch.randn(bh, tq, d, generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, generator=gen, device=cuda_device) for _ in range(2))
+    g_lse = torch.randn(bh, tq, generator=gen, device=cuda_device)
     kw = dict(scale=d ** -0.5, causal=causal)
     before, before_bf16 = dict(fa.launches_f32), dict(fa.launches)
     o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
@@ -279,6 +291,21 @@ def test_f32_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_sta
         _close_f32(got, want)
     assert {n: fa.launches_f32[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1}
     assert fa.launches == before_bf16
+
+
+def test_f32_fwd_and_dkv_run_on_tf32_tensor_cores(cuda_device):
+    """The f32 forward and dK/dV (3xTF32) hold TF32 tensor-core products in
+    their SASS at both head dims (mma.sync: HMMA.1688.F32.TF32, or wgmma:
+    HGMMA ... TF32); the f32 dQ, still f32 FFMA, holds none."""
+    funcs = _build.sass("flash_attention_f32")
+    if funcs is None:
+        pytest.skip("cuobjdump not found")
+    tf32 = re.compile(r"\bHMMA\.\w+\.F32\.TF32\b|\bHGMMA\.\S*TF32")
+    for kernel in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel"):
+        bodies = [body for name, body in funcs.items() if kernel in name]
+        assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
+        for body in bodies:
+            assert bool(tf32.search(body)) == (kernel != "dq_f32_kernel"), kernel
 
 
 def test_f32_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):

@@ -179,6 +179,25 @@ def test_every_flash_variant_rewrites_the_source(name):
             assert src == f.read()
 
 
+@pytest.mark.parametrize("name", sorted(flash_variants.F32_VARIANTS))
+def test_every_f32_flash_variant_rewrites_the_source(name):
+    """Each f32 variant's patterns are found in csrc/flash_attention_f32.cu
+    and change it; the chosen build is the file as it stands."""
+    with open(os.path.join(REPO, "bluefog_tpu_torch", "csrc", "flash_attention_f32.cu")) as f:
+        chosen = f.read()
+    src = flash_variants.variant_source(flash_variants.F32_VARIANTS[name], "flash_attention_f32")
+    assert (src == chosen) == (name == "chosen")
+
+
+def test_tf32_mma_rate_refuses_to_run_without_a_card(monkeypatch, capsys):
+    from bluefog_tpu_torch.benchmarks import tf32_mma_rate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tf32_mma_rate.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
 def test_flash_variants_refuse_to_run_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert flash_variants.main([]) == 1
