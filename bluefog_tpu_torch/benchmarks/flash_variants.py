@@ -3,8 +3,9 @@
 The flash kernels fix at compile time how many rows a block owns and how
 deep their TMA rings are: ``csrc/flash_attention.cu`` (bf16: consumer
 warpgroups of 64 rows) and ``csrc/flash_attention_f32.cu`` (f32: the
-3xTF32 forward and dK/dV: warps of 16 rows, dK/dV's query rows a ring
-stage; and ablations, each pricing one part of the kernel).  This script
+3xTF32 forward, dK/dV and dQ: warps of 16 rows, dK/dV's query rows and
+dQ's keys a ring stage, ring depths; and ablations, each pricing one part
+of a kernel).  This script
 builds copies of one of the two sources with other values (one nvcc each,
 side by side, into ``bluefog_tpu_torch/_build/``),
 binds each like the package's own library, and times the forward, dK/dV
@@ -43,6 +44,33 @@ from bluefog_tpu_torch.profiling import graph_seconds
 
 fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 
+# mma_kmajor's B fragments, four n-tiles at a time (the source) or one
+KMAJOR_B4 = """      for (int j0 = 0; j0 < N / 8; j0 += 4) {
+        BFrag b0[4], b1[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 v = lds4(b, b_rows, 8 * (j0 + jj) + g, ch);
+          b0[jj] = {{split(v.x), split(v.y)}};
+          b1[jj] = {{split(v.z), split(v.w)}};
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a0, b0[jj], term);
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a1, b1[jj], term);
+      }"""
+KMAJOR_B1 = """      for (int j = 0; j < N / 8; ++j) {
+        const float4 v = lds4(b, b_rows, 8 * j + g, ch);
+        const BFrag b0 = {{split(v.x), split(v.y)}}, b1 = {{split(v.z), split(v.w)}};
+#pragma unroll
+        for (int term = 0; term < 3; ++term) mma_term(part, j, a0, b0, term);
+#pragma unroll
+        for (int term = 0; term < 3; ++term) mma_term(part, j, a1, b1, term);
+      }"""
+
 # name -> {source pattern: replacement}; "chosen" is the source as it stands
 VARIANTS: Dict[str, Dict[str, str]] = {
     "chosen": {},
@@ -63,6 +91,7 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
     "fwd128_warps_4": {r"kFwdWarps128 = \d+": "kFwdWarps128 = 4"},
     "dkv64_warps_8": {r"kDkvWarps64 = \d+": "kDkvWarps64 = 8"},
     "dkv128_warps_4": {r"kDkvWarps128 = \d+": "kDkvWarps128 = 4"},
+    "dq64_warps_4": {r"kDqWarps64 = \d+": "kDqWarps64 = 4"},
     # three warps a SM sub-partition (168 registers a thread)
     "fwd64_warps_12": {r"kFwdWarps64 = \d+": "kFwdWarps64 = 12"},
     "fwd128_warps_12": {r"kFwdWarps128 = \d+": "kFwdWarps128 = 12"},
@@ -71,6 +100,16 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
     "dkv_qrows_64": {r"kDkvQRows = \d+": "kDkvQRows = 64"},
     "fwd_stages_3": {r"kFwdStages = \d+;": "kFwdStages = 3;"},
     "dkv_stages_3": {r"kDkvStages = \d+;": "kDkvStages = 3;"},
+    "dq64_keys_32": {r"kDqKeys64 = \d+": "kDqKeys64 = 32"},
+    "dq_stages_3": {r"kDqStages = \d+;": "kDqStages = 3;"},
+    # dQ at D = 128: Q and dO of eight warps take 128 KB, so eight warps
+    # with a 2-stage ring of 64-key K/V tiles (256 KB) do not fit; the
+    # layouts that do, all 192 KB: four warps (64 rows) with 64-key stages,
+    # eight warps with 32-key stages, eight warps with one 64-key stage
+    "dq128_warps_4_keys_64": {r"kDqWarps128 = \d+": "kDqWarps128 = 4",
+                              r"kDqKeys128 = \d+": "kDqKeys128 = 64"},
+    "dq128_keys_64_stages_1": {r"kDqKeys128 = \d+": "kDqKeys128 = 64",
+                               r"kDqStages = \d+;": "kDqStages = 1;"},
     # ablations: each computes another function (max_abs_diff_vs_chosen
     # says how far); its time prices the part it leaves out
     "ablate_split": {re.escape('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));'):
@@ -81,6 +120,18 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
                                 "for (int term = 2; term < 3; ++term)"},
     "ablate_fwd_softmax": {r"online_softmax\(sc,[^;]*;": "alpha[0] = alpha[1] = 1.f;"},
     "ablate_fwd_pv": {r"mma_mnmajor<D, kTile>\(acc[^;]*;": ""},
+    "ablate_dq_dp": {r"mma_kmajor<D, N>\(dp,[^;]*;": ""},
+    # K-major products, tried against dQ's spills at D = 128: each B
+    # fragment formed one n-tile at a time (fewer live registers), and the
+    # two small products summed in a partial of their own (a shorter chain
+    # of truncating tensor-core sums at the partial's full size)
+    "kmajor_one_ntile": {re.escape(KMAJOR_B4): KMAJOR_B1},
+    "kmajor_small_partial": {
+        re.escape("float part[N / 2];\n    zero(part);"):
+            "float part[N / 2], fine[N / 2];\n    zero(part);\n    zero(fine);",
+        r"mma_term\(part, j0 \+ jj, (a[01]), (b[01])\[jj\], term\)":
+            r"mma_term(term < 2 ? fine : part, j0 + jj, \1, \2[jj], term)",
+        re.escape("acc[c] += part[c];"): "acc[c] += part[c] + fine[c];"},
 }
 ROUNDS = 3
 TIMED_SHAPES = ("path", "134m")
@@ -97,8 +148,28 @@ def variant_source(subs: Dict[str, str], source: str = "flash_attention") -> str
     return src
 
 
-def build_variant(name: str, src_text: str, prefix: str = "bf_flash") -> ctypes.CDLL:
-    """Compile one variant's source beside the package's build and bind it."""
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel: {"registers": n, "spill_stores": bytes}} from nvcc's
+    ``-Xptxas -v`` report, a kernel named with its head dim where it has
+    one ("dq_f32_kernel<128>")."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((?:fwd|dkv|dq)(?:_f32)?_kernel)(?:ILi(\d+)E)?",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[name]["spill_stores"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def build_variant(name: str, src_text: str, prefix: str = "bf_flash"):
+    """Compile one variant's source beside the package's build and bind it:
+    (library, ptxas_summary of its build)."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     src = os.path.join(_build.BUILD_DIR, f"flash_variant_{prefix}_{name}.cu")
     out = os.path.join(_build.BUILD_DIR, f"libflash_variant_{prefix}_{name}.so")
@@ -108,7 +179,7 @@ def build_variant(name: str, src_text: str, prefix: str = "bf_flash") -> ctypes.
                            "-o", out, src], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
-    return fa.bind(ctypes.CDLL(out), prefix=prefix)
+    return fa.bind(ctypes.CDLL(out), prefix=prefix), ptxas_summary(proc.stderr)
 
 
 def f32_inputs(bh: int, t: int, d: int, seed: int = 1):
@@ -156,7 +227,8 @@ def main(argv: Optional[list] = None) -> int:
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants)) as pool:
         built = dict(zip(variants, pool.map(try_build, variants)))
-    libs = {v: lib for v, lib in built.items() if not isinstance(lib, str)}
+    libs = {v: b[0] for v, b in built.items() if not isinstance(b, str)}
+    ptxas = {v: b[1] for v, b in built.items() if not isinstance(b, str)}
     if "chosen" not in libs:
         raise RuntimeError(f"the source as it stands does not build: {built['chosen']}")
     if args.f32:
@@ -200,6 +272,7 @@ def main(argv: Optional[list] = None) -> int:
         "source": f"bluefog_tpu_torch/csrc/{source}.cu", "shapes": shapes,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi(),
         "variants": {v: ({"subs": subs_of[v], **best[v], "occupancy": occ.get(v),
+                          "ptxas": ptxas[v],
                           "max_abs_diff_vs_chosen": diff.get(v), "errors": errors[v]}
                          if v in libs else {"subs": subs_of[v], "build_error": built[v]})
                      for v in variants}}), flush=True)

@@ -17,7 +17,7 @@
 // to a narrower type before they multiply (the reference casts them to
 // v.dtype, f32 here), and every product is f32-accurate.
 //
-// The forward and dK/dV: f32-accurate products on the tensor cores (3xTF32).
+// All three: f32-accurate products on the tensor cores (3xTF32).
 // Every operand x is split once, when its fragment is formed, into
 // big = tf32(x) (cvt.rna: nearest, ties away, at TF32's 10 mantissa bits)
 // and small = x - big (exact in f32), and a.b runs as three TF32 products
@@ -26,67 +26,71 @@
 // cores read small's top 10 mantissa bits only, which moves a product by
 // under 2^-21 |a||b|: against the f32 tolerance the kernels are held to,
 // 2^-14 (|ref| + rms(ref)) per element, that is over a hundred times
-// smaller.  p and dS are split like any operand.  What bounds these two on
+// smaller.  p and dS are split like any operand.  What bounds the three on
 // the H100 is the tensor-core pipe at three TF32 products per product,
 // 495 / 3 = 165 TFLOP/s, 2.5x the 67 TFLOP/s of FFMA.  The instruction is
 // mma.sync.m16n8k8 (tf32 in, f32 out; HMMA.1688.F32.TF32 in the SASS),
 // whose own rate on this card is 64% of that (PERF.md), one warp a 16-row
 // slab:
 //   * wgmma takes tf32 operands only K-major from shared memory, and P.V,
-//     P^T.dO and dS^T.Q read V, dO and Q along their rows (MN-major), which
-//     would need split, transposed copies of every staged tile: at D = 128
-//     dK/dV's stage alone would pass the 227 KB a block may hold.
+//     P^T.dO, dS^T.Q and dS.K read V, dO, Q and K along their rows
+//     (MN-major), which would need split, transposed copies of every staged
+//     tile: at D = 128 dK/dV's stage alone would pass the 227 KB a block
+//     may hold.
 //     mma.sync reads its fragments from shared memory in any layout, as
 //     PyTorch's own f32 attention (CUTLASS, OpMultiplyAddFastF32) does.
-//   * Staging: the K/V tiles (forward) or Q/dO tiles with their lse and
+//   * Staging: the K/V tiles (forward, dQ) or Q/dO tiles with their lse and
 //     corr rows (dK/dV) stream by TMA through 3-D tensor maps (rows past T
-//     read as zeros) into a ring, kFwdStages or kDkvStages deep, each stage
-//     with a full and an empty mbarrier; the block's own Q, or K and V,
-//     arrive once.  Warp 0 issues the loads inline, kStages - 1 tiles ahead
-//     of the tile it works on: its wait on the empty barrier holds warp 0
-//     alone, and no block-wide barrier sits in the tile loop.  (A producer
+//     read as zeros) into a ring, kFwdStages, kDqStages or kDkvStages deep,
+//     each stage with a full and an empty mbarrier; the block's own Q (and
+//     dO for dQ), or K and V, arrive once.  Warp 0 issues the loads inline,
+//     kStages - 1 tiles ahead of the tile it works on: its wait on the empty
+//     barrier holds warp 0 alone, and no block-wide barrier sits in the
+//     tile loop.  (A producer
 //     warp of its own would make five warps a block: three on one SM
 //     sub-partition caps a thread at 168 registers, and the products
 //     spill.)  Tiles land as boxes of 32 floats (128 bytes) a row with the
 //     128-byte swizzle, so 16-byte chunk c of row r sits at r * 128 +
 //     ((c ^ (r % 8)) * 16).
 //   * Fragments: the contraction index of a product may be permuted, as
-//     long as both operands agree.  K-major products (S = Q.K^T, S^T = K.Q^T,
-//     dP^T = V.dO^T) give thread (g, t) of a warp (g = lane / 4, t = lane %
-//     4) columns 8t + 4p + {0..3} of each 32-column box, p = 0, 1: one
+//     long as both operands agree.  K-major products (S = Q.K^T, dP =
+//     dO.V^T, S^T = K.Q^T, dP^T = V.dO^T) give thread (g, t) of a warp
+//     (g = lane / 4, t = lane % 4) columns 8t + 4p + {0..3} of each
+//     32-column box, p = 0, 1: one
 //     float4 a row feeds two k-steps, and the chunks 2t + p of rows g and
 //     g + 1 miss each other's banks under the swizzle.  MN-major products
-//     (O += P.V, dV += P^T.dO, dK += dS^T.Q) take P or dS from the score
-//     accumulator's registers (k = t, t + 4 of a k-step are its columns 2t,
-//     2t + 1) and permute the output columns: column n of n-tile i is
-//     d = 32 (i / 4) + 4n + i % 4, so one float4 of a V row serves four
+//     (O += P.V, dV += P^T.dO, dK += dS^T.Q, dQ += dS.K) take P or dS from
+//     the score accumulator's registers (k = t, t + 4 of a k-step are its
+//     columns 2t, 2t + 1) and permute the output columns: column n of
+//     n-tile i is d = 32 (i / 4) + 4n + i % 4, so one float4 of a V row serves four
 //     n-tiles and a thread's outputs are eight adjacent columns a row.
 //   * Softmax: exp2 with log2 e folded into the scale (ex2.approx, about
 //     2^-22 relative); masks only on the tiles that cross the diagonal or
 //     the end; the forward's lse goes back to the natural log when it is
-//     written, dK/dV takes lse in log2 units once.
+//     written, dK/dV and dQ take lse in log2 units once.
 //   * A longest-first causal schedule: the tile index is the slowest grid
 //     axis, walked from the last query tile (forward) or the first key tile
-//     (dK/dV), as in flash_attention.cu.
+//     (dK/dV), as in flash_attention.cu; dQ walks as the forward.
 //   * Accumulation: the tensor cores round their f32 sums toward zero, one
 //     f32 step a product at most, always the same way, so a chain of
 //     products into one accumulator over all T rows drifts: dK/dV read
 //     0.83 of the f32 tolerance at [24, 2048, 64] that way (PERF.md).
 //     So every product sums into a zeroed partial sum of at most 24 TF32
-//     products (a 32-column box of D, a 32-query tile of dK/dV or a 64-key
-//     tile of the forward), which one round-to-nearest add folds into the
-//     accumulator.
+//     products (a 32-column box of D, a 32-query tile of dK/dV or a key
+//     tile of the forward or dQ), which one round-to-nearest add folds
+//     into the accumulator.
 //   A warp whose 16 rows see nothing of a staged tile (past the diagonal or
 //   past the end) skips its products but still releases the stage.
 //
-// dQ is the first, plain design still: every product a true f32 FFMA (the
-// FP32 pipe, 67 TFLOP/s), one 64-row query tile a block of 256 threads,
-// each tile staged once through shared memory (row stride D + 4), scores in
-// registers.  Thread (ty, tx) owns rows ty + 16i and columns tx + 16j of
-// every 64 x 64 score tile, i, j < 4: one float4 of each operand feeds 64
-// FFMAs.  dS passes through shared memory to dS.K.  Key tiles wholly past
-// the causal diagonal are skipped; query tiles are walked longest chain
-// first.  No ring, no overlap of loads with products.
+// dQ is the forward's block with a second K-major product: S = Q.K^T and
+// dP = dO.V^T from the block's Q and dO tiles and a K/V stage, p =
+// 2^(s scale log2 e - lse log2 e) against the forward's lse (no running
+// max), dS = p (dP + corr) in the score registers, dQ += dS.K MN-major
+// from the K stage, scaled once when stored.  Its accumulator (D / 2
+// floats) and two score arrays (S and dP) take more registers than the
+// forward's, and Q + dO take twice the forward's Q: at D = 128 eight
+// warps with 64-key stages would need 256 KB, so the D = 128 block streams
+// kDqKeys128 keys a stage (PERF.md has the layouts measured).
 //
 // Every launcher runs on the caller's stream, allocates nothing and returns
 // 0, cudaGetLastError(), the error of the attribute call before it, or a
@@ -96,21 +100,21 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // dQ: 16 x 16: (ty, tx) = (tid / 16, tid % 16)
-constexpr int kPad = 4;        // floats added to every shared-memory row (dQ)
-constexpr int kPS = kTile + kPad;  // row stride of the dS tile (dQ)
 constexpr float kNegInf = -1e30f;  // finite mask sentinel
 constexpr float kMaskThresh = -0.5e30f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// Block shapes and ring depths of the forward and dK/dV, the fastest
-// measured (benchmarks/flash_variants.py --f32; PERF.md).  A warp owns 16
-// rows: query rows in the forward, keys in dK/dV.
+// Block shapes and ring depths, the fastest measured
+// (benchmarks/flash_variants.py --f32; PERF.md).  A warp owns 16 rows:
+// query rows in the forward and dQ, keys in dK/dV.
 constexpr int kFwdWarps64 = 4, kFwdWarps128 = 8;
 constexpr int kFwdStages = 2;  // K/V ring
 constexpr int kDkvWarps64 = 4, kDkvWarps128 = 8;
 constexpr int kDkvQRows = 32;  // query rows of a stage
 constexpr int kDkvStages = 2;  // Q/dO ring
+constexpr int kDqWarps64 = 8, kDqWarps128 = 8;
+constexpr int kDqKeys64 = 64, kDqKeys128 = 32;  // keys of a K/V stage
+constexpr int kDqStages = 2;                    // K/V ring
 
 // ---- 3xTF32 products on mma.sync ---------------------------------------------
 
@@ -162,8 +166,8 @@ __device__ __forceinline__ float lane4(const float4& v, int i) {
 }
 
 // K-major: acc[4j + c] += sum over the D columns of rows ra + g and
-// ra + g + 8 of tile a times row 8j + g of tile b, j < N / 8: S = Q.K^T
-// (N keys), S^T = K.Q^T and dP^T = V.dO^T (N queries).  Each 32-column box
+// ra + g + 8 of tile a times row 8j + g of tile b, j < N / 8: S = Q.K^T and
+// dP = dO.V^T (N keys), S^T = K.Q^T and dP^T = V.dO^T (N queries).  Each 32-column box
 // sums into a zeroed partial sum (12 products), folded into acc by a
 // round-to-nearest add (see mma_mnmajor).
 template <int D, int N>
@@ -208,7 +212,8 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[N / 2], const unsigned c
 // MN-major: acc[4i + c] += sum over rows k < N of p (registers, the
 // K-major form's accumulator over those N rows) times row k of tile m,
 // i < D / 8, output columns permuted (column n of n-tile i holds
-// d = 32 (i / 4) + 4n + i % 4).  O += P.V, dV += P^T.dO, dK += dS^T.Q.
+// d = 32 (i / 4) + 4n + i % 4).  O += P.V, dV += P^T.dO, dK += dS^T.Q,
+// dQ += dS.K.
 // The tensor cores round their f32 sums toward zero, so a chain of
 // products into one accumulator drifts by about one f32 step per product,
 // always the same way; over the thousands of rows dK/dV contract that
@@ -278,6 +283,16 @@ __device__ __forceinline__ void tma_rows_f32(unsigned char* dst, const CUtensorM
 #pragma unroll
   for (int box = 0; box < D / 32; ++box)
     tma_load(dst + box * rows * 128, map, box * 32, r, h, bar);
+}
+
+// Key tiles of n keys that query rows up to rows_end (local, capped at tq)
+// see: all of them, or under the causal mask those up to the last row.
+__device__ __forceinline__ int key_tiles(int rows_end, int tq, int tk, int q_start,
+                                         int k_start, int n, int causal) {
+  const int all = (tk + n - 1) / n;
+  if (!causal) return all;
+  const int q_last = q_start + min(rows_end, tq) - 1;
+  return min(all, q_last >= k_start ? (q_last - k_start) / n + 1 : 0);
 }
 
 // Blocks a SM the launch bounds ask for: two where two blocks' shared
@@ -365,9 +380,7 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;  // longest first
-  const int q_last = q_start + min(q0 + L::kRows, tq) - 1;
-  int n_kv = (tk + kTile - 1) / kTile;
-  if (causal) n_kv = min(n_kv, q_last >= k_start ? (q_last - k_start) / kTile + 1 : 0);
+  const int n_kv = key_tiles(q0 + L::kRows, tq, tk, q_start, k_start, kTile, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -400,13 +413,11 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = 16 * warp;  // this warp's rows of the block's Q tile
   const int q0w = q0 + r0;
   const bool rows_in = q0w < tq;
-  const int q_last_w = q_start + min(q0w + 16, tq) - 1;
   const int qpos0 = q_start + q0w + g;  // row g; row g + 8 is + 8
   const float scale_log2 = scale * kLog2e;
   // the key tiles these 16 rows see are a prefix of the block's
-  int n_own = rows_in ? n_kv : 0;
-  if (causal && rows_in)
-    n_own = min(n_kv, q_last_w >= k_start ? (q_last_w - k_start) / kTile + 1 : 0);
+  const int n_own =
+      rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, kTile, causal) : 0;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 2];
@@ -608,171 +619,131 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// dQ (plain FFMA design): one block a (head, 64-row query tile); loop over
-// key tiles to the diagonal.
+// dQ: one block per (bh, query tile of 16 x kWarps rows), the last tiles
+// first; warp 0 streams K/V tiles of kKeys keys up to the diagonal.
 // ---------------------------------------------------------------------------
 
-// Copy rows [row0, row0 + 64) of a [T, D] matrix into shared memory (row
-// stride D + kPad), zero-filling rows at or past `rows`.  float4 chunks.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int rows) {
-  constexpr int kChunks = D / 4, S = D + kPad;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c * 4);
-    *reinterpret_cast<float4*>(dst + r * S + c * 4) = val;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16i][d] * b[tx + 16j][d] over two row-major tiles.
-template <int D>
-__device__ __forceinline__ void rows_dot_rows(float (&s)[4][4], const float* a,
-                                              const float* b, int ty, int tx) {
-  constexpr int S = D + kPad;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * S + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * S + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        s[i][j] = x;
-      }
-  }
-}
-
-// acc[i][j] += sum_c p[ty + 16i][c] * m[c][tx + 16j], c < 64, j < D / 16:
-// p a 64 x 64 tile (stride kPS), m a 64 x D tile (stride D + kPad).
-template <int D>
-__device__ __forceinline__ void rows_times(float (&acc)[4][D / 16], const float* p,
-                                           const float* m, int ty, int tx) {
-  constexpr int S = D + kPad;
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kPS + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float mv[D / 16];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) mv[j] = m[(c + cc) * S + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pc = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(pc, mv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Store this thread's rows ty + 16i, columns tx + 16j of a [T, D] output,
-// each row times mul[i]; rows at or past `rows` are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][D / 16],
-                                           int row0, int rows, const float (&mul)[4],
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) out[(size_t)row * D + tx + 16 * j] = acc[i][j] * mul[i];
-  }
-}
+struct DqF32 {
+  static constexpr int kWarps = D == 64 ? kDqWarps64 : kDqWarps128;
+  static constexpr int kKeys = D == 64 ? kDqKeys64 : kDqKeys128;
+  static constexpr int kStages = kDqStages;
+  static constexpr int kRows = 16 * kWarps;  // query rows a block
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kQ = kRows * D * 4;   // the block's Q or dO tile, bytes
+  static constexpr int kKV = kKeys * D * 4;  // one K or V tile of a stage
+  static constexpr size_t kBytes =
+      1024 + 2 * kQ + kStages * 2 * kKV + (1 + 2 * kStages) * 8;
+  static constexpr int kMinBlocks = min_blocks(kBytes, kThreads);
+};
 
 template <int D>
-__device__ __forceinline__ void zero(float (&acc)[4][D / 16]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ corr,
-              float* __restrict__ dq, int tq, int tk, int q_start, int k_start,
-              float scale, int causal) {
-  constexpr int S = D + kPad;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* gs = qs + kTile * S;
-  float* ks = gs + kTile * S;
-  float* vs = ks + kTile * S;
-  float* dss = vs + kTile * S;
+__global__ void __launch_bounds__(DqF32<D>::kThreads, DqF32<D>::kMinBlocks)
+dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+              const float* __restrict__ corr, float* __restrict__ dq, int tq, int tk,
+              int q_start, int k_start, float scale, int causal) {
+  using L = DqF32<D>;
+  constexpr int N = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1024(smem_raw);
+  unsigned char* sg = sq + L::kQ;   // dO
+  unsigned char* skv = sg + L::kQ;  // stage s: K at s * 2 kKV, V kKV after it
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(skv + L::kStages * 2 * L::kKV);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + L::kStages;
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // last tile first
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  q += (size_t)bh * tq * D;
-  dout += (size_t)bh * tq * D;
-  dq += (size_t)bh * tq * D;
-  lse += (size_t)bh * tq;
-  corr += (size_t)bh * tq;
-  k += (size_t)bh * tk * D;
-  v += (size_t)bh * tk * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;  // longest first
+  const int n_kv = key_tiles(q0 + L::kRows, tq, tk, q_start, k_start, N, causal);
 
-  load_tile<D>(qs, q, q0, tq);
-  load_tile<D>(gs, dout, q0, tq);
-  const int q_last = q_start + min(q0 + kTile, tq) - 1;
-  float lse_r[4], corr_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < tq ? lse[row] : 0.f;
-    corr_r[i] = row < tq ? corr[row] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kWarps);  // one arrival a warp
+    }
+    mbar_init_fence();
   }
-  float dq_acc[4][D / 16];
-  zero<D>(dq_acc);
+  __syncthreads();
 
-  for (int k0 = 0; k0 < tk; k0 += kTile) {
-    if (causal && k_start + k0 > q_last) break;
-    __syncthreads();
-    load_tile<D>(ks, k, k0, tk);
-    load_tile<D>(vs, v, k0, tk);
-    __syncthreads();
+  // Thread 0 stages key tile `it` into its ring slot once every warp has
+  // released the tile the slot held.
+  auto stage = [&](int it) {
+    const int s = it % L::kStages;
+    mbar_wait(&empty[s], ((it / L::kStages) & 1) ^ 1);
+    mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
+    unsigned char* sk = skv + s * 2 * L::kKV;
+    tma_rows_f32<D>(sk, &tm_k, N, it * N, bh, &full[s]);
+    tma_rows_f32<D>(sk + L::kKV, &tm_v, N, it * N, bh, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(qg_full, 2 * L::kQ);
+    tma_rows_f32<D>(sq, &tm_q, L::kRows, q0, bh, qg_full);
+    tma_rows_f32<D>(sg, &tm_do, L::kRows, q0, bh, qg_full);
+    for (int it = 0; it < min(L::kStages - 1, n_kv); ++it) stage(it);
+  }
 
-    float s[4][4], dp[4][4];
-    rows_dot_rows<D>(s, qs, ks, ty, tx);
-    rows_dot_rows<D>(dp, gs, vs, ty, tx);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's rows of the block's Q and dO tiles
+  const int q0w = q0 + r0;
+  const bool rows_in = q0w < tq;
+  const int qpos0 = q_start + q0w + g;  // row g; row g + 8 is + 8
+  const float scale_log2 = scale * kLog2e;
+  // the key tiles these 16 rows see are a prefix of the block's
+  const int n_own = rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, N, causal) : 0;
+  // rows g and g + 8: lse in log2 units, corr (rows past tq give dS = 0:
+  // their Q and dO rows read as zeros)
+  float lse2[2], crr[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0w + g + 8 * r;
+    lse2[r] = row < tq ? lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+    crr[r] = row < tq ? corr[(size_t)bh * tq + row] : 0.f;
+  }
+
+  float acc[D / 2];
+  zero(acc);
+  mbar_wait(qg_full, 0);
+  for (int it = 0; it < n_kv; ++it) {
+    // the ring runs kStages - 1 tiles ahead of the slowest warp
+    if (threadIdx.x == 0 && it + L::kStages - 1 < n_kv) stage(it + L::kStages - 1);
+    const int s = it % L::kStages;
+    mbar_wait(&full[s], (it / L::kStages) & 1);
+    if (it < n_own) {
+      const unsigned char* sk = skv + s * 2 * L::kKV;
+      const int k0 = it * N;
+      float sc[N / 2], dp[N / 2];
+      zero(sc);
+      zero(dp);
+      mma_kmajor<D, N>(sc, sq, L::kRows, r0, sk, N, g, t);           // S = Q.K^T
+      mma_kmajor<D, N>(dp, sg, L::kRows, r0, sk + L::kKV, N, g, t);  // dP = dO.V^T
+      const bool need_mask =
+          (causal && k_start + k0 + N - 1 > q_start + q0w) || k0 + N > tk;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
-        const bool ok = row < tq && col < tk &&
-                        (!causal || k_start + col <= q_start + row);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dss[(ty + 16 * i) * kPS + tx + 16 * j] = p * (dp[i][j] + corr_r[i]);  // unscaled
+      for (int i = 0; i < N / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (need_mask) {
+          // a masked p may be inf (a row with no visible key has lse -1e30):
+          // select, never multiply
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool ok = col < tk && (!causal || k_start + col <= qpos0 + 8 * r);
+          p = ok ? p : 0.f;
+        }
+        sc[i] = p * (dp[i] + crr[r]);  // dS, unscaled
       }
-    __syncthreads();
-    rows_times<D>(dq_acc, dss, ks, ty, tx);  // dQ += dS . K
+      mma_mnmajor<D, N>(acc, sc, sk, N, g, t);  // dQ += dS.K
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  const float by_scale[4] = {scale, scale, scale, scale};
-  store_rows<D>(dq, dq_acc, q0, tq, by_scale, ty, tx);
+
+  if (!rows_in) return;
+  store_perm<D>(dq + (size_t)bh * tq * D, acc, q0w + g, tq, scale, scale, t);
 }
 
 // ---- host -------------------------------------------------------------------
@@ -800,9 +771,6 @@ inline int encode_rows_map_f32(CUtensorMap* map, const void* ptr, int bh, int t,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
-
-constexpr size_t tile_bytes(int d) { return (size_t)kTile * (d + kPad) * sizeof(float); }
-constexpr size_t p_bytes() { return (size_t)kTile * kPS * sizeof(float); }
 
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
@@ -845,14 +813,18 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* corr, void* dq, int bh, int tq, int tk,
               int q_start, int k_start, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = 4 * tile_bytes(D) + p_bytes();
-  int err = prepare(dq_f32_kernel<D>, smem);
+  using L = DqF32<D>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map_f32(&tm_q, q, bh, tq, D, L::kRows);
+  if (!err) err = encode_rows_map_f32(&tm_do, dout, bh, tq, D, L::kRows);
+  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, D, L::kKeys);
+  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, D, L::kKeys);
+  if (!err) err = prepare(dq_f32_kernel<D>, L::kBytes);
   if (err) return err;
-  dim3 grid(bh, (tq + kTile - 1) / kTile);
-  dq_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)corr, (float*)dq, tq, tk, q_start, k_start, scale,
-      causal);
+  dim3 grid(bh, (tq + L::kRows - 1) / L::kRows);
+  dq_f32_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (float*)dq, tq, tk,
+      q_start, k_start, scale, causal);
   return (int)cudaGetLastError();
 }
 

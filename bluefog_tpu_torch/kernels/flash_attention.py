@@ -16,14 +16,14 @@ wrapper        replaces                                 plain version
 The bf16 kernels are built for Hopper (``wgmma`` products, TMA-fed tile
 rings, 128-row blocks of two consumer warpgroups, launched longest chain
 first); :func:`launch_order` says which 64 x 64 tiles each block of a
-launch computes, in the order the card is handed the blocks.  The f32
-forward and dK/dV run f32-accurate products on the tensor cores: every
-operand is split into a TF32 part and the rest (:func:`split_tf32` is the
-split in plain torch, for the tests), and a.b is three TF32 products
-(small.big + big.small + big.big, the dropped small.small below 2^-22
-|a||b|), on ``mma.sync`` with TMA-fed tile rings; the f32 dQ multiplies in
-true f32 FFMA on one 64-row tile a block.  No f32 kernel rounds p or dS to
-a narrower type, as the reference does not for f32 inputs.
+launch computes, in the order the card is handed the blocks.  The three
+f32 kernels run f32-accurate products on the tensor cores: every operand
+is split into a TF32 part and the rest (:func:`split_tf32` is the split in
+plain torch, for the tests), and a.b is three TF32 products (small.big +
+big.small + big.big, the dropped small.small below 2^-22 |a||b|), on
+``mma.sync`` with TMA-fed tile rings, one warp a 16-row slab.  No f32
+kernel rounds p or dS to a narrower type, as the reference does not for
+f32 inputs.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
 f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16 or
@@ -109,10 +109,10 @@ def _mask(s, q_start, k_start, j0, causal):
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(big, small)`` of f32 ``x`` as the f32 forward and dK/dV kernels
-    split an operand: ``big`` is ``x`` rounded to nearest, ties away from
-    zero, at TF32's 10 mantissa bits (``cvt.rna.tf32.f32``), ``small = x -
-    big``, exact in f32.  Used by the tests, which emulate the kernels'
+    """``(big, small)`` of f32 ``x`` as the f32 kernels split an operand:
+    ``big`` is ``x`` rounded to nearest, ties away from zero, at TF32's 10
+    mantissa bits (``cvt.rna.tf32.f32``), ``small = x - big``, exact in
+    f32.  Used by the tests, which emulate the kernels'
     products with it; the kernels split on the card."""
     bits = x.float().contiguous().view(torch.int32)
     # adding half a TF32 step to the sign-magnitude pattern rounds the
@@ -179,13 +179,15 @@ def flash_dkv_plain(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0,
 
 
 def flash_dq_plain(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0,
-                   *, scale: float, causal: bool) -> torch.Tensor:
-    """``dQ`` by per-key-block recompute from lse."""
+                   *, scale: float, causal: bool,
+                   bmm: Callable = torch.bmm) -> torch.Tensor:
+    """``dQ`` by per-key-block recompute from lse; ``bmm`` as in
+    :func:`flash_fwd_plain`."""
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for j0 in range(0, k.shape[1], _BLOCK):
         _, ds = _recompute(q, k, v, g, lse, corr, q_start, k_start, j0,
-                           scale=scale, causal=causal)
-        acc += torch.bmm(ds.float(), k[:, j0:j0 + _BLOCK].float())
+                           scale=scale, causal=causal, bmm=bmm)
+        acc += bmm(ds.float(), k[:, j0:j0 + _BLOCK].float())
     return (acc * scale).to(q.dtype)
 
 

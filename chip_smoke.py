@@ -15,10 +15,10 @@ Phases, each printing one JSON line:
                head dims, and the chain microkernels MUFU.EX2 (with their
                body) and no HMMA; each chain's loop must issue per element
                on each pipe what its bound prices
-               (attention_roofline.CHAIN_PIPES); the f32 forward and dK/dV
-               (csrc/flash_attention_f32.cu, 3xTF32) must hold TF32
+               (attention_roofline.CHAIN_PIPES); the f32 forward, dK/dV
+               and dQ (csrc/flash_attention_f32.cu, 3xTF32) must hold TF32
                tensor-core products (HMMA.1688.F32.TF32 or HGMMA ... TF32)
-               at both head dims, the f32 dQ (FFMA) none.
+               at both head dims.
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
                PyTorch version on the same bf16 inputs, over nine cases
@@ -30,13 +30,13 @@ Phases, each printing one JSON line:
                wrappers' host time) beside the bound, the plain version and
                scaled_dot_product_attention.
 2b. kernels_f32 -- each f32 CUDA kernel (the flash fwd, dK/dV and dQ
-               instances of csrc/flash_attention_f32.cu: fwd and dK/dV on
-               the tensor cores by the 3xTF32 split, dQ in f32 FFMA)
+               instances of csrc/flash_attention_f32.cu, all three on the
+               tensor cores by the 3xTF32 split)
                against its plain version on the same f32 inputs: the f32
                path's shape [24, 2048, 64], D = 128, D = 16 zero-padded,
                causal with offsets, tq != tk; then
                times at [24, 2048, 64] and [24, 2048, 128] beside the
-               bound at three TF32 products a product (the old FFMA bound
+               bound at three TF32 products a product (the FFMA bound
                beside it as bound_ffma_ms), the plain version and f32
                scaled_dot_product_attention, forward and forward+backward.
 2c. f32     -- the f32 path: a small f32 LlamaLM with flash attention
@@ -111,8 +111,8 @@ TOLERANCE = ("|err| <= 2^-7|ref| + 2^-6 rms(ref) per element, ||err|| <= 1e-2 ||
 # The f32 kernels against their plain versions (no rounding to bf16):
 # |got - ref| <= 2^-14 (|ref| + rms(ref)) per element.  Three sources move
 # a value: the order of the sums (the kernels' against cuBLAS's), a few f32
-# steps (2^-23 each) times the sqrt of the terms summed; in the forward and
-# dK/dV, the 3xTF32 split, whose dropped small.small term and TF32 read of
+# steps (2^-23 each) times the sqrt of the terms summed; in all three
+# kernels, the 3xTF32 split, whose dropped small.small term and TF32 read of
 # small move each product by under 2^-21 |a||b| (the CPU test
 # tests/test_torch_flash_f32_split.py emulates the split against the JAX
 # kernel: it stays over 15x inside this rule, one TF32 product lands over
@@ -260,10 +260,8 @@ def phase_device(torch, _build, fa, ac, roof):
           "sass_f32_tf32_mma": tf32 or "cuobjdump not found", "chain_pipes": pipes})
     for kname in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel") if tf32 else ():
         n = tf32.get(kname, [])
-        want = "none" if kname == "dq_f32_kernel" else "TF32 tensor-core products"
-        check(len(n) == 2 and (all(x == 0 for x in n) if kname == "dq_f32_kernel"
-                               else all(x > 0 for x in n)),
-              f"device: {kname} must hold {want} at both head dims ({n})")
+        check(len(n) == 2 and all(x > 0 for x in n),
+              f"device: {kname} must hold TF32 tensor-core products at both head dims ({n})")
     for key, counts in roof.CHAIN_PIPES.items() if sass else ():
         name = ("softmax_chain_kernel<body>" if key[0] == "softmax_chain"
                 else f"bwd_chain_kernel<cast_p={int(key[1])}, body>")
@@ -481,9 +479,9 @@ def phase_kernels_f32(torch, fa):
     scaled_dot_product_attention (forward; forward+backward beside the sum
     of the three kernels).  The bound is the f32-accurate one on this card:
     three TF32 tensor-core products a product (3 x flops / 495 TFLOP/s), or
-    the bytes, whichever is longer; the FFMA bound (flops / 67 TFLOP/s) of
-    the first f32 design stands beside it as bound_ffma_ms, for all three
-    kernels.  Returns the kernel-table entries."""
+    the bytes, whichever is longer; the FFMA bound (flops / 67 TFLOP/s), the
+    least time of a design on the FP32 pipe, which none of the three runs,
+    stands beside it as bound_ffma_ms.  Returns the kernel-table entries."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)

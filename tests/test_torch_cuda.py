@@ -261,11 +261,12 @@ def test_f32_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_sta
     _check_f32_kernels(cuda_device, 4, d, tq, tk, q_start, k_start, causal)
 
 
-@pytest.mark.parametrize("bh,t,d", [(24, 2048, 64), (8, 1024, 128)])
+@pytest.mark.parametrize("bh,t,d", [(24, 2048, 64), (8, 1024, 128), (24, 2048, 128)])
 def test_f32_kernels_match_plain_versions_at_full_size(cuda_device, bh, t, d):
     """The f32 path's own shape (batch 2 x 12 heads, T = 2048, D = 64), and
-    D = 128 at T = 1024, where dK/dV's shared memory is fullest: many
-    blocks a SM in turn, every ring wrapping 16 times."""
+    D = 128 at T = 1024, where dK/dV's shared memory is fullest, and at
+    T = 2048, where a dQ row sums the most keys: many blocks a SM in turn,
+    every ring wrapping 8 to 32 times."""
     _check_f32_kernels(cuda_device, bh, d, t, t, 0, 0, True)
 
 
@@ -293,10 +294,10 @@ def _check_f32_kernels(cuda_device, bh, d, tq, tk, q_start, k_start, causal):
     assert fa.launches == before_bf16
 
 
-def test_f32_fwd_and_dkv_run_on_tf32_tensor_cores(cuda_device):
-    """The f32 forward and dK/dV (3xTF32) hold TF32 tensor-core products in
+def test_f32_fwd_dkv_and_dq_run_on_tf32_tensor_cores(cuda_device):
+    """The three f32 kernels (3xTF32) hold TF32 tensor-core products in
     their SASS at both head dims (mma.sync: HMMA.1688.F32.TF32, or wgmma:
-    HGMMA ... TF32); the f32 dQ, still f32 FFMA, holds none."""
+    HGMMA ... TF32)."""
     funcs = _build.sass("flash_attention_f32")
     if funcs is None:
         pytest.skip("cuobjdump not found")
@@ -305,7 +306,7 @@ def test_f32_fwd_and_dkv_run_on_tf32_tensor_cores(cuda_device):
         bodies = [body for name, body in funcs.items() if kernel in name]
         assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
         for body in bodies:
-            assert bool(tf32.search(body)) == (kernel != "dq_f32_kernel"), kernel
+            assert tf32.search(body), kernel
 
 
 def test_f32_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):

@@ -1,7 +1,7 @@
 """The numerical design of the f32 flash kernels, on the CPU.
 
-The f32 forward and dK/dV kernels (``csrc/flash_attention_f32.cu``) run
-every product on the tensor cores as three TF32 products (3xTF32): each
+The f32 forward, dK/dV and dQ kernels (``csrc/flash_attention_f32.cu``)
+run every product on the tensor cores as three TF32 products (3xTF32): each
 operand x is split into big = tf32(x), rounded to nearest with ties away
 from zero, and small = x - big, and a.b becomes small_a.big_b +
 big_a.small_b + big_a.big_b.  Here that arithmetic is emulated in torch
@@ -14,6 +14,7 @@ card (``chip_smoke.py``): 2^-14 (|ref| + rms(ref)) per element, lse within
 apart: one TF32 product (big.big alone) fails it.
 """
 
+import functools
 import importlib
 
 import jax
@@ -68,14 +69,24 @@ def _inputs(seed, tq, tk, d):
 
 
 def _jax_ref(q, k, v, g, g_lse, q_start, k_start, causal):
-    """(o, lse, dk, dv) of the JAX kernel in f32 with the lse cotangent."""
+    """{o, lse, dq, dk, dv} of the JAX kernel in f32 with the lse cotangent."""
     def f(q_, k_, v_):
         return jax_flash(q_, k_, v_, q_start=q_start, k_start=k_start, causal=causal,
                          block_q=32, block_k=32, interpret=True, impl="pallas")
 
     (o, lse), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    _, dk, dv = vjp((jnp.asarray(g), jnp.asarray(g_lse)))
-    return [np.asarray(x) for x in (o, lse, dk, dv)]
+    dq, dk, dv = vjp((jnp.asarray(g), jnp.asarray(g_lse)))
+    return {n: np.asarray(x) for n, x in zip(("o", "lse", "dq", "dk", "dv"),
+                                             (o, lse, dq, dk, dv))}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    """(inputs, the JAX reference) of one case: the Pallas interpret VJP
+    runs once a case, whichever test asks first."""
+    tq, tk, d, q_start, k_start, causal = CASES[case]
+    args = _inputs(sorted(CASES).index(case) + 40, tq, tk, d)
+    return args, _jax_ref(*args, q_start, k_start, causal)
 
 
 def _fold(x):  # [B, T, H, D] -> [B*H, T, D]
@@ -86,15 +97,20 @@ def _unfold(x):  # [B*H, T, D] -> [B, T, H, D]
     return x.reshape(B, H, x.shape[1], -1).permute(0, 2, 1, 3).numpy()
 
 
-def _emulate(bmm, q, k, v, g, g_lse, q_start, k_start, causal):
-    """(o, lse, dk, dv) of the port's plain forward and dK/dV with every
-    product computed by ``bmm``, corr formed as the wrapper forms it."""
+def _emulate(bmm, case):
+    """{o, lse, dq, dk, dv} of the port's plain forward, dK/dV and dQ on
+    ``case``'s inputs with every product computed by ``bmm``, corr formed
+    as the wrapper forms it."""
+    (q, k, v, g, g_lse), _ = _case(case)
+    _, _, _, q_start, k_start, causal = CASES[case]
     qf, kf, vf, gf = (_fold(x).contiguous() for x in (q, k, v, g))
     kw = dict(scale=1.0 / np.sqrt(q.shape[-1]), causal=causal, bmm=bmm)
     o, lse = fa.flash_fwd_plain(qf, kf, vf, q_start, k_start, **kw)
     corr = torch.from_numpy(g_lse).reshape(B * H, -1) - (o * gf).sum(-1)
     dk, dv = fa.flash_dkv_plain(qf, kf, vf, gf, lse, corr, q_start, k_start, **kw)
-    return _unfold(o), lse.reshape(B, H, -1).numpy(), _unfold(dk), _unfold(dv)
+    dq = fa.flash_dq_plain(qf, kf, vf, gf, lse, corr, q_start, k_start, **kw)
+    return {"o": _unfold(o), "lse": lse.reshape(B, H, -1).numpy(), "dq": _unfold(dq),
+            "dk": _unfold(dk), "dv": _unfold(dv)}
 
 
 def _tol_ratio(got, ref):
@@ -112,18 +128,25 @@ def _lse_err(got, ref):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_3xtf32_forward_and_dkv_hold_the_f32_tolerance_and_1xtf32_does_not(case):
-    tq, tk, d, q_start, k_start, causal = CASES[case]
-    args = _inputs(sorted(CASES).index(case) + 40, tq, tk, d)
-    want = _jax_ref(*args, q_start, k_start, causal)
-    three = _emulate(bmm_3xtf32, *args, q_start, k_start, causal)
-    one = _emulate(bmm_1xtf32, *args, q_start, k_start, causal)
-    assert _lse_err(three[1], want[1]) <= F32_LSE_ABS
-    outputs = {"o": 0, "dk": 2, "dv": 3}
-    ratio3 = {n: _tol_ratio(three[i], want[i]) for n, i in outputs.items()}
-    ratio1 = {n: _tol_ratio(one[i], want[i]) for n, i in outputs.items()}
+    _, want = _case(case)
+    three, one = _emulate(bmm_3xtf32, case), _emulate(bmm_1xtf32, case)
+    assert _lse_err(three["lse"], want["lse"]) <= F32_LSE_ABS
+    ratio3 = {n: _tol_ratio(three[n], want[n]) for n in ("o", "dk", "dv")}
+    ratio1 = {n: _tol_ratio(one[n], want[n]) for n in ("o", "dk", "dv")}
     assert max(ratio3.values()) <= 1.0, ratio3
     # one TF32 product moves every output past the tolerance
     assert min(ratio1.values()) > 1.0, ratio1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_3xtf32_dq_holds_the_f32_tolerance_and_1xtf32_does_not(case):
+    """dQ as the dQ kernel computes it (S = Q.K^T, dP = dO.V^T and dS.K in
+    3xTF32, after the 3xTF32 forward that gives its lse) against the JAX
+    kernel's dQ; with one TF32 product it fails the same rule."""
+    _, want = _case(case)
+    ratio3 = _tol_ratio(_emulate(bmm_3xtf32, case)["dq"], want["dq"])
+    ratio1 = _tol_ratio(_emulate(bmm_1xtf32, case)["dq"], want["dq"])
+    assert ratio3 <= 1.0 < ratio1, (ratio3, ratio1)
 
 
 def test_split_tf32_reconstructs_x_with_a_ten_bit_big():
@@ -162,33 +185,39 @@ def _round_toward_zero(x64):
     return torch.where(f.double().abs() > x64.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def test_a_fresh_partial_sum_per_tile_keeps_truncating_sums_inside_the_tolerance():
+@pytest.mark.parametrize("product,tile", [("dv_over_2048_queries", 32),
+                                          ("dq_over_2048_keys", 64)])
+def test_a_fresh_partial_sum_per_tile_keeps_truncating_sums_inside_the_tolerance(product, tile):
     """A model of the tensor cores' f32 accumulation, sums rounded toward
     zero after each m16n8k8 product (the readings on the card point to it:
-    PERF.md), on dV = P^T.dO over 2048 queries in 3xTF32.  One chain
-    of products into one accumulator drifts the same way at every step and
-    spends half the f32 tolerance; a zeroed partial sum per 32-query tile,
-    folded in by a round-to-nearest add (what the kernels do), stays under
-    a tenth of it."""
+    PERF.md), in 3xTF32 over a contraction of 2048: dV = P^T.dO over the
+    queries (dK/dV's 32-query stage), and dQ = dS.K over the keys (the dQ
+    kernel's 64-key stage at D = 64; dS = p (dP + corr), signed).  One
+    chain of products into one accumulator drifts the same way at every
+    step and spends a quarter or more of the f32 tolerance; a zeroed
+    partial sum per tile, folded in by a round-to-nearest add (what the
+    kernels do), stays under a tenth of it."""
     rng = np.random.default_rng(11)
     t, d = 2048, 64
     logits = torch.from_numpy(rng.normal(size=(2, 64, t)) * 2)
-    p = torch.softmax(logits, -1).float()  # 64 keys x t queries
-    g = torch.from_numpy(rng.normal(size=(2, t, d)).astype(np.float32))
-    ref = p.double() @ g.double()
+    a = torch.softmax(logits, -1).float()  # 64 rows x t: p over one axis
+    if product == "dq_over_2048_keys":
+        a = a * torch.from_numpy(rng.normal(size=(2, 64, t)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(2, t, d)).astype(np.float32))
+    ref = a.double() @ b.double()
 
     def tensor_cores(tile):
         acc = part = torch.zeros(2, 64, d)
-        for q0 in range(0, t, 8):
+        for k0 in range(0, t, 8):
             (a_big, a_small), (b_big, b_small) = (fa.split_tf32(x) for x in (
-                p[..., q0:q0 + 8], g[:, q0:q0 + 8]))
+                a[..., k0:k0 + 8], b[:, k0:k0 + 8]))
             a_small, b_small = _tensor_core_read(a_small), _tensor_core_read(b_small)
             for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
                 part = _round_toward_zero(part.double() + x.double() @ y.double())
-            if tile and (q0 + 8) % tile == 0:
+            if tile and (k0 + 8) % tile == 0:
                 acc, part = acc + part, torch.zeros_like(part)
         return acc + part
 
     one_chain = _tol_ratio(tensor_cores(0).numpy(), ref.numpy())
-    per_tile = _tol_ratio(tensor_cores(32).numpy(), ref.numpy())
+    per_tile = _tol_ratio(tensor_cores(tile).numpy(), ref.numpy())
     assert per_tile < 0.1 < 0.25 < one_chain, (per_tile, one_chain)

@@ -189,6 +189,26 @@ def test_every_f32_flash_variant_rewrites_the_source(name):
     assert (src == chosen) == (name == "chosen")
 
 
+def test_ptxas_summary_reads_registers_and_spills_per_kernel():
+    """nvcc's -Xptxas -v report, as it prints it for a variant build (the
+    anonymous namespace's name carries the file's, here with "dq" in it)."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9a8d_36_flash_variant_"
+        "bf_flash_f32_dq64_keys_32_cu_632a995813dq_f32_kernelILi128EEEv14CUtensorMap_st' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN55_GLOBAL__N__9a8d_dq_f32_kernelILi128E",
+        "    104 bytes stack frame, 212 bytes spill stores, 204 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 104 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9a8d_13fwd_kernelEv' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+    ])
+    assert flash_variants.ptxas_summary(log) == {
+        "dq_f32_kernel<128>": {"spill_stores": 212, "registers": 255},
+        "fwd_kernel": {"spill_stores": 0, "registers": 168}}
+
+
 def test_tf32_mma_rate_refuses_to_run_without_a_card(monkeypatch, capsys):
     from bluefog_tpu_torch.benchmarks import tf32_mma_rate
 
