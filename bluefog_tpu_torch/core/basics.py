@@ -5,13 +5,15 @@ Counterpart of ``bluefog_tpu/core/basics.py`` on the rank-major backend:
 twin of the JAX package's one-rank-per-device mesh.  Where the JAX context
 builds a ``Mesh``, this one records the device and the rank count; the
 topology is compiled into a cached :class:`CommPlan` the same way.  The
-``torch.distributed`` backend (one process per rank) is not ported yet.
+context also holds the one-sided window state of
+:mod:`bluefog_tpu_torch.windows`.  The ``torch.distributed`` backend (one
+process per rank) is not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -71,6 +73,10 @@ class BlueFogContext:
         self._plan_cache: Dict[Tuple, CommPlan] = {}
         self._lock = threading.Lock()
         self.topology: Optional[DiGraph] = None
+        # one-sided window state (bluefog_tpu_torch.windows)
+        self.windows: Dict[str, Any] = {}
+        self.win_fusion: Dict[str, Any] = {}  # fused window name -> pack metadata
+        self.win_associated_p_enabled = False
         self.set_topology(
             topology if topology is not None
             else topology_util.ExponentialTwoGraph(self.size)
@@ -113,8 +119,11 @@ def init(topology: Optional[DiGraph] = None, *, size: int, device=None) -> None:
 
 
 def shutdown() -> None:
-    """Release the context."""
+    """Free every window and release the context."""
     global _context
+    if _context is not None:
+        _context.windows.clear()
+        _context.win_fusion.clear()
     _context = None
 
 

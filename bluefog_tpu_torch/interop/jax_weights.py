@@ -2,12 +2,16 @@
 
 Each function maps a flax tree (nested dicts of numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) to the ``state_dict`` of
-the port's model: :func:`llama_state_dict` for ``LlamaLM``,
+the port's model: :func:`bert_state_dict` for ``BertEncoder``,
+:func:`llama_state_dict` for ``LlamaLM``,
 :func:`lenet_state_dict` for ``LeNet5`` and :func:`resnet_state_dict` for
 ``ResNet`` (parameters and ``batch_stats``).  Flax dense kernels are
 ``(in, out)``, ``nn.Linear`` weights ``(out, in)``: they transpose.  Flax
 convolution kernels are ``[kh, kw, in, out]``, the port's ``[out, in, kh,
-kw]``.  This module needs only numpy and torch: it reads arrays, not JAX
+kw]``; BERT's fused ``DenseGeneral((3, H, Dh))`` kernel ``[d, 3, H, Dh]``
+flattens in that order into the ``[3·H·Dh, d]`` qkv weight.  A gradient
+tree of the same structure maps the same way.  This module needs only
+numpy and torch: it reads arrays, not JAX
 objects.
 """
 
@@ -18,7 +22,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["lenet_state_dict", "llama_state_dict", "resnet_state_dict"]
+__all__ = ["bert_state_dict", "lenet_state_dict", "llama_state_dict", "resnet_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -32,6 +36,33 @@ def _conv(kernel) -> torch.Tensor:  # [kh, kw, in, out] -> [out, in, kh, kw]
 def _dense(tree, out: Dict[str, torch.Tensor], name: str) -> None:
     out[name + ".weight"] = _t(np.asarray(tree["kernel"]).T)
     out[name + ".bias"] = _t(tree["bias"])
+
+
+def _layer_norm(tree, out: Dict[str, torch.Tensor], name: str) -> None:
+    out[name + ".scale"] = _t(tree["scale"])
+    out[name + ".bias"] = _t(tree["bias"])
+
+
+def bert_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
+    """State dict for the port's ``BertEncoder`` from a flax ``params`` tree."""
+    out = {"embed.weight": _t(params["Embed_0"]["embedding"]),
+           "pos_embedding": _t(params["pos_embedding"])}
+    for i in range(num_layers):
+        blk = params[f"_EncoderBlock_{i}"]
+        pre = f"layers.{i}."
+        _layer_norm(blk["LayerNorm_0"], out, pre + "ln1")
+        qkv = blk["DenseGeneral_0"]
+        k = np.asarray(qkv["kernel"])  # [d, 3, H, Dh]
+        out[pre + "qkv.weight"] = _t(k.reshape(k.shape[0], -1).T)
+        out[pre + "qkv.bias"] = _t(np.asarray(qkv["bias"]).reshape(-1))
+        _dense(blk["Dense_0"], out, pre + "o")
+        _layer_norm(blk["LayerNorm_1"], out, pre + "ln2")
+        _dense(blk["Dense_1"], out, pre + "fc1")
+        _dense(blk["Dense_2"], out, pre + "fc2")
+    _layer_norm(params["LayerNorm_0"], out, "norm")
+    _dense(params["Dense_0"], out, "pooler")
+    _dense(params["Dense_1"], out, "classifier")
+    return out
 
 
 def llama_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:

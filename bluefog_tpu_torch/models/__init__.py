@@ -2,6 +2,6 @@
 
 from bluefog_tpu_torch.models.lenet import LeNet5
 from bluefog_tpu_torch.models.resnet import ResNet, ResNet18, ResNet50
-from bluefog_tpu_torch.models.transformer import LlamaLM
+from bluefog_tpu_torch.models.transformer import BertEncoder, LlamaLM
 
-__all__ = ["LeNet5", "LlamaLM", "ResNet", "ResNet18", "ResNet50"]
+__all__ = ["BertEncoder", "LeNet5", "LlamaLM", "ResNet", "ResNet18", "ResNet50"]

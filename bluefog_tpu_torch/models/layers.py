@@ -14,6 +14,11 @@ results:
   ``dtype``.  ``torch.nn.BatchNorm2d`` feeds the unbiased variance instead.
 - Initializers: lecun-normal kernels (normal truncated at two sigma, std
   1/sqrt(fan_in)), zero biases, ones (or zeros) for the norm scale.
+- ``Dense(dtype=bf16)`` casts the f32 kernel and the input to bf16 and adds
+  the bias after the product, in bf16 (:class:`Dense`'s ``compute_dtype``).
+- ``LayerNorm`` takes epsilon 1e-6 (torch's default is 1e-5) and, with
+  ``dtype=float32``, computes and returns f32 whatever its input
+  (:class:`LayerNorm`).
 
 Tensors inside are NCHW in shape and channels-last in memory (what cuDNN
 runs fastest); the models take and flatten NHWC as the reference does.
@@ -29,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm", "Conv2d", "Dense", "lecun_normal_", "max_pool_same",
+__all__ = ["BatchNorm", "Conv2d", "Dense", "LayerNorm", "lecun_normal_", "max_pool_same",
            "same_padding"]
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -98,12 +103,47 @@ class Conv2d(nn.Module):
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense`` in f32: ``nn.Linear`` with a lecun-normal weight and
-    a zero bias."""
+    """flax ``nn.Dense``: ``nn.Linear`` with a lecun-normal f32 weight and a
+    zero bias.  With ``compute_dtype`` (flax's ``dtype``) the weight and the
+    input are cast to it and the bias is added after the product, in that
+    dtype; without it the layer is ``nn.Linear`` in f32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None, dtype=None, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+        self.compute_dtype = compute_dtype
 
     def reset_parameters(self, generator=None):
         lecun_normal_(self.weight, self.in_features, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=jnp.float32)`` over the last dim: mean and
+    variance in f32, epsilon 1e-6, f32 ``scale`` (ones) and ``bias``
+    (zeros), f32 output whatever the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps)
 
 
 class BatchNorm(nn.Module):

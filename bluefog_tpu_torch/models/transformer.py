@@ -1,4 +1,13 @@
-"""Llama-style decoder LM (counterpart of ``bluefog_tpu/models/transformer.py``).
+"""Transformer models (counterpart of ``bluefog_tpu/models/transformer.py``):
+the BERT-style encoder with a classification head (:class:`BertEncoder`,
+the push-sum fine-tune workload) and the Llama-style decoder LM.
+
+``BertEncoder`` keeps the reference's dtypes: f32 parameters, products in
+``dtype`` (bf16 by default) on a residual stream in ``dtype``, LayerNorm
+(epsilon 1e-6), softmax, pooler and classifier in f32, the tanh GELU, and
+padding masked by -1e30 on the scaled f32 scores (a row with every key
+masked gets a uniform softmax).  Its attention is the plain dense product,
+as in the reference, which runs it outside any Pallas kernel.
 
 Only ``LlamaLM``'s default path is ported: unrolled layers, multi-head
 attention, no remat, no vocab-sharded mode.  Parameters are f32 and matmuls
@@ -24,8 +33,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["LlamaLM", "RMSNorm", "dense_attention", "chunked_softmax_cross_entropy",
-           "head_matmul"]
+from bluefog_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
+
+__all__ = ["BertEncoder", "LlamaLM", "RMSNorm", "dense_attention",
+           "chunked_softmax_cross_entropy", "head_matmul"]
 
 
 def dense_attention(q, k, v, *, causal: bool, dtype=torch.float32):
@@ -38,6 +49,97 @@ def dense_attention(q, k, v, *, causal: bool, dtype=torch.float32):
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# --------------------------------------------------------------------------
+# BERT-style encoder
+# --------------------------------------------------------------------------
+
+
+class _EncoderBlock(nn.Module):
+    """Pre-norm encoder block.  ``qkv`` is flax's ``DenseGeneral((3, H,
+    Dh))``: its weight rows run over (3, H, Dh) in that order."""
+
+    def __init__(self, hidden: int, num_heads: int, dff: int, dtype, device):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.ln1 = LayerNorm(hidden, device=device)
+        self.qkv = Dense(hidden, 3 * hidden, device=device, compute_dtype=dtype)
+        self.o = Dense(hidden, hidden, device=device, compute_dtype=dtype)
+        self.ln2 = LayerNorm(hidden, device=device)
+        self.fc1 = Dense(hidden, dff, device=device, compute_dtype=dtype)
+        self.fc2 = Dense(dff, hidden, device=device, compute_dtype=dtype)
+
+    def forward(self, x, mask):
+        b, t, d = x.shape
+        h = self.ln1(x)
+        q, k, v = self.qkv(h).view(b, t, 3, self.num_heads, d // self.num_heads).unbind(2)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+        if mask is not None:
+            scores = torch.where(mask[:, None, None, :].bool(), scores,
+                                 scores.new_tensor(-1e30))
+        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        att = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
+        x = x + self.o(att)
+        h = F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
+        return x + self.fc2(h)
+
+
+class BertEncoder(nn.Module):
+    """BERT-style encoder with a classification head (the push-sum
+    fine-tuning workload).  ``forward(input_ids [B, T], attention_mask
+    [B, T] or None)`` returns f32 logits ``[B, num_classes]`` from the
+    first position."""
+
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
+                 num_layers: int = 12, num_heads: int = 12, dff: int = 3072,
+                 max_len: int = 512, num_classes: int = 2, dtype=torch.bfloat16,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if hidden_size % num_heads:
+            raise ValueError(f"hidden {hidden_size} not divisible by heads {num_heads}")
+        self.dtype = dtype
+        self.embed = nn.Embedding(vocab_size, hidden_size, device=device, dtype=torch.float32)
+        self.pos_embedding = nn.Parameter(torch.empty(max_len, hidden_size, device=device))
+        self.layers = nn.ModuleList(
+            _EncoderBlock(hidden_size, num_heads, dff, dtype, device) for _ in range(num_layers))
+        self.norm = LayerNorm(hidden_size, device=device)
+        self.pooler = Dense(hidden_size, hidden_size, device=device, compute_dtype=torch.float32)
+        self.classifier = Dense(hidden_size, num_classes, device=device,
+                                compute_dtype=torch.float32)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's distributions: N(0, 1/d) token embedding, N(0, 0.02^2)
+        positions, lecun-normal kernels, zero biases, LayerNorm ones and
+        zeros."""
+        d = self.embed.weight.shape[1]
+        self.embed.weight.normal_(0.0, 1.0 / math.sqrt(d), generator=generator)
+        self.pos_embedding.normal_(0.0, 0.02, generator=generator)
+        for mod in self.modules():
+            if isinstance(mod, Dense):
+                lecun_normal_(mod.weight, mod.in_features, generator)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.reset_parameters()
+
+    def forward(self, input_ids, attention_mask=None):
+        t = input_ids.shape[1]
+        x = F.embedding(input_ids, self.embed.weight.to(self.dtype))
+        x = x + self.pos_embedding[None, :t].to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, attention_mask)
+        x = self.norm(x)  # f32
+        pooled = torch.tanh(self.pooler(x[:, 0]))
+        return self.classifier(pooled)
+
+
+# --------------------------------------------------------------------------
+# Llama-style decoder LM
+# --------------------------------------------------------------------------
 
 
 def _rotary(x, positions):

@@ -5,8 +5,9 @@ Where the JAX package does one ``ppermute`` per shift class inside
 ``shard_map``, this module does one indexed gather of the rank axis per
 shift class: ``out = sw[:, None] * x + sum_c w_c[:, None] * x[src_c]``.
 Functions take a tensor, or a dict / list / tuple of tensors, and return
-the same structure.  The eager veneer of ``bluefog_tpu/ops.py`` (dynamic
-per-call weights, handles) is not ported yet.
+the same structure.  Of the eager veneer of ``bluefog_tpu/ops.py``, the
+handles of the nonblocking ops are here (:class:`Handle`, :func:`poll`,
+:func:`synchronize`); dynamic per-call weights are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from bluefog_tpu_torch.core import basics
 from bluefog_tpu_torch.core.plan import CommPlan
 
-__all__ = ["allreduce", "broadcast", "neighbor_allreduce"]
+__all__ = ["Handle", "allreduce", "broadcast", "device_sync", "neighbor_allreduce",
+           "poll", "synchronize", "wait"]
 
 
 def tree_map(fn, x):
@@ -33,16 +35,89 @@ def tree_map(fn, x):
     raise TypeError(f"expected a tensor or a dict/list/tuple of tensors, got {type(x)}")
 
 
-def _leaves(x, out):
+def tree_flatten(x):
+    """``(leaves, spec)`` of a tensor / dict / list / tuple; dict keys in
+    sorted order, as ``jax.tree_util`` flattens them.  ``spec`` is hashable
+    and compares equal exactly for equal structures."""
     if isinstance(x, torch.Tensor):
-        out.append(x)
-    elif isinstance(x, dict):
-        for v in x.values():
-            _leaves(v, out)
-    else:
-        for v in x:
-            _leaves(v, out)
-    return out
+        return [x], None
+    if isinstance(x, dict):
+        keys = sorted(x)
+        kids = [tree_flatten(x[k]) for k in keys]
+        return [l for ls, _ in kids for l in ls], (dict, tuple(keys), tuple(s for _, s in kids))
+    if isinstance(x, (list, tuple)):
+        kids = [tree_flatten(v) for v in x]
+        return [l for ls, _ in kids for l in ls], (type(x), len(x), tuple(s for _, s in kids))
+    raise TypeError(f"expected a tensor or a dict/list/tuple of tensors, got {type(x)}")
+
+
+def _count(spec) -> int:
+    return 1 if spec is None else sum(_count(s) for s in spec[2])
+
+
+def tree_unflatten(spec, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    if spec is None:
+        (leaf,) = leaves
+        return leaf
+    kind, keys, kids = spec
+    parts, off = [], 0
+    for s in kids:
+        n = _count(s)
+        parts.append(tree_unflatten(s, leaves[off:off + n]))
+        off += n
+    if kind is dict:
+        return dict(zip(keys, parts))
+    return kind(parts)
+
+
+def device_sync(tree):
+    """Block until the work that produces every CUDA tensor of ``tree`` is
+    done, and return ``tree`` (CPU tensors are done already)."""
+    leaves, _ = tree_flatten(tree) if tree is not None else ([], None)
+    for dev in {l.device for l in leaves if l.is_cuda}:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+class Handle:
+    """Result of a nonblocking op (the reference's integer handle).  On the
+    card it records a ``torch.cuda.Event`` on the current stream when the op
+    is issued: :meth:`poll` asks the event, :meth:`wait` blocks on it and
+    returns the value.  On the CPU the op is done when the handle exists."""
+
+    __slots__ = ("_value", "_event")
+
+    def __init__(self, value=None, device: Optional[torch.device] = None):
+        self._value = value
+        if device is None and isinstance(value, torch.Tensor):
+            device = value.device
+        self._event = None
+        if device is not None and torch.device(device).type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def poll(self) -> bool:
+        """True once the op is done; never blocks."""
+        return True if self._event is None else self._event.query()
+
+    def wait(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._value
+
+
+def poll(handle: Handle) -> bool:
+    """The reference's ``bf.poll(handle)``."""
+    return handle.poll()
+
+
+def synchronize(handle: Handle):
+    """The reference's ``bf.synchronize(handle)``: block, return the output."""
+    return handle.wait()
+
+
+wait = synchronize
 
 
 def _weight_dtype(a: torch.Tensor) -> torch.dtype:
@@ -103,7 +178,7 @@ def neighbor_allreduce(x, plan: Optional[CommPlan] = None, *,
             acc.addcmul_(w.view(bshape), wire.index_select(0, src).to(wdt))
         return acc
 
-    leaves = _leaves(x, [])
+    leaves, spec = tree_flatten(x)
     if not (fuse and len(leaves) > 1):
         return tree_map(nar, x)
     groups = {}  # dtype -> leaf positions, insertion-ordered
@@ -117,5 +192,4 @@ def neighbor_allreduce(x, plan: Optional[CommPlan] = None, *,
             n = leaves[i][0].numel()
             out[i] = mixed[:, off:off + n].reshape(leaves[i].shape)
             off += n
-    it = iter(out)
-    return tree_map(lambda _: next(it), x)
+    return tree_unflatten(spec, out)

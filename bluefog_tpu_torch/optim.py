@@ -9,6 +9,8 @@ per rank.
   ATC  (adapt-then-combine):  w_{t+1} = W (w_t - a u_t)
   AWC  (adapt-with-combine):  w_{t+1} = W w_t - a u_t
   Gradient allreduce:         u_t from globally averaged gradients.
+  Win-put:                    w_{t+1} = win_update(win_put(w_t - a u_t)),
+                              the one-sided window round.
 
 The combine updates the parameters in place under ``no_grad``.
 """
@@ -16,12 +18,14 @@ The combine updates the parameters in place under ``no_grad``.
 from __future__ import annotations
 
 import enum
-from typing import Callable, List, Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from bluefog_tpu_torch import ops
-from bluefog_tpu_torch.core.plan import CommPlan
+from bluefog_tpu_torch import ops, topology_util, windows
+from bluefog_tpu_torch.core import basics
+from bluefog_tpu_torch.core.plan import CommPlan, plan_from_neighbor_lists
 
 __all__ = [
     "CommunicationType",
@@ -31,6 +35,8 @@ __all__ = [
     "DistributedAdaptThenCombineOptimizer",
     "DistributedAdaptWithCombineOptimizer",
     "DistributedGradientAllreduceOptimizer",
+    "DistributedWinPutOptimizer",
+    "one_peer_plan_schedule",
 ]
 
 
@@ -128,6 +134,79 @@ class DistributedGradientAllreduceOptimizer(_DistributedOptimizer):
                     p.grad.copy_(g)
         self.base.step()
         self.steps += 1
+
+
+class DistributedWinPutOptimizer:
+    """The win-put optimizer: each step runs the local update of ``base``,
+    then deposits the parameters at the out-neighbors with ``win_put`` and
+    merges the mailbox with ``win_update``; no global reduction.  With
+    ``fuse`` (the default) the leaves of one dtype share one window, so a
+    round is one :func:`windows.win_put_update` per dtype group; without it
+    every leaf has its own window.  The windows are created here, from the
+    parameters' current values, under ``window_prefix``; :meth:`free`
+    releases them."""
+
+    def __init__(self, base: torch.optim.Optimizer, window_prefix: str = "winput_opt",
+                 num_steps_per_communication: int = 1, fuse: bool = True):
+        self.base = base
+        self.prefix = window_prefix
+        self.k = max(1, int(num_steps_per_communication))
+        self.fuse = fuse
+        self.steps = 0
+        self.params = [p for group in base.param_groups for p in group["params"]]
+        if fuse:
+            by_dtype: Dict[torch.dtype, List[int]] = {}
+            for i, p in enumerate(self.params):
+                by_dtype.setdefault(p.dtype, []).append(i)
+            self._groups = [(f"{self.prefix}.fused{g}", idxs) for g, (_, idxs) in
+                            enumerate(sorted(by_dtype.items(), key=lambda kv: str(kv[0])))]
+        else:
+            self._groups = [(f"{self.prefix}.{i}", [i]) for i in range(len(self.params))]
+        for name, idxs in self._groups:
+            leaves = [self.params[i].detach() for i in idxs]
+            if not windows.win_create(leaves if fuse else leaves[0], name):
+                raise RuntimeError(
+                    f"window {name!r} already exists: two optimizers share "
+                    f"window_prefix={self.prefix!r}, or a prior one was not freed")
+        self._created = True
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.base.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        self.base.step()
+        self.steps += 1
+        if self.steps % self.k:
+            return
+        with torch.no_grad():
+            for name, idxs in self._groups:
+                leaves = [self.params[i].detach() for i in idxs]
+                if self.fuse:
+                    parts = windows.win_put_update(leaves, name)
+                else:
+                    windows.win_put(leaves[0], name)  # also refreshes the exposure
+                    parts = [windows.win_update(name)]
+                for i, part in zip(idxs, parts):
+                    self.params[i].copy_(part)
+
+    def free(self) -> None:
+        """Release this optimizer's windows."""
+        if self._created:
+            ctx = basics.context()
+            for name in [n for n in ctx.windows if n.startswith(self.prefix + ".")]:
+                windows.win_free(name)
+            self._created = False
+
+
+def one_peer_plan_schedule(size: int) -> List[CommPlan]:
+    """The exp-2 one-peer rotation as a list of plans to cycle through
+    (``plans[t % len(plans)]``): each plan is one shift class, log2(size)
+    plans in all."""
+    if size <= 1:
+        return [plan_from_neighbor_lists(size, [[] for _ in range(size)])]
+    nbits = max(1, int(math.ceil(math.log2(size))))
+    gens = [topology_util.GetDynamicOnePeerSendRecvRanks(size, r) for r in range(size)]
+    return [plan_from_neighbor_lists(size, [next(g)[1] for g in gens]) for _ in range(nbits)]
 
 
 # --------------------------------------------------------------------------

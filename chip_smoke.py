@@ -75,6 +75,24 @@ Phases, each printing one JSON line:
                on one leaf, allreduce ranks identical; step ms, images/s and
                peak memory.  Then examples/torch_mnist (LeNet-5) on the card
                for 2 epochs: the loss must fall.
+8. windows  -- every one-sided window op (win_put, a selective win_put,
+               win_accumulate, win_get, win_update with default and explicit
+               weights and reset, win_put_update, a fused dict window) on
+               4 ranks x 4M elements, f32 and bf16, over
+               ExponentialTwoGraph(4) and RingGraph(4, connect_style=1),
+               associated p on, against a dense float64 reference (mixing
+               matrix x rank rows) with versions and p; ms of each op.
+9. bert_pushsum -- BERT-base (110M parameters), 4 ranks x batch 32 x seq
+               128, the push-sum fine-tune round of
+               bluefog_tpu_torch.benchmarks.bert_pushsum: 4 eager rounds
+               and 4 device-flow rounds from the same state must agree,
+               losses finite, sum p = 4 after every update; round ms,
+               tokens/s, peak memory.
+10. exact_algorithms -- gradient tracking, EXTRA and Push-DIGing on the
+               reference test's heterogeneous quadratics (8 ranks, dim 6):
+               distance to the centralized optimum within 1e-4 / 1e-3 /
+               1e-3, and ATC above 1e-2.
+Phases 8-10 run no kernel of the repo and add no row to the kernel table.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -901,6 +919,330 @@ def component_times(torch, ac, roof, row):
     return timed
 
 
+# ---------------------------------------------------------------------------
+# The window slice: one-sided windows, the BERT push-sum round, the exact
+# algorithms.  None of it runs a kernel of the repo (the window ops are
+# gathers and weighted sums in PyTorch, BERT's attention is the reference's
+# dense product), so it adds no row to the kernel table.
+# ---------------------------------------------------------------------------
+
+WIN_ELEMS = 1 << 22  # elements a rank in each window
+WIN_ITERS = 5
+
+
+def _win_tol(torch, dtype, terms, scale):
+    """|err| allowed against the float64 dense reference: ``terms`` products
+    and sums, each rounded once in the window dtype (f32, or bf16 where the
+    window's weight dtype is bf16): terms x eps(dtype) x the largest input."""
+    return terms * torch.finfo(dtype).eps * scale
+
+
+def phase_windows(torch):
+    """Every window op on 4 ranks x WIN_ELEMS elements, f32 and bf16, over
+    ExponentialTwoGraph(4) and RingGraph(4, connect_style=1), associated p
+    on, each held against a plain dense reference written here (mixing
+    matrix x rank rows in float64), with versions and p; the ms of each op
+    between CUDA events (mean of WIN_ITERS calls, after one warm-up)."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology_util as tu
+
+    results = []
+    for topo_name, make in (("exp2", lambda: tu.ExponentialTwoGraph(RANKS)),
+                            ("ring_directed", lambda: tu.RingGraph(RANKS, connect_style=1))):
+        for dtype in (torch.float32, torch.bfloat16):
+            bf.init(make(), size=RANKS, device="cuda")
+            try:
+                results.append(_window_case(torch, bf, topo_name, dtype))
+            finally:
+                bf.shutdown()
+    return results
+
+
+def _window_case(torch, bf, topo_name, dtype):
+    n = RANKS
+    plan = bf.context().plan
+    in_nb, out_nb = plan.in_neighbors, plan.out_neighbors
+    maxd = max(plan.max_in_degree, 1)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, WIN_ELEMS, generator=gen, device="cuda").to(dtype)
+    x2 = torch.randn(n, WIN_ELEMS, generator=gen, device="cuda").to(dtype)
+    xd, x2d = x.double(), x2.double()
+    scale = max(xd.abs().max().item(), x2d.abs().max().item())
+    ctx = bf.context()
+    bf.turn_on_win_ops_with_associated_p()
+    row = {"phase": "windows", "topology": topo_name, "dtype": str(dtype).replace("torch.", ""),
+           "ranks": n, "elements_a_rank": WIN_ELEMS, "max_in_degree": maxd, "ops": {}}
+
+    def record(op, got, want, terms, fn):
+        err = (got.double() - want).abs().max().item()
+        tol = _win_tol(torch, dtype, terms, scale * 2)
+        check(err <= tol, f"windows {topo_name} {dtype} {op}: |err| {err} > {tol}")
+        row["ops"][op] = {"max_abs_err": err, "tol": tol,
+                          "ms": cuda_ms(fn, iters=WIN_ITERS, warmup=1)}
+
+    def versions(name):
+        return ctx.windows[name].versions.cpu().tolist()
+
+    def mail(name):
+        return ctx.windows[name].mail
+
+    uniform = torch.zeros(n, n, dtype=torch.float64, device="cuda")
+    for d in range(n):
+        for s in (d,) + tuple(in_nb[d]):
+            uniform[d, s] = 1.0 / (len(in_nb[d]) + 1)
+
+    def mix(W, a):
+        return W @ a
+
+    def slots(name):  # every in-neighbor slot, rank by rank
+        return torch.stack([mail(name)[d, k] for d in range(n) for k in range(len(in_nb[d]))])
+
+    def slot_ref(weight):  # what each slot must hold: weight x the source's row
+        return torch.stack([weight * xd[s] for d in range(n) for s in in_nb[d]])
+
+    # win_put (default weights), then the default win_update
+    bf.win_create(x, "put")
+    bf.win_put(x, "put")
+    check(all(v[:len(in_nb[d])] == [1] * len(in_nb[d]) for d, v in enumerate(versions("put"))),
+          f"windows {topo_name}: put versions {versions('put')}")
+    record("win_put", slots("put"), slot_ref(1.0), 0, lambda: bf.win_put(x, "put"))
+    out = bf.win_update("put")
+    p = bf.win_associated_p("put")
+    check(torch.allclose(p, torch.ones_like(p)), f"windows {topo_name}: p after put+update {p}")
+    record("win_update", out, mix(uniform, xd), maxd + 2, lambda: bf.win_update("put"))
+
+    # selective win_put: rank 0 puts to its first out-neighbor only, weight 2
+    o = out_nb[0][0]
+    bf.win_create(x, "sel", zero_init=True)
+    dst = [{o: 2.0}] + [{} for _ in range(n - 1)]
+    bf.win_put(x, "sel", dst_weights=dst)
+    slot = in_nb[o].index(0)
+    ver = versions("sel")
+    check(all(ver[d][k] == (1 if (d, k) == (o, slot) else 0) for d in range(n)
+              for k in range(len(in_nb[d]))), f"windows {topo_name}: selective versions {ver}")
+    others = [mail("sel")[d, k] for d in range(n) for k in range(len(in_nb[d]))
+              if (d, k) != (o, slot)]
+    check(all(not t.any().item() for t in others), f"windows {topo_name}: selective put "
+                                                   f"touched another slot")
+    record("win_put_selective", mail("sel")[o, slot], 2.0 * xd[0], 1,
+           lambda: bf.win_put(x, "sel", dst_weights=dst))
+
+    # win_accumulate 0.5 to every out-neighbor, then win_update(self 0.5,
+    # neighbors 1.0, reset): the push-sum round; p = 0.5 + 0.5 in-degree
+    bf.win_create(x, "acc", zero_init=True)
+    half = [{t: 0.5 for t in out_nb[r]} for r in range(n)]
+    ones = [{s: 1.0 for s in in_nb[d]} for d in range(n)]
+    bf.win_accumulate(x, "acc", dst_weights=half)
+    acc_ref = torch.zeros_like(xd)
+    for d in range(n):
+        for s in in_nb[d]:
+            acc_ref[d] += 0.5 * xd[s]
+    got_acc = mail("acc").double().sum(dim=1)
+    check(versions("acc") == [[1] * len(in_nb[d]) + [0] * (maxd - len(in_nb[d]))
+                              for d in range(n)], f"windows {topo_name}: accumulate versions")
+    out = bf.win_update("acc", self_weight=0.5, neighbor_weights=ones, reset=True)
+    p = bf.win_associated_p("acc").double()
+    want_p = torch.tensor([0.5 + 0.5 * len(in_nb[d]) for d in range(n)], dtype=torch.float64,
+                          device="cuda")
+    check(torch.allclose(p, want_p), f"windows {topo_name}: p {p.tolist()} != {want_p.tolist()}")
+    if topo_name == "ring_directed":  # column-stochastic: push-sum keeps the mass
+        check(abs(p.sum().item() - n) < 1e-6, f"windows: sum p = {p.sum().item()} != {n}")
+    check(not mail("acc").any().item(), f"windows {topo_name}: reset left mail")
+    record("win_accumulate", got_acc, acc_ref, maxd + 1,
+           lambda: bf.win_accumulate(x, "acc", dst_weights=half))
+    bf.win_update("acc", reset=True)
+    bf.win_accumulate(x, "acc", dst_weights=half)
+    upd_ref = 0.5 * xd + acc_ref
+    out = bf.win_update("acc", self_weight=0.5, neighbor_weights=ones, reset=True)
+    record("win_update_explicit_reset", out, upd_ref, maxd + 3,
+           lambda: bf.win_update("acc", self_weight=0.5, neighbor_weights=ones, reset=True))
+    row["p_after_push_sum"] = p.tolist()
+
+    # win_get with receiver weights 0.25
+    bf.win_create(x, "get", zero_init=True)
+    quarter = [{s: 0.25 for s in in_nb[d]} for d in range(n)]
+    bf.win_get("get", src_weights=quarter)
+    record("win_get", slots("get"), slot_ref(0.25), 1,
+           lambda: bf.win_get("get", src_weights=quarter))
+
+    # win_put_update (default weights) on a window created from x
+    bf.win_create(x, "pu")
+    got = bf.win_put_update(x2, "pu")
+    check(versions("pu") == [[1] * len(in_nb[d]) + [0] * (maxd - len(in_nb[d]))
+                             for d in range(n)], f"windows {topo_name}: put_update versions")
+    record("win_put_update", got, mix(uniform, x2d), maxd + 2,
+           lambda: bf.win_put_update(x2, "pu"))
+
+    # a fused (dict) window: two leaves of one packed window
+    h = WIN_ELEMS // 2
+    tree = {"a": x[:, :h].reshape(n, 1024, -1), "b": x[:, h:]}
+    bf.win_create(tree, "fused")
+    bf.win_put(tree, "fused")
+    out = bf.win_update("fused")
+    check(sorted(out) == ["a", "b"] and out["a"].shape == tree["a"].shape,
+          f"windows {topo_name}: fused structure {({k: v.shape for k, v in out.items()})}")
+    got = torch.cat([out["a"].reshape(n, -1), out["b"]], dim=1)
+
+    def fused_round():
+        bf.win_put(tree, "fused")
+        bf.win_update("fused")
+
+    record("fused_put_update", got, mix(uniform, xd), maxd + 2, fused_round)
+    bf.win_free()
+    emit(row)
+    return row
+
+
+def phase_bert_pushsum(torch, rounds=4):
+    """BERT-base (the benchmark's "base" preset), 4 ranks x batch 32 x seq
+    128, through bluefog_tpu_torch.benchmarks.bert_pushsum.build_flows:
+    ``rounds`` eager rounds and ``rounds`` device-flow rounds from the same
+    state; equal parameters (Adam's first steps move a weight by at most
+    ~1.004 lr, so two runs whose gradients differ in rounding end within
+    2 x 1.004 x lr x rounds), finite losses, sum p = 4 after every update.
+    Round ms by the host clock around a synchronized round; tokens/s from
+    the rounds after the first."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.benchmarks import bert_pushsum as bp
+
+    cfg = bp.PRESETS["base"]
+    bf.init(size=RANKS, device="cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt), eager_step, device_rounds, meta = bp.build_flows(cfg, RANKS, seed=0)
+        dstate = meta["device_init"](params, opt)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, out
+
+        eager_ms, losses, device_ms, dlosses = [], [], [], []
+        for _ in range(rounds):
+            ms, (params, opt, loss) = timed(lambda: eager_step(params, opt))
+            eager_ms.append(ms)
+            losses.append(loss.tolist())
+        for _ in range(rounds):
+            ms, (dstate, loss) = timed(lambda: device_rounds(dstate, 1))
+            device_ms.append(ms)
+            dlosses.append(loss.tolist())
+        peak = torch.cuda.max_memory_allocated()
+        err = max((params[k].detach() - dstate["params"][k].detach()).abs().max().item()
+                  for k in params)
+        tol = 2 * 1.004 * bp.LR * rounds
+        p_mass = torch.stack(meta["p_mass"]).tolist()
+        tokens = RANKS * meta["B"] * meta["T"]
+        steady = sum(eager_ms[1:]) / (rounds - 1)
+        steady_dev = sum(device_ms[1:]) / (rounds - 1)
+        row = {"phase": "bert_pushsum", "preset": "base", "ranks": RANKS,
+               "per_rank_batch": meta["B"], "seq": meta["T"], "n_params": meta["n_params"],
+               "rounds": rounds, "eager_round_ms": eager_ms, "device_round_ms": device_ms,
+               "tokens_per_s": tokens / (steady / 1e3),
+               "device_flow_tokens_per_s": tokens / (steady_dev / 1e3),
+               "peak_gb": peak / 1e9, "losses": losses, "device_flow_losses": dlosses,
+               "eager_vs_device_max_abs_err": err, "tol": tol, "p_mass": p_mass}
+        emit(row)
+        flat = [x for r in losses + dlosses for x in r]
+        check(all(math.isfinite(x) for x in flat), f"bert_pushsum: non-finite loss {flat}")
+        check(len(p_mass) == 2 * rounds and all(abs(m - RANKS) < 1e-5 for m in p_mass),
+              f"bert_pushsum: sum p after update {p_mass}, expected {RANKS}")
+        check(err <= tol, f"bert_pushsum: eager and device flows {err} apart (tol {tol})")
+        check(100e6 < meta["n_params"] < 120e6, f"bert_pushsum: {meta['n_params']} parameters")
+        return row
+    finally:
+        bf.shutdown()
+
+
+ALG_SIZE, ALG_DIM, ALG_LR, ALG_ITERS = 8, 6, 0.05, 600
+
+
+def _quadratics(np, rng):
+    """The reference test's heterogeneous quadratics
+    (tests/test_algorithms.py: f_r(w) = 0.5 (w - c_r)^T A_r (w - c_r) with
+    well-spread centers), copied here: A, c (f32) and w* (float64)."""
+    As, cs = [], []
+    for _ in range(ALG_SIZE):
+        M = rng.normal(size=(ALG_DIM, ALG_DIM))
+        As.append(M @ M.T / ALG_DIM + np.eye(ALG_DIM))
+        cs.append(rng.normal(size=(ALG_DIM,)) * 3.0)
+    A, c = np.stack(As), np.stack(cs)
+    w_star = np.linalg.solve(A.sum(0), np.einsum("rij,rj->i", A, c))
+    return A.astype(np.float32), c.astype(np.float32), w_star
+
+
+def phase_exact_algorithms(torch):
+    """Gradient tracking and EXTRA (600 steps, ExponentialTwoGraph(8)),
+    Push-DIGing (1200 steps, a ring plus 0 -> 2 and 0 -> 4, the port's
+    DiGraph) on the card: distance to the centralized optimum within the
+    reference tests' tolerances (1e-4, 1e-3, 1e-3); ATC at the same step
+    stays above 1e-2."""
+    import numpy as np
+
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import algorithms, topology_util as tu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(opt, A, c, iters):
+        A, c = torch.from_numpy(A).cuda(), torch.from_numpy(c).cuda()
+        params = {"w": torch.zeros(ALG_SIZE, ALG_DIM, device="cuda")}
+        state = opt.init(params)
+        for _ in range(iters):
+            grads = {"w": torch.einsum("rij,rj->ri", A, params["w"] - c)}
+            params, state = opt.step(params, grads, state)
+        return params["w"].double().cpu().numpy()
+
+    G = tu.DiGraph()
+    G.add_nodes_from(range(ALG_SIZE))
+    for r in range(ALG_SIZE):
+        G.add_edge(r, (r + 1) % ALG_SIZE)
+    G.add_edge(0, 2)
+    G.add_edge(0, 4)
+
+    class DirectedPushDIGing(bf.DistributedPushDIGingOptimizer):
+        def _plan(self, ctx):
+            return algorithms.column_stochastic_plan(G)
+
+    bf.init(tu.ExponentialTwoGraph(ALG_SIZE), size=ALG_SIZE, device="cuda")
+    try:
+        row = {"phase": "exact_algorithms", "ranks": ALG_SIZE, "dim": ALG_DIM, "lr": ALG_LR}
+        for name, cls, seed, iters, tol in (
+                ("gt", bf.DistributedGradientTrackingOptimizer, 0, ALG_ITERS, 1e-4),
+                ("extra", bf.DistributedEXTRAOptimizer, 0, ALG_ITERS, 1e-3),
+                ("pushdiging", DirectedPushDIGing, 1, 2 * ALG_ITERS, 1e-3)):
+            A, c, w_star = _quadratics(np, np.random.default_rng(seed))
+            t0 = time.perf_counter()
+            w = run(cls(ALG_LR), A, c, iters)
+            row[name] = {"iters": iters, "dist_to_optimum": float(np.abs(w.mean(0) - w_star).max()),
+                         "spread": float(np.abs(w - w.mean(0)).max()), "tol": tol,
+                         "s": time.perf_counter() - t0}
+        A, c, w_star = _quadratics(np, np.random.default_rng(2))
+        At, ct = torch.from_numpy(A).cuda(), torch.from_numpy(c).cuda()
+        w = torch.zeros(ALG_SIZE, ALG_DIM, device="cuda", requires_grad=True)
+        atc = bf.DistributedAdaptThenCombineOptimizer(torch.optim.SGD([w], lr=ALG_LR),
+                                                      plan=bf.context().plan)
+        for _ in range(ALG_ITERS):
+            w.grad = torch.einsum("rij,rj->ri", At, w.detach() - ct)
+            atc.step()
+        w_gt = run(bf.DistributedGradientTrackingOptimizer(ALG_LR), A, c, ALG_ITERS)
+        row["atc_dist_to_optimum"] = float(np.abs(w.detach().double().cpu().numpy().mean(0)
+                                                  - w_star).max())
+        row["gt_same_problem_dist"] = float(np.abs(w_gt.mean(0) - w_star).max())
+        emit(row)
+        for name in ("gt", "extra", "pushdiging"):
+            r = row[name]
+            check(r["dist_to_optimum"] < r["tol"] and r["spread"] < r["tol"],
+                  f"exact_algorithms: {name} {r}")
+        check(row["atc_dist_to_optimum"] > 1e-2,
+              f"exact_algorithms: ATC unexpectedly exact ({row['atc_dist_to_optimum']})")
+        check(row["gt_same_problem_dist"] < 1e-4, f"exact_algorithms: GT {row}")
+        return row
+    finally:
+        bf.shutdown()
+
+
 def main():
     import torch
 
@@ -924,6 +1266,9 @@ def main():
     row, comp_counts = phase_roofline(torch, fa, ac, roof)
     comp_table = component_times(torch, ac, roof, row)
     phase_resnet(torch)
+    phase_windows(torch)
+    phase_bert_pushsum(torch)
+    phase_exact_algorithms(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",

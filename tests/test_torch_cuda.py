@@ -426,3 +426,73 @@ def test_mnist_example_trains_on_the_card(cuda_device):
     assert out["device"].startswith("cuda")
     first, last = (out["epochs"][i]["train_loss"] for i in (0, -1))
     assert last < first, (first, last)
+
+
+def _window_sequence(device, dtype):
+    """One pass over every window op on 4 ranks of ExponentialTwoGraph(4),
+    associated p on; returns everything the ops hand back, on the CPU."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology_util as tu
+
+    gen = torch.Generator().manual_seed(3)
+    x, x2 = (torch.randn(4, 1000, generator=gen).to(dtype) for _ in range(2))
+    bf.init(tu.ExponentialTwoGraph(4), size=4, device=device)
+    try:
+        bf.turn_on_win_ops_with_associated_p()
+        out = {}
+        x, x2 = x.to(device), x2.to(device)
+        bf.win_create(x, "w", zero_init=True)
+        h = bf.win_put_nonblocking(x, "w", dst_weights=[{1: 2.0}, {}, {}, {}])
+        assert h.poll() in (True, False)
+        h.wait()
+        bf.win_accumulate(x2, "w")
+        bf.win_get("w", src_weights=[{s: 0.25 for s in bf.in_neighbor_ranks(d)}
+                                     for d in range(4)])
+        out["update"] = bf.win_update("w", self_weight=0.5, reset=True)
+        out["p"] = bf.win_associated_p("w")
+        out["put_update"] = bf.win_put_update(x2, "w")
+        tree = {"a": x[:, :600].reshape(4, 20, 30), "b": x[:, 600:]}
+        bf.win_create(tree, "f")
+        bf.win_put(tree, "f")
+        fused = bf.win_update("f", clone=True)
+        out["fused_a"], out["fused_b"] = fused["a"], fused["b"]
+        out["versions"] = torch.tensor([list(v.values()) for v in bf.get_win_version("w")])
+        return {k: v.cpu() for k, v in out.items()}
+    finally:
+        bf.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_ops_on_the_card_match_the_cpu(cuda_device, dtype):
+    """The same window-op sequence on the card and on the CPU (the CPU route
+    is held against the JAX package in test_torch_windows.py): f32 within
+    1e-6, bf16 within one bf16 step of the value."""
+    want = _window_sequence("cpu", dtype)
+    got = _window_sequence("cuda", dtype)
+    for k, w in want.items():
+        tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(got[k].double(), w.double(), rtol=tol, atol=tol, msg=k)
+
+
+def test_bert_pushsum_round_on_the_card(cuda_device):
+    """One push-sum round of the tiny BERT preset on 4 ranks, eager and
+    device flows from the same state: finite losses, equal parameters
+    (within Adam's 2 x 1.004 x lr bound for one round), sum p = 4."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.benchmarks import bert_pushsum as bp
+
+    bf.init(size=4)
+    try:
+        (params, opt), eager_step, device_rounds, meta = bp.build_flows(bp.PRESETS["tiny"], 4)
+        dstate = meta["device_init"](params, opt)
+        params, opt, loss = eager_step(params, opt)
+        dstate, dloss = device_rounds(dstate, 1)
+        assert params["pos_embedding"].is_cuda
+        assert torch.isfinite(loss).all() and torch.isfinite(dloss).all()
+        for k in params:
+            torch.testing.assert_close(dstate["params"][k], params[k], rtol=0,
+                                       atol=2 * 1.004 * bp.LR)
+        p_mass = torch.stack(meta["p_mass"])
+        torch.testing.assert_close(p_mass, torch.full_like(p_mass, 4.0))
+    finally:
+        bf.shutdown()

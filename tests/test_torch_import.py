@@ -83,3 +83,42 @@ def test_init_selects_cuda_and_raises_without_a_card():
         basics.shutdown()
     with pytest.raises(RuntimeError, match="not initialized"):
         basics.context()
+
+
+NEW_MODULES = ["windows.py", "algorithms.py", "examples/bert_pushsum.py",
+               "examples/average_consensus.py", "examples/optimization.py",
+               "benchmarks/bert_pushsum.py"]
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_guard_covers_the_window_slice(rel):
+    """The AST guard above walks these files, and none imports jax, the JAX
+    package, ``bench`` or ``benchmarks``."""
+    path = os.path.join(PKG_DIR, rel)
+    assert path in set(_sources())
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            for name in names:
+                assert name.split(".")[0] not in ("bluefog_tpu", "bench", "benchmarks", "jax",
+                                                  "flax", "optax"), f"{rel} imports {name}"
+
+
+@pytest.mark.parametrize("module", ["examples.bert_pushsum", "examples.average_consensus",
+                                    "examples.optimization", "benchmarks.bert_pushsum"])
+def test_window_slice_entry_points_ask_for_the_card(module):
+    """Without ``--device`` every new entry point asks for the card, and
+    raises where there is none (nothing falls back to the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    import importlib
+
+    mod = importlib.import_module(f"bluefog_tpu_torch.{module}")
+    args = mod._parser().parse_args([])
+    assert args.device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.run(args)
+    assert not basics.is_initialized()
