@@ -80,7 +80,7 @@ def column_stochastic_plan(topology) -> CommPlan:
 
 
 def _comm(plan: CommPlan):
-    return lambda tree: ops.neighbor_allreduce(tree, plan, fuse=True)
+    return lambda tree: ops.neighbor_allreduce_plan(tree, plan, fuse=True)
 
 
 def _updates(x_new, params):

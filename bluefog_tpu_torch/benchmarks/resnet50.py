@@ -9,19 +9,23 @@ statistics), ``--size`` virtual ranks on one card over
 0.9), each rank's BatchNorm statistics local to it.  One synthetic batch
 from ``--seed`` is reused every step, as in ``bench.py``.
 
-Two train states are built from the same initial weights: one mixes
-parameters by ATC ``neighbor_allreduce``, the other averages gradients by
-``allreduce``.  After ``--warmup`` steps of each, they are timed in turns
-(gossip, allreduce, allreduce, gossip, per ``--rounds``): ``--steps``
-synchronized steps between two CUDA events a turn.  cuDNN picks its
+Three train states are built from the same initial weights: one mixes
+parameters by ATC ``neighbor_allreduce``, one averages gradients by
+``allreduce``, and one mixes by ATC ``hierarchical_neighbor_allreduce``
+(BASELINE config #4): the ranks form machines of ``--local-size``
+consecutive ranks, each machine's ranks are averaged and the machines mix
+on ``ExponentialTwoGraph(machines)``.  After ``--warmup`` steps of each,
+they are timed in turns (gossip, allreduce, hierarchical, then the same
+backwards, per ``--rounds``): ``--steps`` synchronized steps between two
+CUDA events a turn.  cuDNN picks its
 convolution algorithms by measurement (``cudnn.benchmark``) during the
-warm-up.  ``--profile`` traces one more gossip step and reports device time
-by kernel and the device's idle share.
+warm-up.  ``--profile`` traces one more step of each mode and reports
+device time by kernel and the device's idle share, by mode.
 
     python -m bluefog_tpu_torch.benchmarks.resnet50
 
-prints one JSON line: images/s of each turn and their median for both
-modes, step ms, peak device memory, and the card's name and power limit.
+prints one JSON line: images/s of each turn and their median for each
+mode, step ms, peak device memory, and the card's name and power limit.
 It claims nothing: it is the measurement a benchmark cell can be built on.
 """
 
@@ -48,13 +52,15 @@ from bluefog_tpu_torch.training import (
     replicate_for_mesh,
 )
 
-MODES = ("neighbor_allreduce", "allreduce")
+MODES = ("neighbor_allreduce", "allreduce", "hierarchical_neighbor_allreduce")
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128, help="per-rank batch")
     ap.add_argument("--size", type=int, default=4, help="virtual ranks")
+    ap.add_argument("--local-size", type=int, default=2,
+                    help="ranks a machine of the hierarchical mode")
     ap.add_argument("--image", type=int, default=224)
     ap.add_argument("--classes", type=int, default=1000)
     ap.add_argument("--filters", type=int, default=64, help="ResNet width (64 = ResNet-50)")
@@ -66,7 +72,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one gossip step with torch.profiler")
+                    help="trace one step of each mode with torch.profiler")
     return ap
 
 
@@ -80,12 +86,16 @@ def rank_major_state(model: torch.nn.Module, n: int) -> Tuple[Dict, Dict]:
 def make_step(model, params: Dict, stats: Dict, mode: str, lr: float = 0.1,
               momentum: float = 0.9) -> Tuple[Callable, torch.optim.Optimizer]:
     """``(step_fn, base_optimizer)``: momentum SGD under ATC
-    ``neighbor_allreduce`` or gradient ``allreduce``, with batch statistics."""
+    ``neighbor_allreduce``, gradient ``allreduce`` or ATC
+    ``hierarchical_neighbor_allreduce`` (on the context's machine plan),
+    with batch statistics."""
     opt = torch.optim.SGD(list(params.values()), lr=lr, momentum=momentum)
+    ctx = bf.context()
+    hier = mode == "hierarchical_neighbor_allreduce"
     step_fn = make_decentralized_train_step(
         make_classifier_apply_fn(model), params, opt,
-        communication_type=CommunicationType[mode], plan=bf.context().plan,
-        batch_stats=stats)
+        communication_type=CommunicationType[mode], plan=ctx.plan,
+        machine_plan=ctx.machine_plan if hier else None, batch_stats=stats)
     return step_fn, opt
 
 
@@ -118,7 +128,7 @@ def timed_steps(step_fn: Callable, x, y, steps: int, cuda: bool) -> Tuple[float,
 
 def run(args: argparse.Namespace) -> Dict:
     bf.init(topology_util.ExponentialTwoGraph(args.size), size=args.size,
-            device=args.device)
+            local_size=args.local_size, device=args.device)
     try:
         dev, n = bf.device(), bf.size()
         cuda = dev.type == "cuda"
@@ -151,7 +161,10 @@ def run(args: argparse.Namespace) -> Dict:
             "metric": "resnet50_images_per_s", "model": "ResNet50",
             "config": {"ranks": n, "per_rank_batch": args.batch, "image": args.image,
                        "classes": args.classes, "filters": args.filters,
-                       "topology": f"ExponentialTwoGraph({n})", "optimizer": "sgd",
+                       "topology": f"ExponentialTwoGraph({n})",
+                       "machines": bf.machine_size(), "local_size": bf.local_size(),
+                       "machine_topology": f"ExponentialTwoGraph({bf.machine_size()})",
+                       "optimizer": "sgd",
                        "lr": args.lr, "momentum": 0.9, "dtype": "bf16",
                        "batch_stats": "per rank", "steps_a_turn": args.steps,
                        "warmup": args.warmup, "rounds": args.rounds},
@@ -163,11 +176,17 @@ def run(args: argparse.Namespace) -> Dict:
                          "step_ms": step_ms[mode], "last_losses": losses[mode]}
         out["gossip_over_allreduce"] = (out["neighbor_allreduce"]["images_per_s_median"]
                                         / out["allreduce"]["images_per_s_median"])
+        out["hierarchical_over_allreduce"] = (
+            out["hierarchical_neighbor_allreduce"]["images_per_s_median"]
+            / out["allreduce"]["images_per_s_median"])
         if args.profile:
-            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-            with prof:
-                ms, _ = timed_steps(steps["neighbor_allreduce"], x, y, 1, cuda)
-            out["profile"] = device_profile(prof, ms, top=25)
+            out["profile"] = {}
+            for mode in MODES:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                with prof:
+                    ms, _ = timed_steps(steps[mode], x, y, 1, cuda)
+                out["profile"][mode] = device_profile(prof, ms, top=25)
         if cuda:
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
             out["gpu"] = torch.cuda.get_device_name(dev)

@@ -12,7 +12,13 @@ per rank.
   Win-put:                    w_{t+1} = win_update(win_put(w_t - a u_t)),
                               the one-sided window round.
 
-The combine updates the parameters in place under ``no_grad``.
+The combine updates the parameters in place under ``no_grad``.  An ATC /
+AWC optimizer built without a plan reads the installed topology's plan
+(and, for the hierarchical communication, the machine plan) at every
+step, as the reference's ``_transform`` does, so ``set_topology`` between
+steps takes effect; ``step(plan=)`` overrides the plan for one step.  Every step counts in the
+``optim.steps`` telemetry counter and runs inside an
+``optimizer_step_<mode>_<comm>`` timeline span.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch
 from bluefog_tpu_torch import ops, topology_util, windows
 from bluefog_tpu_torch.core import basics
 from bluefog_tpu_torch.core.plan import CommPlan, plan_from_neighbor_lists
+from bluefog_tpu_torch.telemetry import registry as _telemetry
+from bluefog_tpu_torch.timeline import timeline_context
 
 __all__ = [
     "CommunicationType",
@@ -43,19 +51,24 @@ __all__ = [
 class CommunicationType(enum.Enum):
     allreduce = "allreduce"
     neighbor_allreduce = "neighbor.allreduce"
+    hierarchical_neighbor_allreduce = "hierarchical.neighbor.allreduce"
     empty = "empty"
 
 
 CommFn = Callable[[List[torch.Tensor]], List[torch.Tensor]]
 
 
-def make_comm_fn(comm_type: CommunicationType, plan: Optional[CommPlan] = None,
-                 fuse: bool = False) -> CommFn:
-    """The communication function for a CommunicationType: a list of
-    rank-major tensors in, the combined list out."""
+def _check_fuse(comm_type: CommunicationType, fuse: bool) -> None:
     if fuse and comm_type != CommunicationType.neighbor_allreduce:
         raise ValueError(
             f"fuse=True is only implemented for neighbor_allreduce, not {comm_type}")
+
+
+def make_comm_fn(comm_type: CommunicationType, plan: Optional[CommPlan] = None,
+                 fuse: bool = False, machine_plan: Optional[CommPlan] = None) -> CommFn:
+    """The communication function for a CommunicationType: a list of
+    rank-major tensors in, the combined list out."""
+    _check_fuse(comm_type, fuse)
     if comm_type == CommunicationType.empty:
         return lambda xs: xs
     if comm_type == CommunicationType.allreduce:
@@ -63,23 +76,51 @@ def make_comm_fn(comm_type: CommunicationType, plan: Optional[CommPlan] = None,
     if comm_type == CommunicationType.neighbor_allreduce:
         if plan is None:
             raise ValueError("neighbor_allreduce needs a CommPlan")
-        return lambda xs: ops.neighbor_allreduce(xs, plan, fuse=fuse)
+        return lambda xs: ops.neighbor_allreduce_plan(xs, plan, fuse=fuse)
+    if comm_type == CommunicationType.hierarchical_neighbor_allreduce:
+        if machine_plan is None:
+            raise ValueError("hierarchical_neighbor_allreduce needs a machine CommPlan")
+        return lambda xs: ops.hierarchical_neighbor_allreduce_plan(xs, machine_plan)
     raise ValueError(f"unknown communication type {comm_type}")
 
 
 class _DistributedOptimizer:
     """Wraps ``base`` (a ``torch.optim.Optimizer`` over rank-major leaves);
-    ``step()`` runs the local update and the communication."""
+    ``step()`` runs the local update and the communication.  ``plan`` /
+    ``machine_plan`` fix the plans; left None, each step reads them from
+    the context."""
+
+    _mode = "atc"
 
     def __init__(self, base: torch.optim.Optimizer,
                  communication_type: CommunicationType = CommunicationType.neighbor_allreduce,
                  plan: Optional[CommPlan] = None,
-                 num_steps_per_communication: int = 1, fuse: bool = False):
+                 num_steps_per_communication: int = 1, fuse: bool = False,
+                 machine_plan: Optional[CommPlan] = None):
+        _check_fuse(communication_type, fuse)
         self.base = base
-        self.comm = make_comm_fn(communication_type, plan, fuse)
+        self.communication_type = communication_type
+        self.plan, self.machine_plan, self.fuse = plan, machine_plan, fuse
         self.k = max(1, int(num_steps_per_communication))
         self.steps = 0
         self.params = [p for group in base.param_groups for p in group["params"]]
+
+    def _comm(self, plan: Optional[CommPlan]) -> CommFn:
+        """This step's communication: ``plan`` (the one-step override), the
+        fixed plans, or the context's current ones."""
+        comm = self.communication_type
+        if plan is not None:
+            if comm != CommunicationType.neighbor_allreduce:
+                raise ValueError("per-step plan override requires neighbor_allreduce")
+            world = basics.context().size
+            if plan.size != world:
+                raise ValueError(f"plan is for {plan.size} ranks, the context has {world}")
+        elif comm == CommunicationType.neighbor_allreduce:
+            plan = self.plan or basics.context().plan
+        mplan = self.machine_plan
+        if mplan is None and comm == CommunicationType.hierarchical_neighbor_allreduce:
+            mplan = basics.context().machine_plan
+        return make_comm_fn(comm, plan, self.fuse, mplan)
 
     def _communicates(self) -> bool:
         # every k-th call, as the JAX package's _every_k
@@ -88,52 +129,66 @@ class _DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.base.zero_grad(set_to_none=set_to_none)
 
+    def step(self, plan: Optional[CommPlan] = None) -> None:
+        """One step: the local update and (every k-th step) the
+        communication, over ``plan`` for this step where given."""
+        comm = self._comm(plan)
+        reg = _telemetry.get_registry()
+        if reg.enabled:
+            reg.counter("optim.steps", optimizer=self._mode,
+                        comm=self.communication_type.name).inc()
+        with timeline_context(f"optimizer_step_{self._mode}_{self.communication_type.name}"):
+            self._step(comm if self._communicates() else None)
+        self.steps += 1
+
 
 class DistributedAdaptThenCombineOptimizer(_DistributedOptimizer):
     """ATC: local step, then neighbor-combine the adapted parameters."""
 
-    def step(self) -> None:
+    _mode = "atc"
+
+    def _step(self, comm: Optional[CommFn]) -> None:
         self.base.step()
-        if self._communicates():
+        if comm is not None:
             with torch.no_grad():
-                for p, c in zip(self.params, self.comm([p.detach() for p in self.params])):
+                for p, c in zip(self.params, comm([p.detach() for p in self.params])):
                     p.copy_(c)
-        self.steps += 1
 
 
 class DistributedAdaptWithCombineOptimizer(_DistributedOptimizer):
     """AWC: ``w <- comm(w) + u`` with u the local update computed at w."""
 
-    def step(self) -> None:
+    _mode = "awc"
+
+    def _step(self, comm: Optional[CommFn]) -> None:
         deltas = None
-        if self._communicates():
+        if comm is not None:
             with torch.no_grad():
-                combined = self.comm([p.detach() for p in self.params])
+                combined = comm([p.detach() for p in self.params])
                 deltas = [c.to(p.dtype) - p for p, c in zip(self.params, combined)]
         self.base.step()
         if deltas is not None:
             with torch.no_grad():
                 for p, dlt in zip(self.params, deltas):
                     p.add_(dlt)
-        self.steps += 1
 
 
 class DistributedGradientAllreduceOptimizer(_DistributedOptimizer):
     """Synchronous data parallelism: gradients averaged over ranks before the
-    local step (the baseline the gossip modes are compared with)."""
+    local step (the baseline the gossip modes are compared with).  Its
+    telemetry and timeline labels say ``atc``, as the reference's do."""
 
     def __init__(self, base: torch.optim.Optimizer, num_steps_per_communication: int = 1):
         super().__init__(base, CommunicationType.allreduce,
                          num_steps_per_communication=num_steps_per_communication)
 
-    def step(self) -> None:
-        if self._communicates():
+    def _step(self, comm: Optional[CommFn]) -> None:
+        if comm is not None:
             with torch.no_grad():
                 with_grad = [p for p in self.params if p.grad is not None]
-                for p, g in zip(with_grad, self.comm([p.grad for p in with_grad])):
+                for p, g in zip(with_grad, comm([p.grad for p in with_grad])):
                     p.grad.copy_(g)
         self.base.step()
-        self.steps += 1
 
 
 class DistributedWinPutOptimizer:
@@ -176,8 +231,13 @@ class DistributedWinPutOptimizer:
     def step(self) -> None:
         self.base.step()
         self.steps += 1
+        reg = _telemetry.get_registry()
+        if reg.enabled:
+            reg.counter("optim.steps", optimizer="winput").inc()
         if self.steps % self.k:
             return
+        if reg.enabled:
+            reg.counter("optim.gossip_rounds", optimizer="winput").inc()
         with torch.no_grad():
             for name, idxs in self._groups:
                 leaves = [self.params[i].detach() for i in idxs]
@@ -189,8 +249,19 @@ class DistributedWinPutOptimizer:
                 for i, part in zip(idxs, parts):
                     self.params[i].copy_(part)
 
+    def close(self) -> None:
+        """Nothing to drain: the emulation has no background pipeline.  Kept
+        so teardown written for the reference (``finish`` / ``close`` /
+        ``free``) runs unchanged."""
+
+    def finish(self, params):
+        """``close()``, then ``params`` unchanged (no pipeline to apply)."""
+        self.close()
+        return params
+
     def free(self) -> None:
         """Release this optimizer's windows."""
+        self.close()
         if self._created:
             ctx = basics.context()
             for name in [n for n in ctx.windows if n.startswith(self.prefix + ".")]:

@@ -8,7 +8,9 @@ communication of the chosen mode.  Batch statistics (the ResNet's
 BatchNorm buffers) are rank-major too and stay local to each rank, as in
 the reference: rank r normalizes with its own batch and its model moves
 its running averages in place in its own slice ``B[r]``; only parameters
-are communicated.
+are communicated.  Every call of a step counts in the ``train.steps``
+telemetry counter (k for ``steps_per_call=k``) and runs inside a
+``train_step`` timeline span.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from bluefog_tpu_torch.core.plan import CommPlan
+from bluefog_tpu_torch.telemetry import registry as _telemetry
+from bluefog_tpu_torch.timeline import timeline_context
 from bluefog_tpu_torch.optim import (
     CommunicationType,
     DistributedAdaptThenCombineOptimizer,
@@ -103,11 +107,13 @@ def make_decentralized_train_step(
     *,
     communication_type: CommunicationType = CommunicationType.neighbor_allreduce,
     plan: Optional[CommPlan] = None,
+    machine_plan: Optional[CommPlan] = None,
     mode: str = "atc",
     loss_fn: Callable = softmax_cross_entropy,
     num_steps_per_communication: int = 1,
     comm_fuse: bool = False,
     batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+    steps_per_call: int = 1,
 ):
     """Build ``step_fn(batch, labels) -> (losses [N], accuracy [N])`` (f32,
     detached).
@@ -115,9 +121,15 @@ def make_decentralized_train_step(
     ``params`` maps names to rank-major leaves; ``base_optimizer`` is a
     ``torch.optim`` optimizer constructed over exactly those leaves.
     ``batch``/``labels`` are rank-major ``[N, B, ...]``.  ``mode`` picks
-    ATC or AWC for the neighbor modes; ``CommunicationType.allreduce``
-    averages gradients instead.  ``apply_fn(state, x)`` gets one rank's
-    slices, plus ``labels=`` where it declares that parameter
+    ATC or AWC for the neighbor modes, which mix over ``plan``
+    (``neighbor_allreduce``) or average each machine's ranks and mix the
+    machines over ``machine_plan`` (``hierarchical_neighbor_allreduce``);
+    each raises without its plan.  ``CommunicationType.allreduce``
+    averages gradients instead.  ``steps_per_call=k`` runs k full steps a
+    call on ``batch``/``labels`` with a leading ``[k]`` sub-step axis and
+    returns the last sub-step's losses and accuracies.
+    ``apply_fn(state, x)`` gets one rank's slices, plus ``labels=`` where
+    it declares that parameter
     (:func:`apply_accepts_labels`).  ``batch_stats``, where given, maps
     buffer names to rank-major buffers ``[N, ...]``;
     rank r's slices join its parameters in ``state``, and a model in
@@ -138,12 +150,18 @@ def make_decentralized_train_step(
             raise ValueError("comm_fuse=True is only implemented for neighbor_allreduce")
         opt = DistributedGradientAllreduceOptimizer(base_optimizer, num_steps_per_communication)
     else:
+        if communication_type == CommunicationType.neighbor_allreduce and plan is None:
+            raise ValueError("neighbor_allreduce needs a CommPlan")
+        if (communication_type == CommunicationType.hierarchical_neighbor_allreduce
+                and machine_plan is None):
+            raise ValueError("hierarchical_neighbor_allreduce needs a machine CommPlan")
         cls = {"atc": DistributedAdaptThenCombineOptimizer,
                "awc": DistributedAdaptWithCombineOptimizer}[mode]
         opt = cls(base_optimizer, communication_type, plan,
-                  num_steps_per_communication, comm_fuse)
+                  num_steps_per_communication, comm_fuse, machine_plan)
+    k = max(1, int(steps_per_call))
 
-    def step_fn(batch, labels):
+    def one_step(batch, labels):
         opt.zero_grad(set_to_none=True)
         losses, accs = [], []
         for r in range(n):
@@ -160,5 +178,23 @@ def make_decentralized_train_step(
                 accs.append(torch.full_like(losses[-1], float("nan")))
         opt.step()
         return torch.stack(losses), torch.stack(accs)
+
+    def step_fn(batch, labels):
+        if k > 1:
+            lead = {batch.shape[0], labels.shape[0]}
+            if lead != {k}:
+                # a [ranks, B, ...] batch here would train on wrong slices
+                raise ValueError(
+                    f"steps_per_call={k} needs batch/labels with a leading [{k}] "
+                    f"sub-step axis; got leading dims {sorted(lead)}")
+        reg = _telemetry.get_registry()
+        if reg.enabled:
+            reg.counter("train.steps").add(k)
+        with timeline_context("train_step"):
+            if k == 1:
+                return one_step(batch, labels)
+            for i in range(k):
+                out = one_step(batch[i], labels[i])
+            return out
 
     return step_fn

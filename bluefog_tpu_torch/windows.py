@@ -29,10 +29,14 @@ of its input), and ``win_associated_p`` returns a copy.  The mailbox never
 leaves the module and is updated in place.  A fused window's ``win_update``
 returns views into the new exposure; pass ``clone=True`` for copies.
 
+Every public op publishes ``(op, name)`` through
+:func:`bluefog_tpu_torch.telemetry.note_op` (the ``win_ops.total``
+counter, and the listeners such as :func:`record_win_ops`), and the ops
+that move data run inside a timeline span, as in the reference.
+
 Not ported: ``win_put_async`` / ``win_accumulate_async`` /
 ``win_update_async`` (they need the island runtime's ``progress``
-package) and the timeline and telemetry hooks; ``record_win_ops`` listens
-on this module's own op log.
+package).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from bluefog_tpu_torch import ops
 from bluefog_tpu_torch.common.logging_util import logger
 from bluefog_tpu_torch.core import basics
 from bluefog_tpu_torch.core.plan import CommPlan
+from bluefog_tpu_torch.telemetry import registry as _telemetry
+from bluefog_tpu_torch.timeline import timeline_context
 
 __all__ = [
     "win_create",
@@ -70,34 +76,58 @@ __all__ = [
     "turn_on_win_ops_with_associated_p",
     "turn_off_win_ops_with_associated_p",
     "record_win_ops",
+    "note_win_op",
     "degraded_update_weights",
 ]
 
 WeightsArg = Union[None, Sequence[Dict[int, float]]]
 
-# record_win_ops' target; None = recording off
+# record_win_ops' target; None = recording off.  The events come from the
+# telemetry op stream (telemetry.note_op), as in the reference.
 _OP_LOG: Optional[List[Tuple[str, str]]] = None
+
+
+def _op_log_listener(op: str, name: str) -> None:
+    log = _OP_LOG
+    if log is not None:
+        log.append((op, name))
 
 
 @contextlib.contextmanager
 def record_win_ops():
     """Record ``(op, window_name)`` for every public window op in the block
-    and yield the live list (the trace the epoch-ordering lint reads).
-    Nested recorders share the outer list; ``win_free(None)`` logs the
-    name ``"*"``."""
+    and yield the live list (the trace the epoch-ordering lint reads).  It
+    listens on the telemetry op stream (:func:`note_win_op`).  Nested
+    recorders share the outer list; ``win_free(None)`` logs the name
+    ``"*"``."""
     global _OP_LOG
     prev = _OP_LOG
     log = [] if prev is None else prev
     _OP_LOG = log
+    if prev is None:
+        _telemetry.add_op_listener(_op_log_listener)
     try:
         yield log
     finally:
         _OP_LOG = prev
+        if prev is None:
+            _telemetry.remove_op_listener(_op_log_listener)
 
 
-def _log_op(op: str, name: Optional[str]) -> None:
-    if _OP_LOG is not None:
-        _OP_LOG.append((op, "*" if name is None else name))
+def note_win_op(op: str, name: Optional[str]) -> None:
+    """Publish one window op on the telemetry op stream."""
+    _telemetry.note_op(op, name)
+
+
+def _spanned(op: str):
+    """Run the decorated window op inside the timeline span ``op``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with timeline_context(op):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 class _Window:
@@ -343,7 +373,7 @@ def win_create(tensor, name: str, zero_init: bool = False) -> bool:
     takes and returns the same tree).  The window keeps a copy, on the
     context's device, and snapshots the installed topology.  False if the
     name exists already."""
-    _log_op("win_create", name)
+    note_win_op("win_create", name)
     ctx = _ctx()
     meta, t = _fusion_split(tensor)
     if t.dim() == 0 or t.shape[0] != ctx.size:
@@ -358,7 +388,7 @@ def win_create(tensor, name: str, zero_init: bool = False) -> bool:
 
 def win_free(name: Optional[str] = None) -> bool:
     """Free one window, or all when ``name`` is None."""
-    _log_op("win_free", name)
+    note_win_op("win_free", name)
     ctx = _ctx()
     if name is None:
         ctx.windows.clear()
@@ -368,11 +398,12 @@ def win_free(name: Optional[str] = None) -> bool:
     return ctx.windows.pop(name, None) is not None
 
 
+@_spanned("win_put")
 def win_put(tensor, name: str, dst_weights: WeightsArg = None) -> bool:
     """Deposit the (optionally dst-scaled) values into this rank's slot at
     each out-neighbor; only at the ranks listed in ``dst_weights`` when
     given.  The put value also becomes the window's exposed tensor."""
-    _log_op("win_put", name)
+    note_win_op("win_put", name)
     win = _win(name)
     scales, active = _class_scales(win.plan, dst_weights, side="send")
     win.self_tensor = _exposure(win, name, tensor)
@@ -385,9 +416,10 @@ def win_put_nonblocking(tensor, name: str, dst_weights: WeightsArg = None) -> op
     return ops.Handle(device=_ctx().device)
 
 
+@_spanned("win_accumulate")
 def win_accumulate(tensor, name: str, dst_weights: WeightsArg = None) -> bool:
     """Like :func:`win_put`, but adds into the destination slot."""
-    _log_op("win_accumulate", name)
+    note_win_op("win_accumulate", name)
     win = _win(name)
     scales, active = _class_scales(win.plan, dst_weights, side="send")
     win.self_tensor = _exposure(win, name, tensor)
@@ -400,10 +432,11 @@ def win_accumulate_nonblocking(tensor, name: str, dst_weights: WeightsArg = None
     return ops.Handle(device=_ctx().device)
 
 
+@_spanned("win_get")
 def win_get(name: str, src_weights: WeightsArg = None) -> bool:
     """Pull the in-neighbors' exposed tensors into my slots, optionally
     scaled by the receiver (``src_weights``)."""
-    _log_op("win_get", name)
+    note_win_op("win_get", name)
     win = _win(name)
     # a get of s's exposure by d is a put of it to d scaled by d's weight:
     # within a class each (s, d) is unique, so the sender applies it
@@ -504,6 +537,7 @@ def _apply_update(win: _Window, x, self_weight, neighbor_weights, reset: bool):
     return combined
 
 
+@_spanned("win_update")
 def win_update(name: str, self_weight: Optional[Union[float, Sequence[float]]] = None,
                neighbor_weights: WeightsArg = None, reset: bool = False,
                clone: bool = False):
@@ -512,12 +546,13 @@ def win_update(name: str, self_weight: Optional[Union[float, Sequence[float]]] =
     ``clone``).  Default weights: uniform 1/(in_degree+1).  ``reset``
     empties the mailbox (and p's) after reading it: the accumulate
     idiom."""
-    _log_op("win_update", name)
+    note_win_op("win_update", name)
     win = _win(name)
     combined = _apply_update(win, win.self_tensor, self_weight, neighbor_weights, reset)
     return _result(name, combined, clone)
 
 
+@_spanned("win_put_update")
 def win_put_update(tensor, name: str, dst_weights: WeightsArg = None, *,
                    self_weight: Optional[Union[float, Sequence[float]]] = None,
                    neighbor_weights: WeightsArg = None, accumulate: bool = False,
@@ -525,7 +560,7 @@ def win_put_update(tensor, name: str, dst_weights: WeightsArg = None, *,
     """``win_put`` (or ``win_accumulate``) then ``win_update``, as one call:
     the same result as the two in sequence, returned like ``win_update``'s.
     Not a reference API; the hot path of :class:`DistributedWinPutOptimizer`."""
-    _log_op("win_put_update", name)
+    note_win_op("win_put_update", name)
     win = _win(name)
     scales, active = _class_scales(win.plan, dst_weights, side="send")
     x = _exposure(win, name, tensor)
@@ -542,7 +577,7 @@ def win_update_then_collect(name: str, require_mutex: bool = False):
     if require_mutex:
         logger.debug("win_update_then_collect(require_mutex=True): no-op under the "
                      "synchronous emulation")
-    _log_op("win_update_then_collect", name)
+    note_win_op("win_update_then_collect", name)
     win = _win(name)
     ones = [{s: 1.0 for s in win.plan.in_neighbors[d]} for d in range(win.plan.size)]
     return win_update(name, self_weight=1.0, neighbor_weights=ones, reset=True)
@@ -582,7 +617,7 @@ def win_set_exposed(name: str, tensor, associated_p=None) -> None:
     """Overwrite the exposed tensor (a copy of ``tensor``), and p when
     given, without a put: the push-sum debias-and-restart idiom (store
     x / p as the new x and reset p to 1)."""
-    _log_op("win_set_exposed", name)
+    note_win_op("win_set_exposed", name)
     win = _win(name)
     win.self_tensor = _exposure(win, name, tensor)
     if associated_p is not None:

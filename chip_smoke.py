@@ -92,7 +92,22 @@ Phases, each printing one JSON line:
                reference test's heterogeneous quadratics (8 ranks, dim 6):
                distance to the centralized optimum within 1e-4 / 1e-3 /
                1e-3, and ATC above 1e-2.
-Phases 8-10 run no kernel of the repo and add no row to the kernel table.
+11. eager_api -- the reference's eager API on 8 ranks = 4 machines x 2,
+               4M elements a rank, f32 and bf16: allgather,
+               neighbor_allgather on ExponentialTwoGraph(8) and
+               StarGraph(8), the dynamic neighbor_allreduce (src, dst,
+               both), hierarchical_neighbor_allreduce, pairwise_gossip, the
+               _nonblocking forms through synchronize, barrier; against a
+               float64 reference (gathers exact); ms of each op.
+12. hierarchical -- BASELINE config #4: ResNet-50 (224 x 224, 1000
+               classes), 8 ranks = 4 machines x 2, per-rank batch 16, ATC
+               momentum SGD with hierarchical_neighbor_allreduce on the
+               machine topology ExponentialTwoGraph(4), batch statistics,
+               3 steps: finite losses, running statistics moved and
+               differ, the ranks of a machine bit-equal, a leaf equal to
+               the machine plan's mix of the local means; then one call
+               with steps_per_call=2.
+Phases 8-12 run no kernel of the repo and add no row to the kernel table.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -693,7 +708,7 @@ def phase_resnet(torch):
                "ranks": RANKS, "per_rank_batch": RESNET_BATCH,
                "reduced": "per-rank batch 128 -> 32 (the benchmark's 128 in "
                           "bluefog_tpu_torch.benchmarks.resnet50)"}
-        for mode in rb.MODES:
+        for mode in ("neighbor_allreduce", "allreduce"):
             params, stats = rb.rank_major_state(model, RANKS)
             step_fn, opt = rb.make_step(model, params, stats, mode)
             leaf = "blocks.3.convs.1.weight"
@@ -1155,6 +1170,236 @@ def phase_bert_pushsum(torch, rounds=4):
         bf.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the rest of the eager API and the machine hierarchy.  Like the
+# window slice, it runs no kernel of the repo (gathers, indexed writes and
+# weighted sums in PyTorch), so it adds no row to the kernel table.
+# ---------------------------------------------------------------------------
+
+EAGER_RANKS, EAGER_LOCAL = 8, 2
+
+
+def phase_eager_api(torch):
+    """The eager API on 8 ranks = 4 machines x 2, WIN_ELEMS elements a rank,
+    f32 and bf16: allgather, neighbor_allgather on ExponentialTwoGraph(8)
+    and StarGraph(8), the dynamic neighbor_allreduce (src, dst, both),
+    hierarchical_neighbor_allreduce on ExponentialTwoGraph(4),
+    pairwise_gossip, each _nonblocking form through synchronize, and
+    barrier.  Gathers must be exact; the weighted ops are held against a
+    float64 reference on the card within _win_tol; a nonblocking form must
+    equal its blocking op.  ms a call between CUDA events (mean of
+    WIN_ITERS calls after one warm-up)."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import ops, topology_util as tu
+
+    n, loc = EAGER_RANKS, EAGER_LOCAL
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf.init(tu.ExponentialTwoGraph(n), size=n, local_size=loc, device="cuda")
+        try:
+            rows.append(_eager_case(torch, bf, ops, tu, dtype))
+        finally:
+            bf.shutdown()
+    return rows
+
+
+def _eager_case(torch, bf, ops, tu, dtype):
+    n, loc = EAGER_RANKS, EAGER_LOCAL
+    m = n // loc
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(n, WIN_ELEMS, generator=gen, device="cuda").to(dtype)
+    xd = x.double()
+    scale = xd.abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    row = {"phase": "eager_api", "dtype": name, "ranks": n, "machines": m,
+           "local_size": loc, "elements_a_rank": WIN_ELEMS, "ops": {}}
+
+    def record(op, got, want, terms, fn):
+        """``terms`` roundings allowed (_win_tol); 0 for a gather, which
+        moves values and must match exactly (``want`` then in x's dtype)."""
+        check(got.dtype == x.dtype, f"eager_api {name} {op}: dtype {got.dtype}")
+        if terms == 0:
+            err, tol = (0.0 if torch.equal(got, want) else math.inf), 0.0
+        else:
+            err = (got.double() - want).abs().max().item()
+            tol = _win_tol(torch, dtype, terms, scale * 2)
+        check(err <= tol, f"eager_api {name} {op}: |err| {err} > {tol}")
+        row["ops"][op] = {"max_abs_err": err, "tol": tol,
+                          "ms": cuda_ms(fn, iters=WIN_ITERS, warmup=1)}
+
+    def dense(W):  # rows of W mix the rank rows of x, in float64
+        return torch.tensor(W, dtype=torch.float64, device="cuda") @ xd
+
+    # allgather: every rank holds all ranks' rows, in order
+    got = bf.allgather(x)
+    check(got.shape == (n, n * WIN_ELEMS), f"eager_api allgather shape {tuple(got.shape)}")
+    record("allgather", got, x.reshape(1, -1).expand(n, -1), 0, lambda: bf.allgather(x))
+    del got
+
+    # neighbor_allgather: regular (concatenated) and StarGraph (padded)
+    for topo_name, topo in (("exp2", tu.ExponentialTwoGraph(n)), ("star", tu.StarGraph(n))):
+        bf.set_topology(topo)
+        plan = bf.context().plan
+        got = bf.neighbor_allgather(x)
+        maxd = plan.max_in_degree
+        want = torch.zeros((n, maxd, WIN_ELEMS), dtype=dtype, device="cuda")
+        for d in range(n):
+            for k, s in enumerate(plan.in_neighbors[d]):
+                want[d, k] = x[s]
+        if plan.is_regular:
+            want = want.reshape(n, maxd * WIN_ELEMS)
+        check(got.shape == want.shape, f"eager_api neighbor_allgather {topo_name} shape")
+        record(f"neighbor_allgather_{topo_name}", got, want, 0, lambda: bf.neighbor_allgather(x))
+        del got, want
+    bf.set_topology(tu.ExponentialTwoGraph(n))
+
+    # the dynamic neighbor_allreduce: src, dst and both
+    src = [{(r - 1) % n: 0.25, (r + 2) % n: 0.25} for r in range(n)]
+    dst = [{(s + 1) % n: 0.5} for s in range(n)]
+    both_dst = [{(s + 1) % n: 2.0, (s - 2) % n: 1.0} for s in range(n)]
+    W_src = [[0.0] * n for _ in range(n)]
+    W_dst = [[0.0] * n for _ in range(n)]
+    W_both = [[0.0] * n for _ in range(n)]
+    for d in range(n):
+        W_src[d][d], W_src[d][(d - 1) % n], W_src[d][(d + 2) % n] = 0.5, 0.25, 0.25
+        W_dst[d][d], W_dst[d][(d - 1) % n] = 0.5, 0.5
+        W_both[d][d], W_both[d][(d - 1) % n], W_both[d][(d + 2) % n] = 0.25, 0.5, 0.25
+    record("neighbor_allreduce_src", bf.neighbor_allreduce(x, src_weights=src), dense(W_src),
+           6, lambda: bf.neighbor_allreduce(x, src_weights=src))
+    record("neighbor_allreduce_dst", bf.neighbor_allreduce(x, 0.5, dst_weights=dst),
+           dense(W_dst), 4, lambda: bf.neighbor_allreduce(x, 0.5, dst_weights=dst))
+    record("neighbor_allreduce_src_dst",
+           bf.neighbor_allreduce(x, 0.25, src_weights=src, dst_weights=both_dst), dense(W_both),
+           6, lambda: bf.neighbor_allreduce(x, 0.25, src_weights=src, dst_weights=both_dst))
+
+    # hierarchical: local means, the machine plan's mix, repeated per machine
+    mplan = bf.context().machine_plan
+    local = xd.reshape(m, loc, -1).mean(1)
+    want = _plan_mix(mplan, local).to("cuda").repeat_interleave(loc, dim=0)
+    got = bf.hierarchical_neighbor_allreduce(x)
+    check(all(torch.equal(got[loc * k], got[loc * k + j]) for k in range(m)
+              for j in range(1, loc)), f"eager_api {name}: a machine's ranks differ")
+    record("hierarchical_neighbor_allreduce", got, want, 2 * (mplan.max_in_degree + 1) + loc + 1,
+           lambda: bf.hierarchical_neighbor_allreduce(x))
+    del got, want, local
+
+    # pairwise_gossip: ranks 2k and 2k + 1 swap and average
+    pairs = [(r, r ^ 1) for r in range(n)]
+    want = 0.5 * xd + 0.5 * xd[[r ^ 1 for r in range(n)]]
+    record("pairwise_gossip", ops.pairwise_gossip(x, pairs), want, 3,
+           lambda: ops.pairwise_gossip(x, pairs))
+
+    # the nonblocking forms equal their blocking ops
+    for op, args in (("allreduce", (False,)), ("broadcast", (3,)), ("allgather", ()),
+                     ("neighbor_allgather", ()), ("neighbor_allreduce", (0.5, src)),
+                     ("hierarchical_neighbor_allreduce", ())):
+        nb = getattr(bf, f"{op}_nonblocking")
+        h = nb(x, *args)
+        got = bf.synchronize(h)
+        check(h.poll() and torch.equal(got, getattr(bf, op)(x, *args)),
+              f"eager_api {name}: {op}_nonblocking differs from {op}")
+        row["ops"][f"{op}_nonblocking"] = {
+            "ms": cuda_ms(lambda: bf.synchronize(nb(x, *args)), iters=WIN_ITERS, warmup=1)}
+        del got
+    bf.barrier()
+    row["ops"]["barrier"] = {"ms": cuda_ms(bf.barrier, iters=WIN_ITERS, warmup=1)}
+    emit(row)
+    return row
+
+
+HIER_BATCH = 16  # per rank: 8 x 16 = the resnet phase's 4 x 32 images a step
+
+
+def phase_hierarchical(torch):
+    """BASELINE config #4 on the card: ResNet-50 (224 x 224, 1000 classes),
+    8 ranks = 4 machines x 2, per-rank batch HIER_BATCH, machine topology
+    ExponentialTwoGraph(4), ATC momentum SGD with
+    hierarchical_neighbor_allreduce and per-rank batch statistics,
+    RESNET_STEPS steps.  After each: finite losses, every rank's running
+    statistics moved and differ, the two ranks of each machine hold
+    bit-equal parameters, and a leaf equals the machine plan's mix of the
+    local means of the adapted values (float64 on the host) within 1e-6 of
+    its scale.  Then one call with steps_per_call=2."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology_util
+    from bluefog_tpu_torch.benchmarks import resnet50 as rb
+    from bluefog_tpu_torch.models import ResNet50
+    from bluefog_tpu_torch.training import make_classifier_apply_fn, make_decentralized_train_step
+
+    n, loc = EAGER_RANKS, EAGER_LOCAL
+    m = n // loc
+    bf.init(topology_util.ExponentialTwoGraph(n), size=n, local_size=loc, device="cuda")
+    try:
+        mplan = bf.context().machine_plan
+        check(mplan.size == m and topology_util.IsTopologyEquivalent(
+            bf.load_machine_topology(), topology_util.ExponentialTwoGraph(m)),
+            "hierarchical: machine topology is not ExponentialTwoGraph(4)")
+        model = ResNet50(num_classes=1000, device="cpu",
+                         generator=torch.Generator().manual_seed(0)).cuda()
+        x, y = rb.synthetic_batch(n, HIER_BATCH, 224, 1000, "cuda", seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        params, stats = rb.rank_major_state(model, n)
+        step_fn, opt = rb.make_step(model, params, stats, "hierarchical_neighbor_allreduce")
+        leaf, stat = "blocks.3.convs.1.weight", "blocks.3.norms.1.mean"
+        adapted = {}
+        opt.register_step_post_hook(
+            lambda *_: adapted.__setitem__("w", params[leaf].detach().clone()))
+        losses, step_ms, mix_err = [], [], []
+        for s in range(RESNET_STEPS):
+            before = stats[stat].clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, acc = step_fn(x, y)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.tolist())
+            check(torch.isfinite(loss).all().item(), f"hierarchical: non-finite loss {loss}")
+            moved = [(stats[stat][r] != before[r]).any().item() for r in range(n)]
+            check(all(moved), f"hierarchical step {s}: running statistics of ranks "
+                              f"{[r for r, mv in enumerate(moved) if not mv]} did not move")
+            check(all(not torch.equal(stats[stat][r], stats[stat][0]) for r in range(1, n)),
+                  f"hierarchical step {s}: ranks share running statistics")
+            for k, p in params.items():
+                p = p.detach()
+                check(all(torch.equal(p[loc * j], p[loc * j + i]) for j in range(m)
+                          for i in range(1, loc)),
+                      f"hierarchical step {s}: the ranks of a machine differ on {k}")
+            a = adapted["w"].double().cpu()
+            local = a.reshape((m, loc) + a.shape[1:]).mean(1)
+            want = _plan_mix(mplan, local).repeat_interleave(loc, dim=0)
+            err = (params[leaf].detach().double().cpu() - want).abs().max().item()
+            scale = want.abs().max().item()
+            mix_err.append(err / scale)
+            check(err <= 1e-6 * scale, f"hierarchical step {s}: {leaf} is {err} from the "
+                                       f"machine plan's mix of the local means")
+        steady = step_ms[1:]
+        row = {"phase": "hierarchical", "model": "ResNet50", "image": 224, "classes": 1000,
+               "ranks": n, "machines": m, "local_size": loc, "per_rank_batch": HIER_BATCH,
+               "machine_topology": f"ExponentialTwoGraph({m})", "losses": losses,
+               "step_ms": step_ms, "mix_err_over_scale": mix_err,
+               "images_per_s": n * HIER_BATCH / (sum(steady) / len(steady) / 1e3),
+               "reduced": "per-rank batch 64 -> 16 (8 x 16 = the resnet phase's 4 x 32)"}
+        # steps_per_call=2 on a fresh state
+        params, stats = rb.rank_major_state(model, n)
+        step2 = make_decentralized_train_step(
+            make_classifier_apply_fn(model), params,
+            torch.optim.SGD(list(params.values()), lr=0.1, momentum=0.9),
+            communication_type=bf.CommunicationType.hierarchical_neighbor_allreduce,
+            machine_plan=mplan, batch_stats=stats, steps_per_call=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss2, _ = step2(torch.stack([x, x]), torch.stack([y, y]))
+        torch.cuda.synchronize()
+        row["steps_per_call_2"] = {"losses": loss2.tolist(),
+                                   "call_ms": (time.perf_counter() - t0) * 1e3}
+        check(torch.isfinite(loss2).all().item(), f"hierarchical: steps_per_call=2 loss {loss2}")
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        emit(row)
+        return row
+    finally:
+        bf.shutdown()
+
+
 ALG_SIZE, ALG_DIM, ALG_LR, ALG_ITERS = 8, 6, 0.05, 600
 
 
@@ -1269,6 +1514,8 @@ def main():
     phase_windows(torch)
     phase_bert_pushsum(torch)
     phase_exact_algorithms(torch)
+    phase_eager_api(torch)
+    phase_hierarchical(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",

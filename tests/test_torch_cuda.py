@@ -496,3 +496,79 @@ def test_bert_pushsum_round_on_the_card(cuda_device):
         torch.testing.assert_close(p_mass, torch.full_like(p_mass, 4.0))
     finally:
         bf.shutdown()
+
+
+def _eager_sequence(device, dtype):
+    """The eager API of slice 11 on 8 ranks (4 machines x 2) on ``device``:
+    every result, on the CPU."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import ops, topology_util as tu
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 300, generator=g).to(dtype)
+    bf.init(size=8, local_size=2, device=device)
+    try:
+        x = x.to(device)
+        src = [{(r - 1) % 8: 0.5, (r + 3) % 8: 0.25} for r in range(8)]
+        dst = [{(s + 1) % 8: 0.5} for s in range(8)]
+        out = {"allgather": bf.allgather(x), "allreduce_int": bf.allreduce(x.int()),
+               "dyn_src": bf.neighbor_allreduce(x, src_weights=src),
+               "dyn_dst": bf.neighbor_allreduce(x, 0.5, dst_weights=dst),
+               "hier": bf.hierarchical_neighbor_allreduce(x),
+               "pairwise": ops.pairwise_gossip(x, [(r, r ^ 1) for r in range(8)]),
+               "nb_hier": bf.synchronize(bf.hierarchical_neighbor_allreduce_nonblocking(x))}
+        bf.set_topology(tu.StarGraph(8))
+        out["gather_star"] = bf.neighbor_allgather(x)
+        out["gather_dyn"] = bf.neighbor_allgather(x, src_ranks=[[(r + 2) % 8] for r in range(8)])
+        bf.barrier()
+        return {k: v.cpu() for k, v in out.items()}
+    finally:
+        bf.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eager_ops_on_the_card_match_the_cpu(cuda_device, dtype):
+    """allgather, integer allreduce, the dynamic neighbor_allreduce,
+    hierarchical_neighbor_allreduce, pairwise_gossip, neighbor_allgather
+    and a nonblocking form on the card against the CPU route (held against
+    the JAX package in test_torch_eager_api.py and test_torch_hierarchical.py):
+    gathers exactly, f32 within 1e-6, bf16 within one bf16 step."""
+    want = _eager_sequence("cpu", dtype)
+    got = _eager_sequence("cuda", dtype)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        tol = 0 if "gather" in k else (1e-6 if dtype == torch.float32 else 2.0 ** -7)
+        torch.testing.assert_close(got[k].double(), w.double(), rtol=tol, atol=tol, msg=k)
+
+
+def test_hierarchical_train_step_on_the_card(cuda_device):
+    """A small ResNet-18 with batch statistics, 8 ranks = 4 machines x 2,
+    ATC hierarchical gossip: finite losses, the two ranks of each machine
+    hold bit-equal parameters, and ``steps_per_call=2`` runs."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.benchmarks import resnet50 as rb
+    from bluefog_tpu_torch.models import ResNet18
+    from bluefog_tpu_torch.training import make_classifier_apply_fn, make_decentralized_train_step
+
+    bf.init(size=8, local_size=2)
+    try:
+        model = ResNet18(num_classes=10, num_filters=8, small_images=True, device="cpu",
+                         generator=torch.Generator().manual_seed(0)).cuda()
+        x, y = rb.synthetic_batch(8, 4, 16, 10, "cuda", seed=0)
+        params, stats = rb.rank_major_state(model, 8)
+        step, _ = rb.make_step(model, params, stats, "hierarchical_neighbor_allreduce")
+        for _ in range(2):
+            loss, _ = step(x, y)
+            assert torch.isfinite(loss).all()
+            for p in params.values():
+                assert torch.equal(p[0::2], p[1::2])
+        params, stats = rb.rank_major_state(model, 8)
+        step2 = make_decentralized_train_step(
+            make_classifier_apply_fn(model), params,
+            torch.optim.SGD(list(params.values()), lr=0.1),
+            communication_type=bf.CommunicationType.hierarchical_neighbor_allreduce,
+            machine_plan=bf.context().machine_plan, batch_stats=stats, steps_per_call=2)
+        loss, _ = step2(torch.stack([x, x]), torch.stack([y, y]))
+        assert loss.shape == (8,) and torch.isfinite(loss).all()
+    finally:
+        bf.shutdown()

@@ -73,7 +73,7 @@ def test_neighbor_allreduce_narrow_wire_and_fuse():
     try:
         plan = tbf.context().plan
         xb = torch.from_numpy(_x(3)).bfloat16()
-        got = ops.neighbor_allreduce(xb, average_dtype=torch.float32)
+        got = ops.neighbor_allreduce_plan(xb, plan, average_dtype=torch.float32)
         assert got.dtype == torch.float32
         W = torch.from_numpy(plan.mixing_matrix()).float()
         want = torch.einsum("ds,s...->d...", W, xb.float())
@@ -81,8 +81,8 @@ def test_neighbor_allreduce_narrow_wire_and_fuse():
 
         tree = {"a": torch.from_numpy(_x(4)), "b": [torch.from_numpy(_x(5, (N, 7))),
                                                    torch.from_numpy(_x(6, (N, 2))).double()]}
-        plain = ops.neighbor_allreduce(tree)
-        fused = ops.neighbor_allreduce(tree, fuse=True)
+        plain = ops.neighbor_allreduce_plan(tree, plan)
+        fused = ops.neighbor_allreduce_plan(tree, plan, fuse=True)
         torch.testing.assert_close(fused, plain, rtol=0, atol=1e-6)
         with pytest.raises(ValueError):
             ops.neighbor_allreduce(torch.zeros(N + 1, 2))
