@@ -9,14 +9,17 @@ padding masked by -1e30 on the scaled f32 scores (a row with every key
 masked gets a uniform softmax).  Its attention is the plain dense product,
 as in the reference, which runs it outside any Pallas kernel.
 
-Only ``LlamaLM``'s default path is ported: unrolled layers, multi-head
-attention, no remat, no vocab-sharded mode.  Parameters are f32 and matmuls
-run in ``dtype`` (bf16 by default), with norms and softmax in f32 and the
-LM head in ``head_dtype``: f32 by default, or bf16 operands with f32
-accumulation in both directions (the JAX ``_head_matmul``).
+``LlamaLM`` has the reference's options: GQA, remat with its policies,
+``scan_layers`` and ``spmd_vocab`` (not the FSDP sharding markers, which
+place tensors for GSPMD: one device holds every rank here).  Parameters
+are f32 and matmuls run in ``dtype`` (bf16 by default), with norms and
+softmax in f32 and the LM head in ``head_dtype``: f32 by default, or bf16
+operands with f32 accumulation in both directions (the JAX
+``_head_matmul``).
 
 Layout: projections are ``nn.Linear`` (weight ``[out, in]``), the transpose
-of flax's ``(in, out)`` kernels; :mod:`bluefog_tpu_torch.interop.jax_weights`
+of flax's ``(in, out)`` kernels, or under ``scan_layers`` one ``[L, out,
+in]`` parameter a weight; :mod:`bluefog_tpu_torch.interop.jax_weights`
 maps one to the other.  :meth:`LlamaLM.reset_parameters` draws from flax's
 distributions (lecun-normal projections, N(0, 1/d) embedding, ones for the
 norms) from an explicit ``torch.Generator``: the same distributions, not
@@ -25,18 +28,23 @@ the same bits.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from bluefog_tpu_torch.models.layers import Dense, LayerNorm, lecun_normal_
 
-__all__ = ["BertEncoder", "LlamaLM", "RMSNorm", "dense_attention",
-           "chunked_softmax_cross_entropy", "head_matmul"]
+__all__ = ["BertEncoder", "LlamaLM", "RMSNorm", "attn_out", "dense_attention",
+           "chunked_softmax_cross_entropy", "head_matmul", "one_hot"]
 
 
 def dense_attention(q, k, v, *, causal: bool, dtype=torch.float32):
@@ -154,6 +162,12 @@ def _rotary(x, positions):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _rms_norm(x, scale, dtype):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale).to(dtype)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype=torch.float32, device=None):
         super().__init__()
@@ -161,50 +175,137 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        xf = x.float()
-        var = xf.square().mean(-1, keepdim=True)
-        return (xf * torch.rsqrt(var + 1e-6) * self.scale).to(self.dtype)
+        return _rms_norm(x, self.scale, self.dtype)
 
 
 def _linear(d_in: int, d_out: int, device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=torch.float32)
 
 
+@torch.library.custom_op("bluefog_tpu_torch::attn_out", mutates_args=())
+def attn_out(att: torch.Tensor) -> torch.Tensor:
+    """Identity that names the attention output for ``remat_policy="attn"``
+    (the reference's ``checkpoint_name(att, "attn_out")``): a dispatcher op
+    the selective-checkpoint policy sees, where the flash kernel's launch
+    inside its autograd Function is not one."""
+    return att.clone()
+
+
+@attn_out.register_fake
+def _attn_out_fake(att):
+    return torch.empty_like(att)
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+
+_aten = torch.ops.aten
+# what each remat policy saves for the backward; everything else in a block
+# is recomputed (the reference's _remat_block policies)
+_REMAT_SAVES = {
+    "dots": (_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm),  # checkpoint_dots
+    "dots_no_batch": (_aten.mm, _aten.addmm),  # checkpoint_dots_with_no_batch_dims
+    "attn": (torch.ops.bluefog_tpu_torch.attn_out,),  # save_only_these_names("attn_out")
+}
+
+
+def _remat_context(policy: str) -> Callable:
+    """``context_fn`` for ``torch.utils.checkpoint.checkpoint`` that saves
+    the outputs of ``_REMAT_SAVES[policy]`` and recomputes the rest."""
+    saves = frozenset(_REMAT_SAVES[policy])
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if getattr(op, "overloadpacket", None) in saves:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+# a block's weights, in the order _decoder_block takes them
+_BLOCK_WEIGHTS = ("attn_norm", "q", "k", "v", "o", "mlp_norm", "gate", "up", "down")
+
+
+class _BlockSpec(NamedTuple):
+    num_heads: int
+    kv_heads: int
+    dtype: torch.dtype
+    attention_fn: Optional[Callable]
+    mark_attn: bool  # name the attention output for remat_policy="attn"
+
+
+def _decoder_block(spec: _BlockSpec, x, positions, attn_norm, wq, wk, wv, wo,
+                   mlp_norm, wg, wu, wd):
+    """One pre-norm decoder block on ``[B, T, d]``; projection weights are
+    ``[out, in]`` f32, multiplied in ``spec.dtype``.  With GQA (``kv_heads``
+    < ``num_heads``) k and v project to ``kv_heads`` heads and each is
+    repeated in place, as ``jnp.repeat`` does: query head i reads kv head
+    ``i // (num_heads / kv_heads)``."""
+    b, t, d = x.shape
+    hd = d // spec.num_heads
+    dt = spec.dtype
+    h = _rms_norm(x, attn_norm, dt)
+    q = _rotary(F.linear(h, wq.to(dt)).view(b, t, spec.num_heads, hd), positions)
+    k = _rotary(F.linear(h, wk.to(dt)).view(b, t, spec.kv_heads, hd), positions)
+    v = F.linear(h, wv.to(dt)).view(b, t, spec.kv_heads, hd)
+    if spec.kv_heads != spec.num_heads:
+        rep = spec.num_heads // spec.kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    if spec.attention_fn is not None:
+        att = spec.attention_fn(q, k, v)
+    else:
+        att = dense_attention(q, k, v, causal=True, dtype=dt)
+    if spec.mark_attn:
+        att = attn_out(att)
+    x = x + F.linear(att.reshape(b, t, d), wo.to(dt))
+    h = _rms_norm(x, mlp_norm, dt)
+    mlp = F.silu(F.linear(h, wg.to(dt))) * F.linear(h, wu.to(dt))
+    return x + F.linear(mlp, wd.to(dt))
+
+
 class _DecoderBlock(nn.Module):
-    def __init__(self, hidden: int, num_heads: int, dff: int, dtype,
-                 attention_fn: Optional[Callable], device):
+    """One block's weights as modules (``layers.{i}.q.weight``, ...)."""
+
+    def __init__(self, hidden: int, num_heads: int, kv_heads: int, dff: int, device):
         super().__init__()
-        self.num_heads = num_heads
-        self.dtype = dtype
-        self.attention_fn = attention_fn
-        self.attn_norm = RMSNorm(hidden, dtype, device)
+        kv = kv_heads * (hidden // num_heads)
+        self.attn_norm = RMSNorm(hidden, device=device)
         self.q = _linear(hidden, hidden, device)
-        self.k = _linear(hidden, hidden, device)
-        self.v = _linear(hidden, hidden, device)
+        self.k = _linear(hidden, kv, device)
+        self.v = _linear(hidden, kv, device)
         self.o = _linear(hidden, hidden, device)
-        self.mlp_norm = RMSNorm(hidden, dtype, device)
+        self.mlp_norm = RMSNorm(hidden, device=device)
         self.gate = _linear(hidden, dff, device)
         self.up = _linear(hidden, dff, device)
         self.down = _linear(dff, hidden, device)
 
-    def _proj(self, lin: nn.Linear, x):
-        return F.linear(x, lin.weight.to(self.dtype))
+    def weights(self):
+        return tuple(m.scale if isinstance(m, RMSNorm) else m.weight
+                     for m in (getattr(self, n) for n in _BLOCK_WEIGHTS))
 
-    def forward(self, x, positions):
-        b, t, d = x.shape
-        hd = d // self.num_heads
-        h = self.attn_norm(x)
-        q = _rotary(self._proj(self.q, h).view(b, t, self.num_heads, hd), positions)
-        k = _rotary(self._proj(self.k, h).view(b, t, self.num_heads, hd), positions)
-        v = self._proj(self.v, h).view(b, t, self.num_heads, hd)
-        if self.attention_fn is not None:
-            att = self.attention_fn(q, k, v)
-        else:
-            att = dense_attention(q, k, v, causal=True, dtype=self.dtype)
-        x = x + self._proj(self.o, att.reshape(b, t, d))
-        h = self.mlp_norm(x)
-        mlp = F.silu(self._proj(self.gate, h)) * self._proj(self.up, h)
-        return x + self._proj(self.down, mlp)
+
+class _ScannedDecoder(nn.Module):
+    """Every block's weights stacked on a leading ``[num_layers]`` axis, one
+    ``nn.Parameter`` a weight (``layers.q``: ``[L, out, in]``, ...), as the
+    reference's ``scan_layers`` tree holds them: the optimizer and the
+    gossip see nine leaves, not nine a layer."""
+
+    def __init__(self, num_layers: int, hidden: int, num_heads: int, kv_heads: int,
+                 dff: int, device):
+        super().__init__()
+        kv = kv_heads * (hidden // num_heads)
+        shapes = {"attn_norm": (hidden,), "q": (hidden, hidden), "k": (kv, hidden),
+                  "v": (kv, hidden), "o": (hidden, hidden), "mlp_norm": (hidden,),
+                  "gate": (dff, hidden), "up": (dff, hidden), "down": (hidden, dff)}
+        for name in _BLOCK_WEIGHTS:
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(num_layers, *shapes[name], device=device)))
+
+    def per_layer(self):
+        """Each layer's weights, from one ``unbind`` a leaf: the backward
+        then stacks the layers' gradients once, where indexing ``w[l]`` in
+        the loop would add a zero tensor the size of the stack a layer."""
+        return list(zip(*(getattr(self, n).unbind(0) for n in _BLOCK_WEIGHTS)))
 
 
 def _mm_f32(a, b):
@@ -248,20 +349,35 @@ def head_matmul(x, head_w, head_dtype=torch.float32):
     return F.linear(x.float(), head_w)
 
 
-def _head_chunk_loss(xc, head_w, yc, wc, head_dtype):
+def one_hot(ids, n: int, dtype):
+    """``jax.nn.one_hot``: a zero row for an id outside ``[0, n)``, where
+    ``F.one_hot`` raises."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
+def _target_logits(logits, y, onehot_targets: bool):
+    """``logits[..., y]``; by a one-hot sum where ``onehot_targets`` (0 for
+    an out-of-range id, as the reference's ``spmd_vocab`` gives)."""
+    if onehot_targets:
+        return (logits * one_hot(y, logits.shape[-1], logits.dtype)).sum(-1)
+    return logits.gather(-1, y[..., None])[..., 0]
+
+
+def _head_chunk_loss(xc, head_w, yc, wc, head_dtype, onehot_targets):
     logits = head_matmul(xc, head_w, head_dtype)  # [B, tc, V] f32 — the peak
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, yc[..., None])[..., 0]
+    tgt = _target_logits(logits, yc, onehot_targets)
     return ((lse - tgt) * wc).sum()
 
 
 def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int,
-                                  head_dtype=torch.float32):
+                                  head_dtype=torch.float32, onehot_targets: bool = False):
     """Shifted next-token cross-entropy without materializing the full
     ``[B, T, vocab]`` logits: ``mean(CE(logits[:, :-1], labels[:, 1:]))``
     computed per sequence chunk, each chunk under ``torch.utils.checkpoint``
     so its logits are recomputed in the backward.  ``head_weight`` is the
-    ``[vocab, d]`` f32 head, multiplied in ``head_dtype``."""
+    ``[vocab, d]`` f32 head, multiplied in ``head_dtype``;
+    ``onehot_targets`` takes the target logit by a one-hot sum."""
     B, T, _ = hidden.shape
     if T % num_chunks:
         raise ValueError(f"num_chunks {num_chunks} must divide T {T}")
@@ -273,37 +389,77 @@ def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int,
     for c in range(num_chunks):
         sl = slice(c * tc, (c + 1) * tc)
         total = total + checkpoint(_head_chunk_loss, hidden[:, sl], head_weight,
-                                   y[:, sl], w[:, sl], head_dtype, use_reentrant=False)
+                                   y[:, sl], w[:, sl], head_dtype, onehot_targets,
+                                   use_reentrant=False)
     return total / w.sum()
 
 
 class LlamaLM(nn.Module):
     """Llama-style decoder-only LM: RMSNorm, rotary, SwiGLU, no biases.
 
-    ``forward(ids)`` returns f32 logits; ``forward(ids, labels=...)``
-    returns the scalar shifted-LM loss (chunked when ``head_chunks > 1``).
+    ``forward(ids, positions=None, labels=None)``, in the reference's order:
+    ``positions`` (``[T]`` int, default ``arange(T)``) feed the rotary
+    embedding of every block, so a sequence shard passes its global
+    positions.  Without ``labels`` it returns f32 logits; with them, the
+    scalar shifted-LM loss (chunked when ``head_chunks > 1``).
     ``head_dtype=torch.bfloat16`` runs the LM head on bf16 operands with
     f32 accumulation and f32 logits (:func:`head_matmul`).
+
+    The reference's options:
+
+    - ``num_kv_heads``: grouped-query attention (k and v on fewer heads,
+      repeated up before the attention function).
+    - ``remat``: each block under ``torch.utils.checkpoint`` (its forward is
+      recomputed in the backward, the flash forward kernel with it);
+      ``remat_policy`` ``"dots"`` / ``"dots_no_batch"`` / ``"attn"`` saves
+      the matmul outputs / those without batch dims (not attention's
+      ``bmm``) / the attention output (:func:`attn_out`) by selective
+      checkpointing.  Without ``remat`` the policy does nothing.
+    - ``scan_layers``: the blocks' weights stacked on a leading layer axis
+      (:class:`_ScannedDecoder`); the same function as the unrolled model.
+    - ``spmd_vocab``: the embedding as a one-hot matmul and the target logit
+      as a one-hot sum (:func:`one_hot`): bit-equal to the default on
+      in-range ids; an out-of-range id embeds as zeros and has no target
+      logit.  The reference's FSDP sharding markers (``act_constraint``,
+      ``onehot_constraint``, ``weight_constraint``) place tensors for GSPMD;
+      one device holds every rank here, so they are not ported.
     """
 
     def __init__(self, vocab_size: int = 32000, hidden_size: int = 512,
                  num_layers: int = 4, num_heads: int = 8, dff: int = 1376,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
-                 head_chunks: int = 0, head_dtype=torch.float32, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 scan_layers: bool = False, num_kv_heads: Optional[int] = None,
+                 head_chunks: int = 0, head_dtype=torch.float32, spmd_vocab: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden {hidden_size} not divisible by heads {num_heads}")
+        kvh = num_kv_heads or num_heads
+        if num_heads % kvh:
+            raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads {kvh}")
         if head_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"head_dtype must be float32 or bfloat16, got {head_dtype}")
+        if remat_policy and remat_policy not in _REMAT_SAVES:
+            raise ValueError(f"remat_policy must be one of {sorted(_REMAT_SAVES)} or None, "
+                             f"got {remat_policy!r}")
         self.dtype = dtype
         self.head_chunks = head_chunks
         self.head_dtype = head_dtype
+        self.spmd_vocab = spmd_vocab
+        self.scan_layers = scan_layers
+        self.remat = remat
+        self.remat_policy = remat_policy if remat else None
+        self.spec = _BlockSpec(num_heads, kvh, dtype, attention_fn,
+                               mark_attn=self.remat_policy == "attn")
         self.embed = nn.Embedding(vocab_size, hidden_size, device=device,
                                   dtype=torch.float32)
-        self.layers = nn.ModuleList(
-            _DecoderBlock(hidden_size, num_heads, dff, dtype, attention_fn, device)
-            for _ in range(num_layers))
+        if scan_layers:
+            self.layers = _ScannedDecoder(num_layers, hidden_size, num_heads, kvh, dff, device)
+        else:
+            self.layers = nn.ModuleList(
+                _DecoderBlock(hidden_size, num_heads, kvh, dff, device)
+                for _ in range(num_layers))
         self.norm = RMSNorm(hidden_size, torch.float32, device)
         self.head = _linear(hidden_size, vocab_size, device)
         self.reset_parameters(generator)
@@ -312,30 +468,54 @@ class LlamaLM(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax's distributions: N(0, 1/d) embedding, lecun-normal (normal
         truncated at 2 sigma, std 1/sqrt(fan_in)) projections, ones for
-        norm scales."""
+        norm scales.  A stacked weight ``[L, out, in]`` draws every layer
+        with the layer's own fan-in ``in``."""
         d = self.embed.weight.shape[1]
         self.embed.weight.normal_(0.0, 1.0 / math.sqrt(d), generator=generator)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                # flax's truncated_normal rescales so the truncated draw has
-                # the target std; 0.8796... is the std of N(0,1) cut at ±2
-                std = 1.0 / math.sqrt(mod.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
+                lecun_normal_(mod.weight, mod.in_features, generator)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
+            elif isinstance(mod, _ScannedDecoder):
+                for name in _BLOCK_WEIGHTS:
+                    w = getattr(mod, name)
+                    if name.endswith("norm"):
+                        w.fill_(1.0)
+                    else:
+                        lecun_normal_(w, w.shape[-1], generator)
 
-    def forward(self, input_ids, labels=None):
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = F.embedding(input_ids, self.embed.weight.to(self.dtype))
-        for layer in self.layers:
-            x = layer(x, positions)
+    def _block(self, x, positions, weights):
+        if not self.remat:
+            return _decoder_block(self.spec, x, positions, *weights)
+        kw = {}
+        if self.remat_policy:
+            kw["context_fn"] = _remat_context(self.remat_policy)
+        return checkpoint(_decoder_block, self.spec, x, positions, *weights,
+                          use_reentrant=False, **kw)
+
+    def forward(self, input_ids, positions=None, labels=None):
+        t = input_ids.shape[1]
+        if positions is None:
+            positions = torch.arange(t, device=input_ids.device)
+        else:
+            positions = torch.as_tensor(positions, device=input_ids.device)
+        table = self.embed.weight.to(self.dtype)
+        if self.spmd_vocab:
+            x = one_hot(input_ids, table.shape[0], self.dtype) @ table
+        else:
+            x = F.embedding(input_ids, table)
+        blocks = (self.layers.per_layer() if self.scan_layers
+                  else [blk.weights() for blk in self.layers])
+        for weights in blocks:
+            x = self._block(x, positions, weights)
         x = self.norm(x)  # f32
         if labels is None:
             return head_matmul(x, self.head.weight, self.head_dtype)  # f32 logits
         if self.head_chunks > 1:
             return chunked_softmax_cross_entropy(x, self.head.weight, labels,
-                                                 self.head_chunks, self.head_dtype)
-        logits = head_matmul(x, self.head.weight, self.head_dtype)
-        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
-                               labels[:, 1:].reshape(-1))
+                                                 self.head_chunks, self.head_dtype,
+                                                 onehot_targets=self.spmd_vocab)
+        logits = head_matmul(x, self.head.weight, self.head_dtype)[:, :-1]
+        tgt = _target_logits(logits, labels[:, 1:], self.spmd_vocab)
+        return (torch.logsumexp(logits, dim=-1) - tgt).mean()

@@ -44,6 +44,7 @@ __all__ = [
     "DistributedAdaptWithCombineOptimizer",
     "DistributedGradientAllreduceOptimizer",
     "DistributedWinPutOptimizer",
+    "TraceSGD",
     "one_peer_plan_schedule",
 ]
 
@@ -278,6 +279,49 @@ def one_peer_plan_schedule(size: int) -> List[CommPlan]:
     nbits = max(1, int(math.ceil(math.log2(size))))
     gens = [topology_util.GetDynamicOnePeerSendRecvRanks(size, r) for r in range(size)]
     return [plan_from_neighbor_lists(size, [next(g)[1] for g in gens]) for _ in range(nbits)]
+
+
+class TraceSGD(torch.optim.Optimizer):
+    """Momentum SGD with optax's trace semantics and its ``accumulator_dtype``
+    (``optax.sgd(lr, momentum, accumulator_dtype=trace_dtype)``; the
+    reference's ``sgdm_bf16`` base optimizer takes ``torch.bfloat16``).  Per
+    parameter ``p`` with gradient ``g`` and trace ``t`` (zeros at start, in
+    ``trace_dtype``, or ``p``'s dtype when None)::
+
+        new = g + m' * t    # in g's dtype (f32)
+        p  += -lr * new
+        t   = new           # stored in trace_dtype
+
+    ``m'`` is the momentum rounded to the trace's dtype (JAX's weak typing:
+    0.9 becomes 0.8984375 in bf16), and the product is not rounded to it:
+    XLA drops that rounding in the jitted step, where every train step of
+    the reference runs its update.  ``torch.optim.SGD`` keeps its buffer in
+    the parameter's dtype, so it cannot hold a bf16 trace for f32
+    parameters."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9,
+                 trace_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(lr=lr, momentum=momentum, trace_dtype=trace_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "trace" not in state:
+                    state["trace"] = torch.zeros_like(p, dtype=group["trace_dtype"] or p.dtype)
+                trace = state["trace"]
+                m = torch.tensor(group["momentum"], dtype=trace.dtype).item()
+                new = trace.to(p.grad.dtype, copy=True).mul_(m).add_(p.grad)
+                trace.copy_(new)
+                p.add_(new.mul_(-group["lr"]))
+        return loss
 
 
 # --------------------------------------------------------------------------

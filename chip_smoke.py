@@ -24,11 +24,13 @@ Phases, each printing one JSON line:
                PyTorch version on the same bf16 inputs, over nine cases
                (the main path's shape, two ring hops with q_start > k_start,
                a fully masked hop, non-causal, D = 128, D = 16 and 96
-               zero-padded by the wrappers, a ragged length);
+               zero-padded by the wrappers, a ragged length, phase
+               llama_1b's [28, 2048, 128]);
                then times at the main path's shape (between events around
                eager calls, and by CUDA-graph replay, which leaves out the
                wrappers' host time) beside the bound, the plain version and
-               scaled_dot_product_attention.
+               scaled_dot_product_attention, and the same at the 1b
+               roofline shape [8 x 14, 2048, 128] (kernel_times_d128).
 2b. kernels_f32 -- each f32 CUDA kernel (the flash fwd, dK/dV and dQ
                instances of csrc/flash_attention_f32.cu, all three on the
                tensor cores by the 3xTF32 split)
@@ -107,13 +109,28 @@ Phases, each printing one JSON line:
                differ, the ranks of a machine bit-equal, a leaf equal to
                the machine plan's mix of the local means; then one call
                with steps_per_call=2.
-Phases 8-12 run no kernel of the repo and add no row to the kernel table.
+13. llama_1b -- the 1b preset of benchmarks/llama.py with GQA through
+               examples/llama_pretrain: hidden 1792, 24 layers, 14 heads on
+               2 kv heads (D = 128), dff 4864, vocab 32000, S = 2048, remat,
+               scan_layers (nine stacked leaves), momentum SGD with a bf16
+               trace, head_chunks 8; 4 ranks, per-rank batch cut from 8 to
+               2, ATC gossip on ExponentialTwoGraph(4), 3 steps: finite
+               losses, a stacked leaf equal to the plan's mix after every
+               step, bf16 traces, and the launch counts remat makes
+               (forward 2 x 24 x 4 x 3, dK/dV and dQ 24 x 4 x 3).
+14. vit      -- ViT-B/16 (86M) at 224 x 224, 1000 classes, bf16, 4 ranks x
+               32 images, ATC SGD on ExponentialTwoGraph(4), 3 steps:
+               finite losses, the plan's mix after every step; no kernel of
+               the repo launches (dense attention, as the reference's).
+Phases 8-12 and 14 run no kernel of the repo and add no row to the kernel
+table; the bf16 rows' launches sum the main and llama_1b paths.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It needs one CUDA device and exits non-zero without one.
 """
 
+import gc
 import importlib
 import json
 import math
@@ -350,6 +367,9 @@ def phase_kernels(torch, fa):
         "d16": dict(bh=8, t=1024, d=16, q_start=0, k_start=0, causal=True),
         "d96": dict(bh=8, t=1024, d=96, q_start=0, k_start=0, causal=True),
         "ragged": dict(bh=4, t=1000, d=64, q_start=0, k_start=0, causal=True),
+        # phase llama_1b's shape: per-rank batch 2 x 14 heads (GQA repeats
+        # k and v before the kernels), D = 128
+        "llama_1b": dict(bh=L1B_BATCH * 14, t=2048, d=128, q_start=0, k_start=0, causal=True),
     }
     errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     failures = []
@@ -444,13 +464,7 @@ def phase_kernels(torch, fa):
     sdpa_bwd = cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
         g4, q4, k4, v4, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, True,
         fo[6], fo[7]))
-    pairs = visible_pairs(t, t, 0, 0, True)
-    e = 2  # bf16 bytes
-    work = {  # (flops, bytes): each input read once, each output written once
-        "fwd": (4 * d * pairs * bh, (3 * e * t * d + e * t * d + 4 * t) * bh),
-        "dkv": (8 * d * pairs * bh, (4 * e * t * d + 8 * t + 2 * e * t * d) * bh),
-        "dq": (6 * d * pairs * bh, (4 * e * t * d + 8 * t + e * t * d) * bh),
-    }
+    work = bf16_work(bh, t, d)
     timing = {"phase": "kernel_times", "shape": [bh, t, d], "causal": True,
               "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fb,
               "sdpa_flash_bwd_ms": sdpa_bwd}
@@ -471,7 +485,74 @@ def phase_kernels(torch, fa):
         timing[f"{kname}_bound_ms"] = table[kname]["bound_ms"]
         timing[f"{kname}_tflops"] = flops / (ms[kname] * 1e-3) / 1e12
     emit(timing)
+    for kname, entry in kernel_times_1b(torch, fa, gen).items():
+        table[kname].update({f"{key}_d128": v for key, v in entry.items()})
     return table
+
+
+def bf16_work(bh, t, d):
+    """(flops, bytes) of the bf16 fwd, dK/dV and dQ at [bh, t, d], causal:
+    each input read once, each output written once."""
+    pairs = visible_pairs(t, t, 0, 0, True)
+    e = 2
+    return {
+        "fwd": (4 * d * pairs * bh, (3 * e * t * d + e * t * d + 4 * t) * bh),
+        "dkv": (8 * d * pairs * bh, (4 * e * t * d + 8 * t + 2 * e * t * d) * bh),
+        "dq": (6 * d * pairs * bh, (4 * e * t * d + 8 * t + e * t * d) * bh),
+    }
+
+
+ROOFLINE_1B = (8, 14, 2048, 128)  # B, H, T, D: the 1b roofline shape
+
+
+def kernel_times_1b(torch, fa, gen):
+    """The bf16 kernels at the 1b roofline shape [8 x 14, 2048, 128],
+    causal: eager and CUDA-graph ms beside the bound, the plain version and
+    scaled_dot_product_attention (forward; its flash backward beside
+    dK/dV + dQ).  lse and the row correction come from the kernel's own
+    forward (the kernels were held against their plain versions at D = 128
+    in the cases above).  Launches made here are not a path's."""
+    from bluefog_tpu_torch.profiling import graph_seconds
+
+    F = torch.nn.functional
+    b, h, t, d = ROOFLINE_1B
+    bh = b * h
+    q, k, v, g = (torch.randn(bh, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+    counts_before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, 0, 0, **kw)
+    corr = (-(o.float() * g.float()).sum(-1)).contiguous()
+    calls = {"fwd": lambda: fa.flash_fwd(q, k, v, 0, 0, **kw),
+             "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, 0, 0, **kw),
+             "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, 0, 0, **kw)}
+    plain = {"fwd": lambda: fa.flash_fwd_plain(q, k, v, 0, 0, **kw),
+             "dkv": lambda: fa.flash_dkv_plain(q, k, v, g, lse, corr, 0, 0, **kw),
+             "dq": lambda: fa.flash_dq_plain(q, k, v, g, lse, corr, 0, 0, **kw)}
+    ms = {kname: cuda_ms(fn) for kname, fn in calls.items()}
+    graph_ms = {kname: graph_seconds(fn, calls=20) * 1e3 for kname, fn in calls.items()}
+    plain_ms = {kname: cuda_ms(fn, iters=3, warmup=1) for kname, fn in plain.items()}
+    fa.launches.update(counts_before)
+    q4, k4, v4, g4 = (x.view(b, h, t, d) for x in (q, k, v, g))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    aten = torch.ops.aten
+    fo = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True, False)
+    sdpa_bwd = cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        g4, q4, k4, v4, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, True,
+        fo[6], fo[7]))
+    timing = {"phase": "kernel_times_d128", "shape": [bh, t, d], "causal": True,
+              "sdpa_fwd_ms": sdpa_fwd, "sdpa_flash_bwd_ms": sdpa_bwd,
+              "dkv_plus_dq_ms": ms["dkv"] + ms["dq"]}
+    out = {}
+    for kname, (flops, nbytes) in bf16_work(bh, t, d).items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[kname] = {"ms": ms[kname], "graph_ms": graph_ms[kname], "plain_ms": plain_ms[kname],
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "library_ms": sdpa_fwd if kname == "fwd" else None}
+        timing[kname] = {**out[kname], "tflops": flops / (ms[kname] * 1e-3) / 1e12}
+    emit(timing)
+    return out
 
 
 def compare_f32(got, ref):
@@ -1400,6 +1481,172 @@ def phase_hierarchical(torch):
         bf.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# The transformer options at full size.  llama_1b runs the bf16
+# flash kernels at D = 128 (the forward twice a layer under remat); vit runs
+# no kernel of the repo (dense attention, as the reference's ViT).
+# ---------------------------------------------------------------------------
+
+L1B_BATCH, L1B_KV_HEADS = 2, 2
+L1B_LEAF = "layers.k"  # the stacked k projections, [ranks, 24, 256, 1792] f32
+
+
+def _check_mix(torch, plan, adapted, now, what):
+    """``now`` (rank-major, after the combine) equals the plan's mix of
+    ``adapted`` (after the local step) within 1e-6 of its scale, in float64
+    on the host; returns error / scale."""
+    want = _plan_mix(plan, adapted)
+    err = (now.detach().double().cpu() - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 1e-6 * scale, f"{what}: {err} from the plan's mix of the adapted values "
+                               f"(scale {scale})")
+    return err / scale
+
+
+def phase_llama_1b(torch, fa):
+    """The 1b preset of benchmarks/llama.py with GQA: hidden 1792, 24
+    layers, 14 heads on 2 kv heads (D = 128), dff 4864, vocab 32000, S =
+    2048, remat, scan_layers, sgdm_bf16, head_chunks 8, on RANKS ranks
+    under ATC gossip on ExponentialTwoGraph(4), per-rank batch L1B_BATCH,
+    STEPS steps, through examples/llama_pretrain, with every launch count
+    set to 0 just before and read just after.  Under remat the backward
+    recomputes each block's forward, flash forward included: the forward
+    kernel launches 2 x layers x ranks x steps times, dK/dV and dQ layers x
+    ranks x steps, and no f32 kernel.  After every step a stacked leaf must
+    equal the plan's mix of its values after the local step."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    # (after the local step, after the combine) copies of the leaf on the
+    # card, held against the plan's mix after the run, outside the timed steps
+    seen = {"pairs": []}
+
+    def setup(params, opt):
+        seen["plan"], seen["params"], seen["opt"] = bf.context().plan, params, opt
+
+        def before_local_step(*_):  # the previous step's combine is done
+            if "adapted" in seen:
+                seen["pairs"].append((seen.pop("adapted"), params[L1B_LEAF].detach().clone()))
+
+        opt.register_step_pre_hook(before_local_step)
+        opt.register_step_post_hook(
+            lambda *_: seen.__setitem__("adapted", params[L1B_LEAF].detach().clone()))
+
+    gc.collect()  # earlier phases' tensors held in reference cycles
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        ["--preset", "1b", "--kv-heads", str(L1B_KV_HEADS), "--steps", str(STEPS),
+         "--size", str(RANKS), "--batch", str(L1B_BATCH), "--device", "cuda"]), setup=setup)
+    counts, f32_counts = dict(fa.launches), dict(fa.launches_f32)
+    seen["pairs"].append((seen.pop("adapted"), seen["params"][L1B_LEAF].detach()))
+    mix_err = [_check_mix(torch, seen["plan"], adapted, now, f"llama_1b step {s}")
+               for s, (adapted, now) in enumerate(seen.pop("pairs"))]
+    traces = {str(st["trace"].dtype) for st in seen.pop("opt").state.values()}
+    losses = [x for step in out["losses"] for x in step]
+    layers = out["layers"]
+    want = {"fwd": 2 * layers * RANKS * STEPS, "dkv": layers * RANKS * STEPS,
+            "dq": layers * RANKS * STEPS}
+    row = {"phase": "llama_1b", **out, "launches": counts, "launches_expected": want,
+           "mix_err_over_scale": mix_err, "trace_dtypes": sorted(traces),
+           "peak_gb": out.get("max_memory_allocated", 0) / 1e9,
+           "reduced": f"per-rank batch 8 -> {L1B_BATCH} (benchmarks/llama.py's 1b preset); "
+                      "widths, depth, sequence, remat, scan_layers, sgdm_bf16 and "
+                      "head_chunks as published"}
+    emit(row)
+    check((out["hidden"], out["layers"], out["heads"], out["kv_heads"], out["seq"]) ==
+          (1792, 24, 14, L1B_KV_HEADS, 2048), f"llama_1b: widths {out}")
+    check(out["remat"] and out["scan_layers"] and out["optimizer"] == "sgdm_bf16"
+          and out["head_chunks"] == 8 and out["leaves"] == 12, f"llama_1b: options {out}")
+    check(traces == {"torch.bfloat16"}, f"llama_1b: momentum traces in {traces}")
+    check(all(math.isfinite(x) for x in losses), f"llama_1b: non-finite loss {losses}")
+    check(math.isfinite(out["consensus_spread"]), "llama_1b: non-finite consensus spread")
+    check(len(mix_err) == STEPS, f"llama_1b: mix checked {len(mix_err)} times")
+    for kname, n in counts.items():
+        check(n == want[kname], f"llama_1b: {kname} launched {n} times, expected {want[kname]}")
+    check(not any(f32_counts.values()), f"llama_1b: an f32 kernel launched ({f32_counts})")
+    return counts
+
+
+VIT_BATCH = 32
+
+
+def phase_vit(torch, fa):
+    """ViT-B/16 (86M parameters) at 224 x 224 and 1000 classes, bf16, on
+    RANKS ranks x VIT_BATCH images, ATC SGD (lr 0.05, as the reference's
+    ViT test) on ExponentialTwoGraph(4) through
+    make_decentralized_train_step, STEPS steps: finite losses, and after
+    every step a leaf equal to the plan's mix of its adapted values.  No
+    kernel of the repo is on this path: every launch count stays 0.  One
+    more step is traced for its device time by kernel and idle share."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology_util
+    from bluefog_tpu_torch.models import ViT_B16
+    from bluefog_tpu_torch.profiling import device_profile
+    from bluefog_tpu_torch.training import (
+        make_classifier_apply_fn,
+        make_decentralized_train_step,
+        replicate_for_mesh,
+    )
+
+    bf.init(topology_util.ExponentialTwoGraph(RANKS), size=RANKS, device="cuda")
+    try:
+        plan = bf.context().plan
+        model = ViT_B16(num_classes=1000, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).cuda()
+        params = replicate_for_mesh(dict(model.named_parameters()), RANKS)
+        n_params = sum(v[0].numel() for v in params.values())
+        opt = torch.optim.SGD(list(params.values()), lr=0.05)
+        step = make_decentralized_train_step(
+            make_classifier_apply_fn(model), params, opt,
+            communication_type=bf.CommunicationType.neighbor_allreduce, plan=plan)
+        leaf, adapted = "layers.11.fc1.weight", {}
+        opt.register_step_post_hook(
+            lambda *_: adapted.__setitem__("w", params[leaf].detach().clone()))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(RANKS, VIT_BATCH, 224, 224, 3, generator=gen, device="cuda")
+        y = torch.randint(0, 1000, (RANKS, VIT_BATCH), generator=gen, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, step_ms, mix_err = [], [], []
+        for s in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, acc = step(x, y)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.tolist())
+            check(torch.isfinite(loss).all().item(), f"vit step {s}: non-finite loss {loss}")
+            mix_err.append(_check_mix(torch, plan, adapted.pop("w"), params[leaf],
+                                      f"vit step {s}: {leaf}"))
+        counts = {**fa.launches, **{f"{k}_f32": n for k, n in fa.launches_f32.items()}}
+        # one more step, traced (device activity only): where its time goes
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(x, y)
+            torch.cuda.synchronize()
+        traced = device_profile(prof, (time.perf_counter() - t0) * 1e3, top=12)
+        steady = step_ms[1:]
+        row = {"phase": "vit", "model": "ViT_B16", "n_params": n_params, "image": 224,
+               "classes": 1000, "ranks": RANKS, "per_rank_batch": VIT_BATCH,
+               "dtype": "bf16", "losses": losses, "step_ms": step_ms,
+               "images_per_s": RANKS * VIT_BATCH / (sum(steady) / len(steady) / 1e3),
+               "mix_err_over_scale": mix_err,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+               "kernels_on_path": "none (dense attention, as the reference's ViT)",
+               "profile": traced}
+        emit(row)
+        check(n_params == 86_567_656, f"vit: {n_params} parameters, ViT-B/16 has 86,567,656")
+        check(not any(counts.values()), f"vit: a kernel of the repo launched ({counts})")
+        return row
+    finally:
+        bf.shutdown()
+
+
 ALG_SIZE, ALG_DIM, ALG_LR, ALG_ITERS = 8, 6, 0.05, 600
 
 
@@ -1516,6 +1763,8 @@ def main():
     phase_exact_algorithms(torch)
     phase_eager_api(torch)
     phase_hierarchical(torch)
+    counts_1b = phase_llama_1b(torch, fa)
+    phase_vit(torch, fa)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",
@@ -1523,18 +1772,23 @@ def main():
                 "pv": "benchmarks/attention_roofline.py:150",
                 "softmax_chain": "benchmarks/attention_roofline.py:167",
                 "bwd_chain": "benchmarks/attention_roofline.py:221"}
+    # launches: the sum over the paths that run the kernel, each read with
+    # the counts set to 0 just before it (launches_by_phase)
     emit({"kernels": [
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
-         "replaces": replaces[k], "launches": counts[k], **table[k]}
+         "replaces": replaces[k], "launches": counts[k] + counts_1b[k],
+         "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k]}, **table[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f32", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",
-         "replaces": replaces[k], "launches": counts_f32[k], **table_f32[k]}
+         "replaces": replaces[k], "launches": counts_f32[k],
+         "launches_by_phase": {"f32_path": counts_f32[k]}, **table_f32[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"{k}_component", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/attention_components.cu",
          "replaces": replaces[k], "launches": comp_counts[k],
+         "launches_by_phase": {"roofline": comp_counts[k]},
          "max_abs_err": comp_err[k], **comp_table[k]}
         for k in ("qk", "pv", "softmax_chain", "bwd_chain")]})
     print(smi, flush=True)

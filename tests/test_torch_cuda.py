@@ -572,3 +572,68 @@ def test_hierarchical_train_step_on_the_card(cuda_device):
         assert loss.shape == (8,) and torch.isfinite(loss).all()
     finally:
         bf.shutdown()
+
+
+@pytest.mark.parametrize("scan", [False, True])
+@pytest.mark.parametrize("policy", [None, "dots", "dots_no_batch", "attn"])
+def test_remat_launches_the_flash_forward_twice_a_layer(cuda_device, policy, scan):
+    """A 3-layer bf16 LlamaLM with GQA at D = 128 under remat, one forward
+    and backward with the chunked loss: the backward recomputes each
+    block's forward, flash forward included, whatever the policy, so the
+    forward kernel launches 2 x layers times and dK/dV and dQ once a layer;
+    without remat the forward launches once a layer."""
+    from bluefog_tpu_torch.kernels import make_flash_attention_fn
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+
+    layers = 3
+    ids = torch.randint(0, 97, (2, 256), generator=torch.Generator().manual_seed(0)).cuda()
+    for remat in (False, True):
+        model = LlamaLM(vocab_size=97, hidden_size=512, num_layers=layers, num_heads=4,
+                        num_kv_heads=2, dff=256, attention_fn=make_flash_attention_fn(),
+                        head_chunks=4, remat=remat, remat_policy=policy, scan_layers=scan,
+                        device="cpu", generator=torch.Generator().manual_seed(1)).cuda()
+        fa.reset_launches()
+        model(ids, labels=ids).backward()
+        torch.cuda.synchronize()
+        want = {"fwd": (1 + remat) * layers, "dkv": layers, "dq": layers}
+        assert dict(fa.launches) == want, (remat, policy, dict(fa.launches))
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.parametrize("kvh", [1, 2, 7])
+def test_gqa_through_the_bf16_kernels_at_d128_matches_the_plain_version(cuda_device, kvh):
+    """Grouped-query attention as LlamaLM lays it out for the kernels, at
+    D = 128 and 14 query heads: k and v on ``kvh`` heads, repeated in place
+    and folded to ``[B x 14, T, D]``, through the bf16 kernels against
+    their plain versions on the same inputs (lse and the row correction
+    from the plain forward, as in chip_smoke.py).  o, lse, dq and each
+    repeated head's dk and dv within the kernels' rule; the gradients of
+    the unrepeated k and v (the sum over each kv head's 14 / kvh query
+    heads, which autograd forms) within the sum of the terms' rules."""
+    gen = torch.Generator(device=cuda_device).manual_seed(kvh)
+    b, t, h, d = 2, 384, 14, 128
+    rep = h // kvh
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).bfloat16()
+
+    q, g = rnd(b, t, h, d), rnd(b, t, h, d)
+    k, v = (rnd(b, t, kvh, d).repeat_interleave(rep, dim=2) for _ in range(2))
+    qf, kf, vf, gf = (fa._fold(x) for x in (q, k, v, g))
+    kw = dict(scale=d ** -0.5, causal=True)
+    o, lse = fa.flash_fwd(qf, kf, vf, 0, 0, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(qf, kf, vf, 0, 0, **kw)
+    corr = (-(o_ref.float() * gf.float()).sum(-1)).contiguous()
+    dk, dv = fa.flash_dkv(qf, kf, vf, gf, lse_ref, corr, 0, 0, **kw)
+    dq = fa.flash_dq(qf, kf, vf, gf, lse_ref, corr, 0, 0, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(qf, kf, vf, gf, lse_ref, corr, 0, 0, **kw)
+    dq_ref = fa.flash_dq_plain(qf, kf, vf, gf, lse_ref, corr, 0, 0, **kw)
+    _close_lse(lse, lse_ref)
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close(got, want)
+    for got, want in ((dk, dk_ref), (dv, dv_ref)):
+        terms = want.float().view(b, kvh, rep, t, d)
+        summed, summed_ref = got.float().view(b, kvh, rep, t, d).sum(2), terms.sum(2)
+        tol = (2.0 ** -7 * terms.abs() + 2.0 ** -6 * terms.pow(2).mean().sqrt()).sum(2)
+        err = (summed - summed_ref).abs()
+        assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
