@@ -507,7 +507,15 @@ def flash_attention_with_lse(q, k, v, *, q_start: int = 0, k_start: int = 0,
     """``(out [B,T,H,D], lse [B,H,T] f32)`` for q, k, v of shape
     ``[B, T, H, D]``.  ``q_start``/``k_start`` are global sequence offsets
     for the causal mask.  Rows with no visible key give out = 0 and
-    lse = -1e30."""
+    lse = -1e30.
+
+    The offsets are host integers (converted with ``int()``), where the
+    reference accepts traced ones: under ``shard_map`` each device's
+    offset depends on ``lax.axis_index``, while in the rank-major form
+    every rank's offset is known on the host, so a ring hop passes
+    integers, one launch for the ranks that share them
+    (:func:`bluefog_tpu_torch.parallel.ring_attention.hop_launches`), and
+    the kernels read no offset from device memory."""
     b, tq, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     o, lse = _FlashCore.apply(_fold(q), _fold(k), _fold(v), int(q_start),

@@ -151,13 +151,20 @@ class BertEncoder(nn.Module):
 
 
 def _rotary(x, positions):
-    """Rotary position embedding; x: [B, T, H, D], positions: [T]."""
+    """Rotary position embedding; x: [B, T, H, D], positions: [T], or
+    [B, T] with each row's own.  The per-row form is a layout need of the
+    rank-major sequence parallelism (:mod:`bluefog_tpu_torch.parallel`),
+    which folds n shards into the batch, each row with its shard's global
+    positions, where the reference passes each device its own [T] under
+    ``shard_map``; it is not a feature of the reference's model."""
     half = x.shape[-1] // 2
     freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
                                             device=x.device) / half))
-    angles = positions[:, None].float() * freqs[None, :]  # [T, half]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    angles = positions[..., None].float() * freqs  # [T, half] or [B, T, half]
+    if positions.dim() == 1:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -398,9 +405,9 @@ class LlamaLM(nn.Module):
     """Llama-style decoder-only LM: RMSNorm, rotary, SwiGLU, no biases.
 
     ``forward(ids, positions=None, labels=None)``, in the reference's order:
-    ``positions`` (``[T]`` int, default ``arange(T)``) feed the rotary
-    embedding of every block, so a sequence shard passes its global
-    positions.  Without ``labels`` it returns f32 logits; with them, the
+    ``positions`` (``[T]`` int, default ``arange(T)``, or ``[B, T]``, one
+    row a batch row: see :func:`_rotary`) feed the rotary embedding of
+    every block, so a sequence shard passes its global positions.  Without ``labels`` it returns f32 logits; with them, the
     scalar shifted-LM loss (chunked when ``head_chunks > 1``).
     ``head_dtype=torch.bfloat16`` runs the LM head on bf16 operands with
     f32 accumulation and f32 logits (:func:`head_matmul`).

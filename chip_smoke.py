@@ -122,8 +122,29 @@ Phases, each printing one JSON line:
                32 images, ATC SGD on ExponentialTwoGraph(4), 3 steps:
                finite losses, the plan's mix after every step; no kernel of
                the repo launches (dense attention, as the reference's).
+15. seq_parallel -- sequence parallelism on the flash kernels, the
+               reference's --seq-parallel Llama path through
+               examples/llama_pretrain --seq-parallel at the small preset's
+               widths (12 layers, hidden 768, 12 heads, D = 64, bf16) over
+               a global context of 8192 tokens on 4 ranks (shards of
+               2048), batch 2, Adam 3e-3.  First, at the layer shape
+               [2, 8192, 12, 64], the contiguous and striped rings and
+               Ulysses in bf16 and the striped ring in f32 (forward, dq,
+               dk, dv under a seeded cotangent): every launch against its
+               plain version (the kernels' bf16 or f32 rule, element
+               part widened 1.5x), faults planted in one launch of each
+               kernel and dtype read above that limit, the merged outputs against
+               the rings on the plain versions, one full-sequence launch
+               and the f32 truth (in norm); then
+               three modes, 3 steps each: contiguous ring flash, striped
+               ring flash, Ulysses with flash: finite losses, fwd = dK/dV =
+               dQ launches of 48 / 84 / 12 a step, the logits before any
+               update against the full-sequence model (both against the
+               f32 truth); then 2 layers in f32, striped, 2 steps: 14 f32
+               launches a step, no bf16 launch.
 Phases 8-12 and 14 run no kernel of the repo and add no row to the kernel
-table; the bf16 rows' launches sum the main and llama_1b paths.
+table; the bf16 rows' launches sum the main, llama_1b and seq_parallel
+paths, the f32 rows' the f32_path and seq_parallel paths.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -1735,6 +1756,410 @@ def phase_exact_algorithms(torch):
         bf.shutdown()
 
 
+SP_RANKS, SP_SEQ, SP_BATCH, SP_HEADS, SP_D = 4, 8192, 2, 12, 64
+SP_MODES = {"ring": [], "ring_striped": ["--striped"], "ulysses": ["--ulysses"]}
+# flash launches a layer of one step, each of fwd, dK/dV and dQ
+SP_PER_LAYER = {"ring": SP_RANKS, "ring_striped": 2 * SP_RANKS - 1, "ulysses": 1}
+
+
+def _sp_fwd_bwd(fn, q, k, v, g):
+    """(o, dq, dk, dv) of fn under the cotangent g."""
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*xs)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in xs]
+
+
+# A seq-parallel launch against its plain version: under the kernels' rule
+# (bf16) or the f32 rule, its element part widened SP_LAUNCH_WIDEN times.
+# Phases kernel_case and kernel_case_f32 hold every kernel to the rule
+# itself on i.i.d. inputs (worst 0.87 and 0.32); a ring's launches take the
+# merge's cotangents, scaled row by row by the merge weights, over up to 4x
+# the elements of the largest case, and their rounding tail reaches a
+# little past it (on an H100: 1.050 for one bf16 dK/dV launch of the
+# striped ring, 1.092 for one f32 one).  _sp_fault_ratios plants faults in
+# the striped ring's delta-1 launch (its key offset off by one, one 64-row
+# tile of the output zeroed) and gates that each lands above this limit
+# (bf16: 58 to 2,457 on an H100).
+SP_LAUNCH_WIDEN = 1.5
+
+
+def _sp_launch_checker(torch, fa, worst, failures, samples):
+    """Wrappers for fa.flash_fwd / flash_dkv / flash_dq that run the
+    kernel, run its plain version on the same inputs, hold the kernel's
+    outputs to the rule (bf16: the kernels' rule with its element part
+    widened SP_LAUNCH_WIDEN times, lse to LSE_ABS; f32: the f32 rule
+    widened as much, lse to F32_LSE_ABS; both ||err|| <= NORM_REL ||ref||)
+    and return the
+    kernel's: every launch a ring or Ulysses makes, at the shape, offsets
+    and lse cotangent (in corr) it makes it with.  The first causal
+    launch of each kernel and dtype whose offsets differ (the striped
+    ring's delta-1 hop) is kept in ``samples`` for
+    :func:`_sp_fault_ratios`."""
+    names = {"flash_fwd": ("fwd", ("o", "lse")), "flash_dkv": ("dkv", ("dk", "dv")),
+             "flash_dq": ("dq", ("dq",))}
+    wrappers = {}
+    for fname, (kname, outs) in names.items():
+        kernel, plain = getattr(fa, fname), getattr(fa, f"{fname}_plain")
+
+        def call(*args, _k=kernel, _p=plain, _name=kname, _outs=outs, **kw):
+            got, want = _k(*args, **kw), _p(*args, **kw)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            f32 = args[0].dtype == torch.float32
+            offsets = args[3:5] if _name == "fwd" else args[6:8]
+            key = (_name, "f32" if f32 else "bf16")
+            if kw["causal"] and offsets[0] != offsets[1] and key not in samples:
+                samples[key] = (args, kw)
+            for what, a, b in zip(_outs, got, want):
+                if what == "lse":
+                    err, ratio = compare_lse(a, b)
+                    ratio, norm_rel, limit = (err / F32_LSE_ABS if f32 else ratio), 0.0, 1.0
+                else:
+                    err, ratio, norm_rel = compare(a, b)
+                    if f32:
+                        err, ratio = compare_f32(a, b)
+                    limit = SP_LAUNCH_WIDEN
+                w = worst.setdefault(_name, {"launches": 0, "max_abs_err": 0.0,
+                                             "tol_ratio": 0.0, "norm_rel_err": 0.0})
+                w["max_abs_err"] = max(w["max_abs_err"], err)
+                w["tol_ratio"] = max(w["tol_ratio"], ratio)
+                w["norm_rel_err"] = max(w["norm_rel_err"], norm_rel)
+                if not (ratio <= limit and norm_rel <= NORM_REL):  # NaN fails
+                    failures.append(f"{_name} launch {what} at offsets {offsets}: {ratio:.3g} x "
+                                    f"the tolerance, norm error {norm_rel:.3g}")
+            worst[_name]["launches"] += 1
+            return got if len(got) > 1 else got[0]
+
+        wrappers[fname] = call
+    return wrappers
+
+
+def _sp_fault_ratios(fa, samples):
+    """The launch rule's reading of two faults planted in one launch of
+    each kernel and dtype (``samples``: the striped ring's delta-1 hop,
+    k_start = 1, causal, with the merge's lse cotangent): the kernel run
+    with its key offset off by one (k_start + 1: each query loses its last
+    visible key), and the kernel's right output with one 64-row tile (rows
+    1024-1087 of the first head) zeroed, each against the plain version
+    at the launch's own arguments under the launch's rule.  The largest
+    ratio of each output, by dtype and kernel."""
+    fnames = {"fwd": "flash_fwd", "dkv": "flash_dkv", "dq": "flash_dq"}
+    out = {}
+    for (kname, dtype), (args, kw) in samples.items():
+        fname = fnames[kname]
+        ratio = (lambda a, b: compare_f32(a, b)[1]) if dtype == "f32" else (
+            lambda a, b: compare(a, b)[1])
+        at = 4 if kname == "fwd" else 7
+        want = getattr(fa, f"{fname}_plain")(*args, **kw)
+        shifted = list(args)
+        shifted[at] += 1
+        off = getattr(fa, fname)(*shifted, **kw)
+        right = getattr(fa, fname)(*args, **kw)
+        want, off, right = ((x,) if not isinstance(x, tuple) else x for x in (want, off, right))
+        zeroed = right[0].clone()
+        zeroed[0, 1024:1088] = 0
+        outs = 2 if kname == "dkv" else 1  # not the forward's lse
+        out.setdefault(dtype, {})[kname] = {
+            "k_start_off_by_one": max(ratio(a, b) for a, b in zip(off[:outs], want)),
+            "tile_zeroed": ratio(zeroed, want[0])}
+    return out
+
+
+def _sp_layer_checks(torch, fa):
+    """Sequence-parallel attention at the layer shape [2, 8192, 12, 64] of
+    the seq-parallel path over SP_RANKS ranks: the contiguous and striped
+    ring and Ulysses in bf16, and the striped ring in f32 (the reduced-depth
+    f32 run's launches), forward and (dq, dk, dv) under a seeded cotangent:
+
+    - every kernel launch (fwd, dK/dV, dQ of every hop group, with its
+      offsets and the merge's lse cotangent; Ulysses' one launch at the
+      folded [24, 8192, 64]) against its plain version on the same inputs
+      (:func:`_sp_launch_checker`), and the rule's reading of faults
+      planted in one launch of each kernel and dtype above its limit
+      (:func:`_sp_fault_ratios`);
+    - bf16: the merged outputs against the same ring on the plain versions
+      and against one full-sequence flash_attention_with_lse launch:
+      ||err|| <= 1e-2 ||ref||, and both against the f32 truth (f32
+      scaled_dot_product_attention on the same bf16 inputs): the ring's
+      norm error at most sqrt(2n - 1) times the launch's;
+    - f32: the merged outputs against the plain ring, ||err|| <= 1e-2
+      ||ref|| (element ratios under the f32 rule printed).
+
+    The merged bf16 outputs are not held to the rule's element part: a
+    merged value sums per-hop parts rounded to bf16 at their own size
+    (each hop's o; each hop's dQ / dK / dV, summed in bf16 across hops),
+    which can be larger than the value, where one launch rounds once at
+    the value's size (the ring's 2n - 1 roundings add in quadrature:
+    sqrt(2n - 1)).  The element ratios are printed.  Launches made here
+    are not a path's; returns the timing row."""
+    from bluefog_tpu_torch.parallel import ring_attention as ring
+    from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
+
+    F = torch.nn.functional
+    n = SP_RANKS
+    roundings = 2 * n - 1
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (SP_BATCH, SP_SEQ, SP_HEADS, SP_D)
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(4))
+    counts_before = (dict(fa.launches), dict(fa.launches_f32))
+
+    def full(q, k, v):
+        return fa.flash_attention_with_lse(q, k, v, causal=True)[0]
+
+    def truth(q, k, v):
+        o = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                                           is_causal=True)
+        return o.transpose(1, 2)
+
+    def sp_fn(mode):
+        striped = mode == "striped"
+
+        def fn(q, k, v):
+            xs = (ring.shard_inputs(x, n, striped)[0] for x in (q, k, v))
+            if mode == "ulysses":
+                o = ulysses_attention(*xs, n, causal=True, flash=True)
+            else:
+                o = ring.ring_flash_attention(*xs, n, causal=True, striped=striped)
+            return ring.gather_outputs(o, n, striped)
+        return fn
+
+    def swapped(fns, fn, *args):
+        saved = {x: getattr(fa, x) for x in fns}
+        try:
+            for x, f in fns.items():
+                setattr(fa, x, f)
+            return _sp_fwd_bwd(fn, *args)
+        finally:
+            for x, f in saved.items():
+                setattr(fa, x, f)
+
+    ref_full = _sp_fwd_bwd(full, q, k, v, g)
+    ref_truth = _sp_fwd_bwd(truth, q.float(), k.float(), v.float(), g.float())
+    plain = {x: getattr(fa, f"{x}_plain") for x in ("flash_fwd", "flash_dkv", "flash_dq")}
+    rows, failures, samples = {}, [], {}
+    names = ("o", "dq", "dk", "dv")
+    launches = {"contiguous": n, "striped": 2 * n - 1, "ulysses": 1, "striped_f32": 2 * n - 1}
+    for mode, want in launches.items():
+        f32 = mode == "striped_f32"
+        fn = sp_fn("striped" if f32 else mode)
+        inputs = [x.float() for x in (q, k, v, g)] if f32 else (q, k, v, g)
+        worst = {}
+        got = swapped(_sp_launch_checker(torch, fa, worst, failures, samples), fn, *inputs)
+        on_plain = swapped(plain, fn, *inputs)
+        row = {"phase": "seq_parallel_layer", "layout": mode, "shape": list(shape),
+               "dtype": "f32" if f32 else "bf16", "ranks": n, "launch_vs_plain": worst}
+        for kname in ("fwd", "dkv", "dq"):
+            got_n = worst.get(kname, {}).get("launches", 0)
+            if got_n != want:
+                failures.append(f"{mode}: {got_n} {kname} launches, expected {want}")
+        for name, a, p, f, t in zip(names, got, on_plain, ref_full, ref_truth):
+            if not torch.isfinite(a).all().item():
+                failures.append(f"{mode}: non-finite {name}")
+            err_p, ratio_p, norm_p = compare(a, p)
+            row[name] = {"vs_plain_max_abs_err": err_p, "vs_plain_norm_rel_err": norm_p}
+            if f32:
+                row[name]["vs_plain_f32_tol_ratio"] = compare_f32(a, p)[1]
+                if norm_p > NORM_REL:
+                    failures.append(f"{mode} {name}: norm error {norm_p:.3g} vs the plain ring")
+                continue
+            err_f, ratio_f, norm_f = compare(a, f)
+            ring_truth = ((a.float() - t).norm() / t.norm()).item()
+            full_truth = ((f.float() - t).norm() / t.norm()).item()
+            row[name].update({"vs_plain_tol_ratio": ratio_p, "vs_full_max_abs_err": err_f,
+                              "vs_full_tol_ratio": ratio_f, "vs_full_norm_rel_err": norm_f,
+                              "ring_truth_norm_rel_err": ring_truth,
+                              "full_truth_norm_rel_err": full_truth})
+            if norm_p > NORM_REL or norm_f > NORM_REL:
+                failures.append(f"{mode} {name}: norm error {norm_p:.3g} vs the plain ring, "
+                                f"{norm_f:.3g} vs one launch")
+            if ring_truth > math.sqrt(roundings) * full_truth:
+                failures.append(f"{mode} {name}: {ring_truth:.3g} from the f32 truth, one "
+                                f"launch {full_truth:.3g}")
+        row["tolerance"] = (
+            f"each launch vs plain: {TOLERANCE_F32}, element part x {SP_LAUNCH_WIDEN}" if f32
+            else f"each launch vs plain: {TOLERANCE}, element part x {SP_LAUNCH_WIDEN}; merged: "
+            f"||err|| <= 1e-2 ||ref|| vs the plain ring and one launch, ||ring - truth|| <= "
+            f"sqrt({roundings}) ||launch - truth||")
+        if f32:
+            row["tolerance"] += "; merged: ||err|| <= 1e-2 ||ref|| vs the plain ring"
+        emit(row)
+        rows[mode] = row
+    faults = _sp_fault_ratios(fa, samples)
+    emit({"phase": "seq_parallel_planted_faults", "limit": SP_LAUNCH_WIDEN,
+          "launch": "striped ring, delta-1 hop (q_start 0, k_start 1, causal)",
+          "tol_ratio": faults})
+    check(sorted(samples) == sorted((k, d) for k in ("fwd", "dkv", "dq")
+                                    for d in ("bf16", "f32")),
+          f"seq_parallel layer: delta-1 launches sampled {sorted(samples)}")
+    for dtype, by_kernel in faults.items():
+        for kname, r in by_kernel.items():
+            for fault, ratio in r.items():
+                if not ratio > SP_LAUNCH_WIDEN:
+                    failures.append(f"planted fault {fault} in {dtype} {kname} read "
+                                    f"{ratio:.3g}, within the launch limit {SP_LAUNCH_WIDEN}")
+    check(not failures, "seq_parallel layer: " + "; ".join(failures))
+
+    # forward + backward times at the layer shape, one launch against the
+    # rings and Ulysses (eager: a ring's host work between its launches is
+    # its cost)
+    def timed(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        return cuda_ms(lambda: fn(*xs).backward(g), iters=5, warmup=2)
+
+    timing = {"phase": "seq_parallel_layer_times", "shape": list(shape), "ranks": n,
+              "full_fwd_bwd_ms": timed(full), "ring_fwd_bwd_ms": timed(sp_fn("contiguous")),
+              "ring_striped_fwd_bwd_ms": timed(sp_fn("striped")),
+              "ulysses_fwd_bwd_ms": timed(sp_fn("ulysses"))}
+    fa.launches.update(counts_before[0])
+    fa.launches_f32.update(counts_before[1])
+    emit(timing)
+    return timing
+
+
+def _sp_logits_check(torch, fa, model, mode, refs):
+    """Called by llama_pretrain before the first step: the seq-parallel
+    logits of ``model`` on a seeded [2, 8192] batch, put back into
+    sequence order, against one LlamaLM with make_flash_attention_fn on
+    the whole sequence and the same weights.  Two bf16 computations of 12
+    layers differ by more than the kernels' rule (each rounds its
+    attention outputs at other points, and 12 layers carry the
+    differences on), so both are held against the f32 truth
+    (the same weights in f32, f32 scaled_dot_product_attention), as phase
+    model holds gradients: ||sp - truth|| <= 1.25 ||full - truth||.  The
+    references are made once (every mode draws the same weights from the
+    same seed, checked) and kept on the host.  Launches here are not the
+    path's."""
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+    from bluefog_tpu_torch.parallel import ring_attention as ring
+
+    F = torch.nn.functional
+    counts_before = (dict(fa.launches), dict(fa.launches_f32))
+    n = SP_RANKS
+    striped = mode == "ring_striped"
+    ids = torch.randint(0, 32000, (SP_BATCH, SP_SEQ),
+                        generator=torch.Generator().manual_seed(17)).cuda()
+    state = model.state_dict()
+    digest = sum(float(v.double().sum()) for v in state.values())
+    cfg = dict(vocab_size=32000, hidden_size=768, num_layers=12, num_heads=SP_HEADS,
+               dff=2048, device="cuda")
+
+    def truth_attention(q, k, v):
+        o = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                                           is_causal=True)
+        return o.transpose(1, 2)
+
+    with torch.no_grad():
+        if "full" not in refs:
+            for name, kw in (("full", dict(dtype=torch.bfloat16,
+                                           attention_fn=fa.make_flash_attention_fn())),
+                             ("truth", dict(dtype=torch.float32,
+                                            attention_fn=truth_attention))):
+                twin = LlamaLM(**cfg, **kw)
+                twin.load_state_dict(state)
+                refs[name] = twin(ids).cpu()
+                del twin
+            refs["digest"] = digest
+        check(digest == refs["digest"], f"seq_parallel {mode}: other weights than the "
+                                        f"first mode's ({digest} vs {refs['digest']})")
+        x, pos = ring.shard_inputs(ids, n, striped)
+        sp = ring.gather_outputs(model(x, pos), n, striped)
+        full, truth = refs["full"].cuda(), refs["truth"].cuda()
+        check(torch.isfinite(sp).all().item(), f"seq_parallel {mode}: non-finite logits")
+        sp_truth = ((sp - truth).norm() / truth.norm()).item()
+        full_truth = ((full - truth).norm() / truth.norm()).item()
+        err, ratio, norm_rel = compare(sp, full)
+        del full, truth, sp
+    fa.launches.update(counts_before[0])
+    fa.launches_f32.update(counts_before[1])
+    return {"logits_sp_truth_norm_rel_err": sp_truth,
+            "logits_full_truth_norm_rel_err": full_truth,
+            "logits_vs_full_max_abs_err": err, "logits_vs_full_tol_ratio": ratio,
+            "logits_vs_full_norm_rel_err": norm_rel,
+            "logits_tolerance": "||sp - truth|| <= 1.25 ||full - truth|| (f32 truth)"}
+
+
+def phase_seq_parallel(torch, fa):
+    """Sequence parallelism on the flash kernels: the reference's
+    ``--seq-parallel`` Llama path (examples/jax_llama_pretrain.py
+    run_seq_parallel) at the small preset's widths (vocab 32000, hidden
+    768, 12 layers, 12 heads, D = 64, dff 2048, bf16) over a global context
+    of 8192 tokens on SP_RANKS ranks (shards of 2048), batch 2, Adam 3e-3,
+    through examples/llama_pretrain --seq-parallel: contiguous ring flash,
+    striped ring flash, Ulysses with flash, STEPS steps each, every launch
+    count set to 0 just before each mode and read just after.  Each mode:
+    finite losses, fwd = dK/dV = dQ launches of layers x 4 (contiguous),
+    layers x 7 (striped) or layers (Ulysses) in every step, and the logits
+    before any update held against the full-sequence model
+    (:func:`_sp_logits_check`).  Before them, the layer-shape checks
+    (:func:`_sp_layer_checks`); after them, 2 layers in f32, striped, 2
+    steps: the f32 kernels' launches 2 x 7 a step and no bf16 launch.
+    Returns the bf16 and f32 launch counts of the path."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sp_layer_checks(torch, fa)
+    base = ["--preset", "small", "--seq", str(SP_SEQ), "--batch", str(SP_BATCH),
+            "--size", str(SP_RANKS), "--seq-parallel", "--device", "cuda"]
+    counts = {"fwd": 0, "dkv": 0, "dq": 0}
+    refs = {}
+    for mode, flags in SP_MODES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits = {}
+
+        def setup(model, opt, mode=mode, logits=logits):
+            logits.update(_sp_logits_check(torch, fa, model, mode, refs))
+
+        fa.reset_launches()
+        out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+            base + ["--steps", str(STEPS)] + flags), setup=setup)
+        got, got_f32 = dict(fa.launches), dict(fa.launches_f32)
+        per_step = out["layers"] * SP_PER_LAYER[mode]
+        row = {"phase": "seq_parallel", **out, "launches": got,
+               "launches_expected_per_step": per_step,
+               "peak_gb": out["max_memory_allocated"] / 1e9, **logits}
+        emit(row)
+        check((out["hidden"], out["layers"], out["heads"], out["seq"], out["t_local"]) ==
+              (768, 12, SP_HEADS, SP_SEQ, SP_SEQ // SP_RANKS), f"seq_parallel: widths {out}")
+        check(out["mode"] == mode and out["head_chunks"] == 0, f"seq_parallel: mode {out}")
+        check(all(math.isfinite(x) for x in out["losses"]),
+              f"seq_parallel {mode}: non-finite loss {out['losses']}")
+        check(logits["logits_sp_truth_norm_rel_err"]
+              <= 1.25 * logits["logits_full_truth_norm_rel_err"],
+              f"seq_parallel {mode}: logits {logits}")
+        for s, step in enumerate(out["launches_per_step"]):
+            check(step == {k: per_step for k in step},
+                  f"seq_parallel {mode}: step {s} launched {step}, expected {per_step} each")
+        for kname, c in got.items():
+            check(c == per_step * STEPS, f"seq_parallel {mode}: {kname} launched {c} times")
+            counts[kname] += c
+        check(not any(got_f32.values()), f"seq_parallel {mode}: an f32 kernel launched")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    steps_f32, layers_f32 = 2, 2
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        base + ["--steps", str(steps_f32), "--striped", "--dtype", "f32",
+                "--layers", str(layers_f32)]))
+    counts_f32, bf16 = dict(fa.launches_f32), dict(fa.launches)
+    per_step = layers_f32 * SP_PER_LAYER["ring_striped"]
+    emit({"phase": "seq_parallel_f32", **out, "launches_f32": counts_f32,
+          "launches_expected_per_step": per_step,
+          "peak_gb": out["max_memory_allocated"] / 1e9,
+          "reduced": "depth 12 -> 2 layers, 2 steps: the f32 kernels through the ring"})
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"seq_parallel f32: non-finite loss {out['losses']}")
+    for kname, c in counts_f32.items():
+        check(c == per_step * steps_f32, f"seq_parallel f32: {kname}_f32 launched {c} times, "
+                                         f"expected {per_step * steps_f32}")
+    check(not any(bf16.values()), f"seq_parallel f32: a bf16 kernel launched ({bf16})")
+    return counts, counts_f32
+
+
 def main():
     import torch
 
@@ -1765,6 +2190,7 @@ def main():
     phase_hierarchical(torch)
     counts_1b = phase_llama_1b(torch, fa)
     phase_vit(torch, fa)
+    counts_sp, counts_sp_f32 = phase_seq_parallel(torch, fa)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",
@@ -1777,13 +2203,15 @@ def main():
     emit({"kernels": [
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
-         "replaces": replaces[k], "launches": counts[k] + counts_1b[k],
-         "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k]}, **table[k]}
+         "replaces": replaces[k], "launches": counts[k] + counts_1b[k] + counts_sp[k],
+         "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k],
+                               "seq_parallel": counts_sp[k]}, **table[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f32", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",
-         "replaces": replaces[k], "launches": counts_f32[k],
-         "launches_by_phase": {"f32_path": counts_f32[k]}, **table_f32[k]}
+         "replaces": replaces[k], "launches": counts_f32[k] + counts_sp_f32[k],
+         "launches_by_phase": {"f32_path": counts_f32[k], "seq_parallel": counts_sp_f32[k]},
+         **table_f32[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"{k}_component", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/attention_components.cu",

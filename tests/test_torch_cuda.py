@@ -637,3 +637,68 @@ def test_gqa_through_the_bf16_kernels_at_d128_matches_the_plain_version(cuda_dev
         tol = (2.0 ** -7 * terms.abs() + 2.0 ** -6 * terms.pow(2).mean().sqrt()).sum(2)
         err = (summed - summed_ref).abs()
         assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
+
+
+def _plain_kernels(monkeypatch):
+    """Route the flash wrappers to their plain versions, on the card."""
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        monkeypatch.setattr(fa, name, getattr(fa, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("striped", [False, True])
+def test_ring_flash_on_the_kernels_matches_the_ring_on_the_plain_versions(
+        cuda_device, striped, monkeypatch):
+    """Ring flash attention (4 ranks x 2 rows, 256 tokens a shard, 2
+    heads, D = 64, bf16) through the CUDA kernels against the same ring
+    through the kernels' plain versions on the card: o, dq, dk and dv
+    under a seeded cotangent within the kernels' rule.  Every hop runs
+    the kernels with non-zero offsets (striped: k_start 1) and, in the
+    backward, the lse cotangent of the merge."""
+    from bluefog_tpu_torch.parallel import ring_attention as ring
+
+    n, gen = 4, torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, g = (torch.randn(n * 2, 256, 2, 64, generator=gen, device=cuda_device).bfloat16()
+                  for _ in range(4))
+
+    def run():
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ring.ring_flash_attention(*xs, n, causal=True, striped=striped)
+        out.backward(g)
+        return [out.detach()] + [x.grad for x in xs]
+
+    fa.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = 2 * n - 1 if striped else n
+    assert dict(fa.launches) == {"fwd": launches, "dkv": launches, "dq": launches}
+    _plain_kernels(monkeypatch)
+    want = run()
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("mode", ["ring", "ring_striped", "ulysses"])
+def test_sequence_parallel_llama_launches_per_layer(cuda_device, mode):
+    """A 3-layer bf16 LlamaLM on 4 sequence shards, one forward and
+    backward: the flash kernels launch n times a layer (contiguous ring),
+    2n - 1 (striped) or once (Ulysses), each of fwd, dK/dV and dQ."""
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+    from bluefog_tpu_torch.parallel import ring_attention as ring
+    from bluefog_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
+
+    n, layers, b, t = 4, 3, 2, 1024
+    fn = (make_ulysses_attention_fn(n, flash=True) if mode == "ulysses" else
+          ring.make_ring_attention_fn(n, flash=True, striped=mode == "ring_striped"))
+    model = LlamaLM(vocab_size=97, hidden_size=256, num_layers=layers, num_heads=4, dff=256,
+                    attention_fn=fn, device="cpu",
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    ids = torch.randint(0, 97, (b, t), generator=torch.Generator().manual_seed(0))
+    x, pos = ring.shard_inputs(ids.cuda(), n, mode == "ring_striped")
+    fa.reset_launches()
+    logits = model(x, pos)
+    logits.float().square().mean().backward()
+    torch.cuda.synchronize()
+    per_layer = {"ring": n, "ring_striped": 2 * n - 1, "ulysses": 1}[mode]
+    want = {k: layers * per_layer for k in ("fwd", "dkv", "dq")}
+    assert dict(fa.launches) == want, (mode, dict(fa.launches))
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
