@@ -10,8 +10,7 @@ masked gets a uniform softmax).  Its attention is the plain dense product,
 as in the reference, which runs it outside any Pallas kernel.
 
 ``LlamaLM`` has the reference's options: GQA, remat with its policies,
-``scan_layers`` and ``spmd_vocab`` (not the FSDP sharding markers, which
-place tensors for GSPMD: one device holds every rank here).  Parameters
+``scan_layers``, ``spmd_vocab`` and the three FSDP hooks.  Parameters
 are f32 and matmuls run in ``dtype`` (bf16 by default), with norms and
 softmax in f32 and the LM head in ``head_dtype``: f32 by default, or bf16
 operands with f32 accumulation in both directions (the JAX
@@ -353,7 +352,7 @@ def head_matmul(x, head_w, head_dtype=torch.float32):
         return _Bf16MatmulF32Acc.apply(x, head_w)
     if head_dtype != torch.float32:
         raise ValueError(f"head_dtype must be float32 or bfloat16, got {head_dtype}")
-    return F.linear(x.float(), head_w)
+    return F.linear(x.float(), head_w.float())
 
 
 def one_hot(ids, n: int, dtype):
@@ -370,7 +369,9 @@ def _target_logits(logits, y, onehot_targets: bool):
     return logits.gather(-1, y[..., None])[..., 0]
 
 
-def _head_chunk_loss(xc, head_w, yc, wc, head_dtype, onehot_targets):
+def _head_chunk_loss(xc, head_w, yc, wc, head_dtype, onehot_targets, kernel_constraint):
+    if kernel_constraint is not None:
+        head_w = kernel_constraint(head_w)
     logits = head_matmul(xc, head_w, head_dtype)  # [B, tc, V] f32 — the peak
     lse = torch.logsumexp(logits, dim=-1)
     tgt = _target_logits(logits, yc, onehot_targets)
@@ -378,13 +379,16 @@ def _head_chunk_loss(xc, head_w, yc, wc, head_dtype, onehot_targets):
 
 
 def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int,
-                                  head_dtype=torch.float32, onehot_targets: bool = False):
+                                  head_dtype=torch.float32, onehot_targets: bool = False,
+                                  kernel_constraint: Optional[Callable] = None):
     """Shifted next-token cross-entropy without materializing the full
     ``[B, T, vocab]`` logits: ``mean(CE(logits[:, :-1], labels[:, 1:]))``
     computed per sequence chunk, each chunk under ``torch.utils.checkpoint``
     so its logits are recomputed in the backward.  ``head_weight`` is the
-    ``[vocab, d]`` f32 head, multiplied in ``head_dtype``;
-    ``onehot_targets`` takes the target logit by a one-hot sum."""
+    ``[vocab, d]`` head, multiplied in ``head_dtype``;
+    ``onehot_targets`` takes the target logit by a one-hot sum;
+    ``kernel_constraint`` is applied to the head inside every chunk (the
+    reference's per-chunk ``.sharding_only`` marker)."""
     B, T, _ = hidden.shape
     if T % num_chunks:
         raise ValueError(f"num_chunks {num_chunks} must divide T {T}")
@@ -397,7 +401,7 @@ def chunked_softmax_cross_entropy(hidden, head_weight, labels, num_chunks: int,
         sl = slice(c * tc, (c + 1) * tc)
         total = total + checkpoint(_head_chunk_loss, hidden[:, sl], head_weight,
                                    y[:, sl], w[:, sl], head_dtype, onehot_targets,
-                                   use_reentrant=False)
+                                   kernel_constraint, use_reentrant=False)
     return total / w.sum()
 
 
@@ -427,9 +431,18 @@ class LlamaLM(nn.Module):
     - ``spmd_vocab``: the embedding as a one-hot matmul and the target logit
       as a one-hot sum (:func:`one_hot`): bit-equal to the default on
       in-range ids; an out-of-range id embeds as zeros and has no target
-      logit.  The reference's FSDP sharding markers (``act_constraint``,
-      ``onehot_constraint``, ``weight_constraint``) place tensors for GSPMD;
-      one device holds every rank here, so they are not ported.
+      logit.
+    - The FSDP hooks, called where the reference calls them:
+      ``act_constraint`` on the ``[B, T, d]`` hidden states after the
+      embedding and after every block; ``onehot_constraint`` on the one-hot
+      operand (``spmd_vocab``); ``weight_constraint`` on the table of the
+      ``spmd_vocab`` embedding, on every weight of each block (in the
+      stacked model on each layer's slice, as ``nn.map_variables`` applies
+      it per scan step), and once on the head outside the chunk loop, with
+      its ``.sharding_only`` form inside each chunk
+      (:func:`bluefog_tpu_torch.parallel.zero.fsdp_param_io_constraint`).
+      The final norm and the gather embedding get none, as in the
+      reference.
     """
 
     def __init__(self, vocab_size: int = 32000, hidden_size: int = 512,
@@ -438,6 +451,9 @@ class LlamaLM(nn.Module):
                  remat: bool = False, remat_policy: Optional[str] = None,
                  scan_layers: bool = False, num_kv_heads: Optional[int] = None,
                  head_chunks: int = 0, head_dtype=torch.float32, spmd_vocab: bool = False,
+                 act_constraint: Optional[Callable] = None,
+                 onehot_constraint: Optional[Callable] = None,
+                 weight_constraint: Optional[Callable] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
@@ -454,6 +470,9 @@ class LlamaLM(nn.Module):
         self.head_chunks = head_chunks
         self.head_dtype = head_dtype
         self.spmd_vocab = spmd_vocab
+        self.act_constraint = act_constraint
+        self.onehot_constraint = onehot_constraint
+        self.weight_constraint = weight_constraint
         self.scan_layers = scan_layers
         self.remat = remat
         self.remat_policy = remat_policy if remat else None
@@ -507,22 +526,46 @@ class LlamaLM(nn.Module):
             positions = torch.arange(t, device=input_ids.device)
         else:
             positions = torch.as_tensor(positions, device=input_ids.device)
-        table = self.embed.weight.to(self.dtype)
+        act, wc = self.act_constraint, self.weight_constraint
+        table = self.embed.weight
         if self.spmd_vocab:
-            x = one_hot(input_ids, table.shape[0], self.dtype) @ table
+            if wc is not None:
+                table = wc(table)
+            oh = one_hot(input_ids, table.shape[0], self.dtype)
+            if self.onehot_constraint is not None:
+                oh = self.onehot_constraint(oh)
+            x = oh @ table.to(self.dtype)
         else:
-            x = F.embedding(input_ids, table)
+            x = F.embedding(input_ids, table.to(self.dtype))
+        if act is not None:
+            x = act(x)
         blocks = (self.layers.per_layer() if self.scan_layers
                   else [blk.weights() for blk in self.layers])
         for weights in blocks:
+            if wc is not None:
+                weights = tuple(wc(w) for w in weights)
             x = self._block(x, positions, weights)
+            if act is not None:
+                x = act(x)
         x = self.norm(x)  # f32
+        head_w = self.head.weight
+        if wc is not None:  # once, outside any chunk loop
+            head_w = wc(head_w)
         if labels is None:
-            return head_matmul(x, self.head.weight, self.head_dtype)  # f32 logits
+            return head_matmul(x, head_w, self.head_dtype)  # f32 logits
         if self.head_chunks > 1:
-            return chunked_softmax_cross_entropy(x, self.head.weight, labels,
-                                                 self.head_chunks, self.head_dtype,
-                                                 onehot_targets=self.spmd_vocab)
-        logits = head_matmul(x, self.head.weight, self.head_dtype)[:, :-1]
+            if wc is not None and not hasattr(wc, "sharding_only"):
+                raise ValueError(
+                    "head_chunks > 1 with a custom weight_constraint requires a "
+                    ".sharding_only attribute (the per-chunk pin without the "
+                    "grad-dtype cast, cf. parallel/zero.fsdp_param_io_constraint): "
+                    "passing the full constraint would re-round the head-kernel "
+                    "cotangent once per chunk instead of once on the accumulated "
+                    "gradient")
+            return chunked_softmax_cross_entropy(
+                x, head_w, labels, self.head_chunks, self.head_dtype,
+                onehot_targets=self.spmd_vocab,
+                kernel_constraint=getattr(wc, "sharding_only", wc))
+        logits = head_matmul(x, head_w, self.head_dtype)[:, :-1]
         tgt = _target_logits(logits, labels[:, 1:], self.spmd_vocab)
         return (torch.logsumexp(logits, dim=-1) - tgt).mean()

@@ -57,7 +57,10 @@ __all__ = [
 
 
 def tree_map(fn, x):
-    """Apply ``fn`` to every tensor of a tensor / dict / list / tuple."""
+    """Apply ``fn`` to every tensor of a tensor / dict / list / tuple; a
+    None is an empty subtree (as in ``jax.tree_util``) and stays None."""
+    if x is None:
+        return None
     if isinstance(x, torch.Tensor):
         return fn(x)
     if isinstance(x, dict):
@@ -69,8 +72,11 @@ def tree_map(fn, x):
 
 def tree_flatten(x):
     """``(leaves, spec)`` of a tensor / dict / list / tuple; dict keys in
-    sorted order, as ``jax.tree_util`` flattens them.  ``spec`` is hashable
-    and compares equal exactly for equal structures."""
+    sorted order, as ``jax.tree_util`` flattens them, and a None an empty
+    subtree.  ``spec`` is hashable and compares equal exactly for equal
+    structures."""
+    if x is None:
+        return [], (type(None), 0, ())
     if isinstance(x, torch.Tensor):
         return [x], None
     if isinstance(x, dict):
@@ -93,6 +99,8 @@ def tree_unflatten(spec, leaves):
         (leaf,) = leaves
         return leaf
     kind, keys, kids = spec
+    if kind is type(None):
+        return None
     parts, off = [], 0
     for s in kids:
         n = _count(s)

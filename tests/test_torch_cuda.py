@@ -702,3 +702,60 @@ def test_sequence_parallel_llama_launches_per_layer(cuda_device, mode):
     want = {k: layers * per_layer for k in ("fwd", "dkv", "dq")}
     assert dict(fa.launches) == want, (mode, dict(fa.launches))
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_fsdp_gossip_step_on_the_card_launches_per_machine_layer(cuda_device):
+    """The FSDP + machine-gossip step of benchmarks/zero_8b at toy widths
+    (GQA, remat, scan, spmd_vocab, the hooks with bf16 gradients) on 2
+    machines x 2: each machine's batch is one forward a layer, recomputed
+    under remat: forward 2 x layers x machines x steps launches, dK/dV and
+    dQ half that; finite losses, f32 masters and bf16 momenta."""
+    import os
+
+    from bluefog_tpu_torch.benchmarks import zero_8b
+
+    states = []
+    os.environ["ZERO8B_MESH"] = "2x2"
+    try:
+        fa.reset_launches()
+        out = zero_8b.run(zero_8b._parser().parse_args(["--toy", "--steps", "2"]),
+                          setup=states.append)
+    finally:
+        del os.environ["ZERO8B_MESH"]
+    assert dict(fa.launches) == {"fwd": 2 * 2 * 2 * 2, "dkv": 2 * 2 * 2, "dq": 2 * 2 * 2}
+    assert all(torch.isfinite(torch.tensor(l)).all() for l in out["machine_losses"])
+    assert {l.dtype for l in states[0]["master"].values()} == {torch.float32}
+    assert {l.dtype for l in states[0]["opt"][0].values()} == {torch.bfloat16}
+
+
+def test_tensor_parallel_block_on_the_f32_kernels(cuda_device):
+    """A tp = 2 block with the flash ``attention_fn`` on the f32 kernels
+    (one launch a direction for both shards) against the same block with
+    the plain f32 dense attention: outputs and gradients within 2^-14 of
+    the largest entry (the f32 kernels' rule: 3xTF32 products against f32
+    FFMA)."""
+    from bluefog_tpu_torch.kernels import make_flash_attention_fn
+    from bluefog_tpu_torch.parallel import tensor_parallel as tpp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = tpp.init_tp_block_params(128, 4, 256, seed=0, device="cuda")
+    x = torch.randn(2, 256, 128, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+
+    def run(attention_fn):
+        repl, shard = tpp.split_tp_params({k: (v.clone() if not isinstance(v, dict) else
+                                               {kk: vv.clone() for kk, vv in v.items()})
+                                           for k, v in full.items()}, tpp.TP_BLOCK_SHARD_AXES)
+        p = tpp.merge_tp_params(repl, tpp.shard_tp_params(shard, tpp.TP_BLOCK_SHARD_AXES, 2))
+        p["attn"]["wq"].requires_grad_(True)
+        xi = x.clone().requires_grad_(True)
+        y = tpp.tp_transformer_block(xi, p, causal=True, attention_fn=attention_fn)
+        y.square().sum().backward()
+        return y.detach(), xi.grad, p["attn"]["wq"].grad
+
+    fa.reset_launches()
+    flash = run(make_flash_attention_fn())
+    assert dict(fa.launches_f32) == {"fwd": 1, "dkv": 1, "dq": 1}
+    dense = run(None)
+    for a, b in zip(flash, dense):
+        assert (a - b).abs().max() <= 2.0 ** -14 * b.abs().max(), ((a - b).abs().max(),
+                                                                  b.abs().max())

@@ -157,6 +157,44 @@ def test_every_reference_tree_loads_into_its_port_twin(layout):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("layout", ["unrolled", "remat", "scan", "scan_remat"])
+def test_fsdp_hooked_reference_tree_loads_into_its_port_twin(devices, layout):
+    """With the FSDP ``weight_constraint`` set, flax's ``nn.map_variables``
+    renames the blocks (``Map_variables_DecoderBlock_i``,
+    ``Map_variablesCheckpoint_DecoderBlock_i``,
+    ``ScanMap_variables_ScannedDecoderBlock_0/...``).  The reference model
+    with the three hooks of ``parallel/zero.py`` on a 2 x 2 CPU mesh (GQA,
+    ``spmd_vocab``) loads into the port's twin, with the port's hooks, and
+    gives the reference's logits."""
+    from bluefog_tpu.parallel import zero as jzero
+    from bluefog_tpu_torch.parallel import zero as tzero
+
+    jbf.shutdown()
+    jbf.init(devices=devices[:4], local_size=2)
+    try:
+        mesh = jbasics.context().hier_mesh
+        kw = dict(LAYOUTS[layout], num_kv_heads=2, spmd_vocab=True)
+        jm = _jax_model(**kw, act_constraint=jzero.fsdp_act_constraint(mesh),
+                        onehot_constraint=jzero.fsdp_onehot_constraint(mesh),
+                        weight_constraint=jzero.fsdp_param_io_constraint(
+                            mesh, grad_dtype=jnp.bfloat16))
+        params = jax.tree_util.tree_map(np.asarray, jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((2, T), jnp.int32))["params"])
+        assert any(k.startswith(("Map_variables", "ScanMap_variables")) for k in params)
+        model = _port_model(params=params, **kw,
+                            act_constraint=tzero.fsdp_act_constraint(),
+                            onehot_constraint=tzero.fsdp_onehot_constraint(),
+                            weight_constraint=tzero.fsdp_param_io_constraint(
+                                grad_dtype=torch.bfloat16))
+        ids = _ids(1, (2, T))
+        want = np.asarray(jm.apply({"params": jax.tree_util.tree_map(jnp.asarray, params)},
+                                   jnp.asarray(ids)))
+        got = model(torch.from_numpy(ids)).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    finally:
+        jbf.shutdown()
+
+
 # --------------------------------------------------------------------------
 # GQA
 # --------------------------------------------------------------------------
