@@ -8,8 +8,10 @@ step by the chosen communication over ``ExponentialTwoGraph(size)``.
 The arrays are MNIST's where ``$MNIST_NPZ`` names a file that exists;
 otherwise a structured synthetic stand-in of the same shapes and dtypes
 (one smoothed random template a class, plus noise), so accuracy still
-moves.  The reference's ``--loader native`` (the C++ prefetching loader)
-waits for the island runtime's port.
+moves.  ``--loader native`` writes every (epoch, step) batch to one packed
+binary file and streams it through the C++ prefetching loader
+(``native/data_loader.cc``), as the reference's does; the batches, and so
+the training, are the Python route's.
 
 Run (one card):  python -m bluefog_tpu_torch.examples.torch_mnist
 Run (CPU):       python -m bluefog_tpu_torch.examples.torch_mnist --device cpu
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -75,7 +78,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--train-size", type=int, default=2048)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--loader", default="python", choices=["python", "native"],
+                    help="native: stream the batches from a packed binary file "
+                    "through the C++ prefetching loader (data_loader.cc)")
     return ap
+
+
+def _write_batches(path, xtr, ytr, perms, batch, steps) -> None:
+    """Every (epoch, step) batch as one f32 record [n, B, 784 + 1] (pixels,
+    then the label), in training order."""
+    n = xtr.shape[0]
+    with open(path, "wb") as f:
+        for perm in perms:
+            for s in range(steps):
+                idx = perm[s * batch:(s + 1) * batch]
+                bx = xtr[:, idx].reshape(n, batch, -1)
+                by = ytr[:, idx].astype(np.float32)[..., None]
+                f.write(np.concatenate([bx, by], axis=2).astype(np.float32).tobytes())
 
 
 def run(args: argparse.Namespace) -> Dict:
@@ -84,12 +103,14 @@ def run(args: argparse.Namespace) -> Dict:
     spread."""
     bf.init(topology_util.ExponentialTwoGraph(args.size), size=args.size,
             device=args.device)
+    loader = loader_path = None
     try:
         dev, n = bf.device(), bf.size()
         xtr, ytr, xte, yte = load_mnist(args.train_size, rng=np.random.default_rng(args.seed))
         per_rank = len(xtr) // n
-        xtr = torch.from_numpy(xtr[:per_rank * n]).view(n, per_rank, 28, 28, 1).to(dev)
-        ytr = torch.from_numpy(ytr[:per_rank * n]).view(n, per_rank).to(dev)
+        xtr_np = xtr[:per_rank * n].reshape(n, per_rank, 28, 28, 1)
+        ytr_np = ytr[:per_rank * n].reshape(n, per_rank)
+        xtr, ytr = torch.from_numpy(xtr_np).to(dev), torch.from_numpy(ytr_np).to(dev)
         xte, yte = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
 
         gen = torch.Generator().manual_seed(args.seed)
@@ -103,13 +124,30 @@ def run(args: argparse.Namespace) -> Dict:
 
         steps = per_rank // args.batch_size
         rng = np.random.default_rng(args.seed + 1)
+        perms = [rng.permutation(per_rank) for _ in range(args.epochs)]
+        B = args.batch_size
+        if args.loader == "native":
+            from bluefog_tpu_torch.native.data_native import NativeDataLoader
+
+            fd, loader_path = tempfile.mkstemp(prefix="bf_mnist_", suffix=".bin")
+            os.close(fd)
+            _write_batches(loader_path, xtr_np, ytr_np, perms, B, steps)
+            # workers=1: records arrive in written (epoch, step) order
+            loader = NativeDataLoader((n, B, 28 * 28 + 1), depth=4, workers=1,
+                                      path=loader_path)
         epochs = []
-        for _ in range(args.epochs):
-            perm = torch.from_numpy(rng.permutation(per_rank)).to(dev)
+        for perm_np in perms:
+            perm = torch.from_numpy(perm_np).to(dev)
             losses, accs = [], []
             for s in range(steps):
-                idx = perm[s * args.batch_size:(s + 1) * args.batch_size]
-                loss, acc = step_fn(xtr[:, idx], ytr[:, idx])
+                if loader is not None:
+                    rec = torch.from_numpy(loader.next())
+                    bx = rec[..., :-1].reshape(n, B, 28, 28, 1).to(dev)
+                    by = rec[..., -1].to(torch.int64).to(dev)
+                else:
+                    idx = perm[s * B:(s + 1) * B]
+                    bx, by = xtr[:, idx], ytr[:, idx]
+                loss, acc = step_fn(bx, by)
                 losses.append(loss)
                 accs.append(acc)
             with torch.no_grad():
@@ -121,8 +159,12 @@ def run(args: argparse.Namespace) -> Dict:
                            "train_acc": torch.stack(accs).mean().item(),
                            "test_acc_rank0": test_acc, "consensus_spread": spread})
         return {"ranks": n, "mode": args.mode, "device": str(dev),
-                "steps_per_epoch": steps, "epochs": epochs}
+                "loader": args.loader, "steps_per_epoch": steps, "epochs": epochs}
     finally:
+        if loader is not None:
+            loader.close()
+        if loader_path is not None:
+            os.unlink(loader_path)
         bf.shutdown()
 
 

@@ -12,11 +12,10 @@ torus to lay ranks onto, and a ``torch.device`` has no physical
 ``coords``.  So :func:`device_coords` returns None for CUDA (and CPU)
 devices, and :func:`order_devices_for_ring` and
 :func:`order_devices_for_topology` keep the given order, as the reference
-does on its CPU meshes.  :func:`optimize_assignment` calls the reference's
-native simulated annealer (``native/layout_optimizer.cc`` through
-``native.layout_native.anneal_layout``), which this package does not have
-until the island runtime's ``native/`` is ported: it raises
-``NotImplementedError`` rather than fall back to something else.
+does on its CPU meshes.  :func:`optimize_assignment` runs the
+reference's simulated annealer (``native/layout_optimizer.cc``, built from
+this package's copy of the source, through
+``native.layout_native.anneal_layout``) for callers that model a torus.
 """
 
 from __future__ import annotations
@@ -109,6 +108,17 @@ def order_devices_for_ring(devices, torus_shape: Optional[Sequence[int]] = None)
     return [devices[i] for i in order]
 
 
+def _topology_edges(topo):
+    """Directed non-self edges + weights of a digraph."""
+    edges, weights = [], []
+    for s, d, data in topo.edges(data=True):
+        if s == d:
+            continue
+        edges.append((int(s), int(d)))
+        weights.append(float(data.get("weight", 1.0)))
+    return edges, weights
+
+
 def optimize_assignment(
     topo,
     coords: Sequence[Coord],
@@ -117,15 +127,25 @@ def optimize_assignment(
     iters: int = 20000,
     seed: int = 0,
 ):
-    """Annealed rank→position assignment for an arbitrary weighted digraph
-    (the reference's ``optimize_assignment``: its native simulated
-    annealer seeded with the snake order).  The native layout optimizer is
-    not ported (it comes with the island runtime's ``native/``), so this
-    raises."""
-    raise NotImplementedError(
-        "optimize_assignment needs the native layout annealer "
-        "(native/layout_optimizer.cc), which bluefog_tpu_torch does not port "
-        "yet; one CUDA card holds every rank, so there is no torus to lay out")
+    """Annealed rank→position assignment for an arbitrary weighted digraph.
+
+    Seeds the search with the snake order (so the result is never worse than
+    the heuristic) and runs the native simulated annealer
+    (``native/layout_optimizer.cc``) to minimize Σ weight·hops over the
+    topology's edges.  Returns ``(order, cost)`` where ``order[r]`` indexes
+    ``coords``.  The native library is built at first use; a failed build
+    raises.
+    """
+    from bluefog_tpu_torch.native.layout_native import anneal_layout
+
+    try:
+        init = assignment_from_coords(coords, torus_shape)
+    except ValueError:
+        init = None  # coords don't tile the torus; start from identity
+    edges, weights = _topology_edges(topo)
+    return anneal_layout(
+        coords, torus_shape, edges, weights, init=init, iters=iters, seed=seed
+    )
 
 
 def order_devices_for_topology(
@@ -140,7 +160,7 @@ def order_devices_for_topology(
 
     The general-graph sibling of :func:`order_devices_for_ring`.  Keeps the
     given order when physical coords are unavailable (always, for CUDA and
-    CPU devices); with coords it needs :func:`optimize_assignment`.
+    CPU devices); with coords it runs :func:`optimize_assignment`.
     """
     coords = device_coords(devices)
     if coords is None:

@@ -6,11 +6,13 @@ calling thread and are emitted two ways at once:
 - ``torch.profiler.record_function("bluefog/<name>")``, so the spans show
   in a ``torch.profiler`` trace beside the card's kernels;
 - a Chrome-tracing JSON file (``{"traceEvents": [...]}``) when
-  ``BLUEFOG_TIMELINE=<path>`` is set, written by :class:`TimelineWriter`'s
-  buffered pure-Python route at exit (or on SIGTERM, or on
-  :meth:`TimelineWriter.flush`).  The reference prefers a native C++
-  writer and falls back to this same route without it; the native library
-  is not ported yet.
+  ``BLUEFOG_TIMELINE=<path>`` is set, written by :class:`TimelineWriter`
+  at exit (or on SIGTERM, or on :meth:`TimelineWriter.flush`).  As in the
+  reference, the writer prefers the native C++ writer
+  (``native/timeline.cc``, built at first use); where the native library
+  cannot be built it logs the compiler's complaint and writes through its
+  buffered pure-Python route.  ``TimelineWriter.route`` says which
+  (``"native"`` or ``"python"``).
 
 ``timeline_start_activity`` / ``timeline_end_activity`` open and close a
 custom span by name.
@@ -40,9 +42,9 @@ __all__ = [
 
 
 class TimelineWriter:
-    """Chrome-tracing JSON writer: span (``"ph": "X"``) and counter
-    (``"ph": "C"``) events buffered in memory and written as one JSON
-    document by :meth:`flush`.  Thread-safe."""
+    """Chrome-tracing JSON writer of span (``"ph": "X"``) and counter
+    (``"ph": "C"``) events: the native writer, or events buffered in memory
+    and written as one JSON document by :meth:`flush`.  Thread-safe."""
 
     def __init__(self, path: str):
         self.path = path
@@ -50,6 +52,15 @@ class TimelineWriter:
         self._events = []
         self._counter_events = []
         self._t0 = time.perf_counter_ns()
+        self._native = None
+        try:
+            from bluefog_tpu_torch.native import timeline_native
+
+            self._native = timeline_native.NativeTimelineWriter(path)
+        except (RuntimeError, OSError) as e:
+            logger.warning("native timeline writer unavailable, writing "
+                           "through the Python route: %s", e)
+        self.route = "python" if self._native is None else "native"
         atexit.register(self.flush)
         self._install_sigterm()
 
@@ -91,16 +102,25 @@ class TimelineWriter:
 
     def record_counter(self, name: str, ts_us: float, value: float) -> None:
         """One chrome-trace counter sample (``"ph": "C"``)."""
+        if self._native is not None:
+            self._native.counter(name, ts_us, value)
+            return
         with self._lock:
             self._counter_events.append({"name": name, "ph": "C", "ts": ts_us,
                                          "pid": os.getpid(), "args": {"value": value}})
 
     def record(self, name: str, start_us: float, dur_us: float, tid: int = 0) -> None:
+        if self._native is not None:
+            self._native.record(name, start_us, dur_us, tid)
+            return
         with self._lock:
             self._events.append({"name": name, "ph": "X", "ts": start_us, "dur": dur_us,
                                  "pid": os.getpid(), "tid": tid})
 
     def flush(self) -> None:
+        if self._native is not None:
+            self._native.flush()
+            return
         with self._lock:
             if not self._events and not self._counter_events:
                 return

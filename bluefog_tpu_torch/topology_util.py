@@ -26,6 +26,8 @@ import numpy as np
 
 __all__ = [
     "DiGraph",
+    "is_strongly_connected",
+    "relabel_nodes",
     "ExponentialTwoGraph",
     "ExponentialGraph",
     "SymmetricExponentialGraph",
@@ -48,8 +50,32 @@ __all__ = [
 ]
 
 
+class _NodeView(list):
+    """The node list; calling it returns itself, so both networkx spellings
+    ``G.nodes`` and ``G.nodes()`` work."""
+
+    def __call__(self):
+        return self
+
+
+class _EdgeView(list):
+    """The ``(u, v)`` edge list; ``G.edges(data=True)`` gives the
+    ``(u, v, attrs)`` triples, as in networkx."""
+
+    def __init__(self, graph: "DiGraph"):
+        super().__init__((u, v) for u, nb in graph._succ.items() for v in nb)
+        self._graph = graph
+
+    def __call__(self, data: bool = False) -> list:
+        if data:
+            return [(u, v, d) for u, nb in self._graph._succ.items()
+                    for v, d in nb.items()]
+        return list(self)
+
+
 class DiGraph:
-    """The part of ``networkx.DiGraph`` the topology code uses.
+    """The part of ``networkx.DiGraph`` the topology, plan and resilience
+    code uses.
 
     ``G[u][v]`` is the attribute dict of edge ``(u, v)``; ``G.graph`` holds
     graph-level attributes.  Nodes, successors and predecessors iterate in
@@ -80,19 +106,56 @@ class DiGraph:
             self._pred[v][u] = data
         data.update(attr)
 
+    def add_edges_from(self, edges) -> None:
+        for e in edges:
+            self.add_edge(e[0], e[1], **(e[2] if len(e) > 2 else {}))
+
+    def has_edge(self, u: int, v: int) -> bool:
+        return u in self._succ and v in self._succ[u]
+
+    def remove_edge(self, u: int, v: int) -> None:
+        if not self.has_edge(u, v):
+            raise KeyError(f"the edge {u}-{v} is not in the graph")
+        del self._succ[u][v]
+        del self._pred[v][u]
+
+    def subgraph(self, nodes) -> "DiGraph":
+        """The induced subgraph on ``nodes`` (a copy; networkx returns a
+        view), in this graph's node and edge order."""
+        keep = set(nodes)
+        H = DiGraph()
+        H.graph.update(self.graph)
+        H.add_nodes_from(n for n in self._succ if n in keep)
+        for u, v, d in self.edges(data=True):
+            if u in keep and v in keep:
+                H.add_edge(u, v, **d)
+        return H
+
     def __getitem__(self, u: int) -> Dict[int, dict]:
         return self._succ[u]
 
-    def nodes(self) -> List[int]:
-        return list(self._succ)
+    def __contains__(self, n) -> bool:
+        return n in self._succ
+
+    def __iter__(self):
+        return iter(self._succ)
+
+    def __len__(self) -> int:
+        return len(self._succ)
+
+    @property
+    def nodes(self) -> _NodeView:
+        return _NodeView(self._succ)
 
     def number_of_nodes(self) -> int:
         return len(self._succ)
 
-    def edges(self, data: bool = False) -> list:
-        if data:
-            return [(u, v, d) for u, nb in self._succ.items() for v, d in nb.items()]
-        return [(u, v) for u, nb in self._succ.items() for v in nb]
+    def number_of_edges(self) -> int:
+        return sum(len(nb) for nb in self._succ.values())
+
+    @property
+    def edges(self) -> _EdgeView:
+        return _EdgeView(self)
 
     def predecessors(self, v: int) -> Iterator[int]:
         return iter(self._pred[v])
@@ -105,6 +168,38 @@ class DiGraph:
 
     def out_degree(self, u: int) -> int:
         return len(self._succ[u])
+
+
+def is_strongly_connected(G: DiGraph) -> bool:
+    """Whether every node reaches every other along directed edges
+    (``networkx.is_strongly_connected``, which raises on an empty graph)."""
+    nodes = list(G.nodes)
+    if not nodes:
+        raise ValueError("connectivity is undefined for the null graph")
+
+    def reach(start, nbrs) -> int:
+        seen, stack = {start}, [start]
+        while stack:
+            for w in nbrs(stack.pop()):
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        return len(seen)
+
+    return (reach(nodes[0], G.successors) == len(nodes)
+            and reach(nodes[0], G.predecessors) == len(nodes))
+
+
+def relabel_nodes(G: DiGraph, mapping: Dict[int, int]) -> DiGraph:
+    """A relabeled copy of ``G`` (``networkx.relabel_nodes(G, mapping,
+    copy=True)``): nodes, edges and their attributes in ``G``'s order,
+    nodes missing from ``mapping`` keep their label, ``graph`` is copied."""
+    H = DiGraph()
+    H.graph.update(G.graph)
+    H.add_nodes_from(mapping.get(n, n) for n in G.nodes)
+    for u, v, d in G.edges(data=True):
+        H.add_edge(mapping.get(u, u), mapping.get(v, v), **dict(d))
+    return H
 
 
 def _check_size(size: int) -> None:

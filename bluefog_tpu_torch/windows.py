@@ -34,9 +34,10 @@ Every public op publishes ``(op, name)`` through
 counter, and the listeners such as :func:`record_win_ops`), and the ops
 that move data run inside a timeline span, as in the reference.
 
-Not ported: ``win_put_async`` / ``win_accumulate_async`` /
-``win_update_async`` (they need the island runtime's ``progress``
-package).
+``win_put_async`` / ``win_accumulate_async`` / ``win_update_async`` give
+the island runtime's async surface (:mod:`bluefog_tpu_torch.islands`):
+the emulation has no background wire, so they run at the call site and
+return an already resolved :class:`~bluefog_tpu_torch.progress.WinHandle`.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch import ops
+from bluefog_tpu_torch import progress as _progress
 from bluefog_tpu_torch.common.logging_util import logger
 from bluefog_tpu_torch.core import basics
 from bluefog_tpu_torch.core.plan import CommPlan
@@ -64,6 +66,9 @@ __all__ = [
     "win_get_nonblocking",
     "win_accumulate",
     "win_accumulate_nonblocking",
+    "win_put_async",
+    "win_accumulate_async",
+    "win_update_async",
     "win_update",
     "win_put_update",
     "win_update_then_collect",
@@ -430,6 +435,32 @@ def win_accumulate(tensor, name: str, dst_weights: WeightsArg = None) -> bool:
 def win_accumulate_nonblocking(tensor, name: str, dst_weights: WeightsArg = None) -> ops.Handle:
     win_accumulate(tensor, name, dst_weights)
     return ops.Handle(device=_ctx().device)
+
+
+def win_put_async(tensor, name: str, dst_weights: WeightsArg = None):
+    """API parity with :func:`bluefog_tpu_torch.islands.win_put_async`: the
+    rank-major emulation has no background wire, so the op executes at the
+    call site and the returned
+    :class:`~bluefog_tpu_torch.progress.handles.WinHandle` is already
+    resolved — programs written against the async surface run unchanged
+    here.  ``tensor`` may be a zero-argument callable."""
+    t = tensor() if callable(tensor) else tensor
+    return _progress.completed(win_put(t, name, dst_weights))
+
+
+def win_accumulate_async(tensor, name: str, dst_weights: WeightsArg = None):
+    """See :func:`win_put_async` — completed-handle parity wrapper."""
+    t = tensor() if callable(tensor) else tensor
+    return _progress.completed(win_accumulate(t, name, dst_weights))
+
+
+def win_update_async(name: str, self_weight=None,
+                     neighbor_weights: WeightsArg = None, reset: bool = False):
+    """See :func:`win_put_async`; the handle's ``result()`` is the combined
+    tensor (``clone`` semantics, matching the island engine)."""
+    return _progress.completed(win_update(
+        name, self_weight=self_weight, neighbor_weights=neighbor_weights,
+        reset=reset, clone=True))
 
 
 @_spanned("win_get")

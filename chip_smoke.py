@@ -166,7 +166,27 @@ Phases, each printing one JSON line:
                against the sequential blocks.
 19. expert   -- examples/moe_gossip at the same widths, 8 experts, ep 4 and
                ep 1, dp 2, batch 4 x 512, 3 steps each: loss for loss.
-Phases 8-12, 14, 18 and 19 run no kernel of the repo and add no row to the
+20. islands_native -- the island runtime's native library, built by g++
+               from bluefog_tpu_torch/native/*.cc (started in a thread at
+               the top, beside the nvcc builds): build seconds, the g++
+               version, the shm ABI, and transport_kind() == "native".
+21. islands_async -- examples/async_islands: 4 island processes, every one
+               on cuda:0, async push-sum consensus (error < 1e-5, the
+               reference example's bound) then gossip SGD on logistic
+               regression (finite loss that falls, accuracy > 0.8).
+22. islands_overlap -- benchmarks/island_overlap: rank 0 on the card
+               (tanh(y @ x), dim 2048, 200 matmuls a step), rank 1 a CPU
+               neighbor, the win-put optimizer's step ms with overlap off
+               and on, the 16 MB device-to-host ms a round; then the
+               --hidden arms at the reference's 60 matmuls a step and at
+               400 (a step longer than the round): sync_op_ms,
+               async_blocked_ms, hidden_pct and the staging counters.
+23. islands_bandwidth -- benchmarks/gossip_bandwidth: 4 island processes,
+               64 MB host payloads, exp2, per-rank win_put GB/s against the
+               host's raw memcpy (vs_raw_memcpy); then the rank-major
+               win_put_update of 4 x 64 MB on the card against
+               neighbor_allreduce (vs_baseline).
+Phases 8-12, 14 and 18-23 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel
 and zero_8b paths, the f32 rows' the f32_path, seq_parallel and
 tensor_parallel paths.
@@ -191,6 +211,9 @@ PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 TF32_SPLIT = 3            # TF32 products a 3xTF32 product takes
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 STEPS, RANKS, BATCH = 3, 4, 2
+# matmuls a train step of rank 0 in the hidden_pct arms (dim 1024): the
+# reference's default, 60, and a step longer than the round it hides, 400
+ISLAND_HIDDEN_INNER = (60, 400)
 
 # Kernel vs plain version, element by element:
 #   |got - ref| <= 2^-7 |ref| + 2^-6 rms(ref)   and   ||got - ref|| <= 1e-2 ||ref||.
@@ -2610,12 +2633,96 @@ def phase_expert(torch):
     check(max(rel) <= PAR_TOL, f"expert: ep={EP_RANKS} against ep=1 losses {rel}")
 
 
+def _free_device_cache(torch):
+    """Free what the earlier phases cached: the island phases start
+    processes of their own on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def phase_islands_native(native_build):
+    """The native island library from the checkout's sources."""
+    from bluefog_tpu_torch import native
+    from bluefog_tpu_torch.native import shm_native
+
+    t0 = time.perf_counter()
+    native_build.result()  # raises the build's error, with g++'s output
+    info = dict(native.build_info)
+    lib = native.get_lib()
+    kind = shm_native.transport_kind()
+    row = {"phase": "islands_native", "library": info["path"],
+           "build_s": info["seconds"], "wait_s": time.perf_counter() - t0,
+           "cxx": info["cxx_version"],
+           "abi_version": lib.bf_shm_abi_version(), "transport_kind": kind,
+           "island_transport": shm_native.island_transport(),
+           "chunk_bytes": shm_native.chunk_bytes(),
+           "pipeline_depth": shm_native.pipeline_depth()}
+    emit(row)
+    check(kind == "native", f"islands_native: transport {kind}, not the native mailbox")
+    check(row["abi_version"] == 2, f"islands_native: {row}")
+
+
+def phase_islands_async(torch):
+    from bluefog_tpu_torch.examples import async_islands
+
+    t0 = time.perf_counter()
+    reserved = _free_device_cache(torch)
+    out = async_islands.run(nranks=4, iters=80, sleep=0.002, device="cuda", timeout=600.0)
+    emit({"phase": "islands_async", "reserved_gb_before": reserved, **out,
+          "phase_seconds": time.perf_counter() - t0})
+    check(out["ok"], f"islands_async: {out}")
+
+
+def phase_islands_overlap(torch):
+    from bluefog_tpu_torch.benchmarks import island_overlap
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    ov = island_overlap.measure_overlap(steps=30, mb=16.0, inner=200, device="cuda")
+    hidden = {inner: island_overlap.measure_overlap_hidden(2, rounds=12, mb=16.0, inner=inner,
+                                                           device="cuda")
+              for inner in ISLAND_HIDDEN_INNER}
+    emit({"phase": "islands_overlap", "overlap": ov,
+          "hidden_by_inner": {str(k): v for k, v in hidden.items()},
+          "phase_seconds": time.perf_counter() - t0})
+    nums = [ov["step_ms_overlap_off"], ov["step_ms_overlap_on"], ov["d2h_ms_per_round"]]
+    for hid in hidden.values():
+        nums += [hid["sync_op_ms"], hid["async_blocked_ms"], hid["hidden_pct"]]
+        check(hid["rank0_platform"] == "cuda", f"islands_overlap: rank 0 not on the card: {hid}")
+        # every round of rank 0 staged its 16 MB through the pinned path
+        check(hid["staging_d2h_bytes"] >= 2 * 12 * 16e6, f"islands_overlap: {hid}")
+    check(all(math.isfinite(x) for x in nums), f"islands_overlap: {nums}")
+    check(ov["rank0_platform"] == "cuda", f"islands_overlap: rank 0 not on the card: {ov}")
+    check(ov["transport_kind"] == "native", f"islands_overlap: {ov}")
+
+
+def phase_islands_bandwidth(torch):
+    from bluefog_tpu_torch.benchmarks import gossip_bandwidth
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    isl = gossip_bandwidth.measure_islands(4, 64.0, 20, 3, "exp2")
+    rm = gossip_bandwidth.measure_rank_major(4, 64.0, 20, 3, "exp2", "cuda")
+    emit({"phase": "islands_bandwidth", "islands": isl, "rank_major": rm,
+          "phase_seconds": time.perf_counter() - t0})
+    check(isl["transport_kind"] == "native" and isl["value"] > 0, f"islands_bandwidth: {isl}")
+    check(all(math.isfinite(rm[k]) and rm[k] > 0 for k in ("value", "neighbor_allreduce_gbs")),
+          f"islands_bandwidth: {rm}")
+
+
 def main():
+    import concurrent.futures
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from bluefog_tpu_torch import native
+
+    # the island runtime's g++ build runs beside the nvcc builds
+    native_build = concurrent.futures.ThreadPoolExecutor(1).submit(native.build)
     from bluefog_tpu_torch.benchmarks import attention_roofline as roof
     from bluefog_tpu_torch.kernels import _build
     from bluefog_tpu_torch.kernels import attention_components as ac
@@ -2645,6 +2752,10 @@ def main():
     counts_tp_f32 = phase_tensor_parallel(torch, fa)
     phase_pipeline(torch)
     phase_expert(torch)
+    phase_islands_native(native_build)
+    phase_islands_async(torch)
+    phase_islands_overlap(torch)
+    phase_islands_bandwidth(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",

@@ -759,3 +759,152 @@ def test_tensor_parallel_block_on_the_f32_kernels(cuda_device):
     for a, b in zip(flash, dense):
         assert (a - b).abs().max() <= 2.0 ** -14 * b.abs().max(), ((a - b).abs().max(),
                                                                   b.abs().max())
+
+
+def test_staging_a_cuda_tensor_through_pinned_memory_equals_the_cpu_path(cuda_device):
+    """The island runtime stages a CUDA tensor through a pinned host buffer
+    on a side stream: the host array equals the CPU tensor's bit for bit,
+    and a snapshot taken at submit is unaffected by a later in-place
+    update of the original."""
+    import numpy as np
+
+    from bluefog_tpu_torch.progress import staging
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = torch.randn(3, 1000, 7, device=cuda_device, generator=gen)
+    host = staging.stage(t, "pinned_case")
+    assert isinstance(host, np.ndarray) and host.shape == (3, 1000, 7)
+    np.testing.assert_array_equal(host, staging.stage(t.cpu()))
+    snap = staging.snapshot(t)
+    before = t.cpu().numpy().copy()
+    t.mul_(2.0)  # the next optimizer.step(), in place
+    np.testing.assert_array_equal(staging.stage(snap, "pinned_case"), before)
+    np.testing.assert_array_equal(staging.to_device(before, cuda_device).cpu().numpy(),
+                                  before)
+    staging.release("pinned_case")
+
+
+def _island_cuda_worker(rank, size):
+    from bluefog_tpu_torch import islands, topology_util
+
+    islands.set_topology(topology_util.RingGraph(size))
+    x = torch.arange(5, dtype=torch.float64, device="cuda") + rank
+    islands.win_create(x, "c")
+    islands.win_put(x, "c")
+    islands.barrier()
+    out = islands.win_update("c")
+    islands.barrier()
+    h = islands.win_update_async("c").result(timeout=60)
+    islands.win_free("c")
+    # the win-put optimizer with overlap on CUDA parameters
+    c = float(rank)
+    w = torch.full((4,), 10.0 + rank, device="cuda", requires_grad=True)
+    opt = islands.DistributedWinPutOptimizer(torch.optim.SGD([w], lr=0.2), overlap=True)
+    for _ in range(40):
+        opt.zero_grad()
+        (0.5 * ((w - c) ** 2).sum()).backward()
+        opt.step()
+        islands.barrier()
+    opt.finish()
+    islands.barrier()
+    opt.settle(rounds=30)
+    final = w.detach().cpu().numpy().copy()
+    opt.free()
+    return (out.device.type, out.cpu().numpy(), h.device.type, h.cpu().numpy(), final,
+            w.device.type)
+
+
+def test_island_win_update_and_overlap_optimizer_on_the_card(cuda_device):
+    import numpy as np
+
+    from bluefog_tpu_torch import islands
+
+    size = 4
+    res = islands.spawn(_island_cuda_worker, size, timeout=300.0)
+    W = np.zeros((size, size))
+    for d in range(size):
+        for s in (d, (d - 1) % size, (d + 1) % size):
+            W[d, s] = 1.0 / 3
+    x0 = np.stack([np.arange(5, dtype=np.float64) + r for r in range(size)])
+    for d, (dev, out, hdev, h, _, wdev) in enumerate(res):
+        assert dev == hdev == wdev == "cuda"
+        np.testing.assert_allclose(out, (W @ x0)[d], rtol=0, atol=1e-12)
+        # the async combine: my combined value with the slots' first deposits
+        want = ((W @ x0)[d] + x0[(d - 1) % size] + x0[(d + 1) % size]) / 3
+        np.testing.assert_allclose(h, want, rtol=0, atol=1e-12)
+    finals = np.stack([r[4] for r in res])
+    assert finals.std(axis=0).max() < 1e-5
+    assert np.all(np.abs(finals - (size - 1) / 2.0) < 0.05), finals
+
+
+def _busy(n=100):
+    """Queue ~0.1-0.2 s of matmuls on the current stream and return at once."""
+    a = torch.full((4096, 4096), 1e-3, device="cuda")
+    for _ in range(n):
+        a = torch.tanh(a @ a)
+    return a
+
+
+def _island_busy_update_worker(rank, size):
+    from bluefog_tpu_torch import islands, topology_util
+
+    islands.set_topology(topology_util.RingGraph(size))
+    n = 1 << 20
+    # equal byte sizes, so the two results' blocks are interchangeable
+    x32 = (torch.arange(2 * n, device="cuda") % 7 + rank).to(torch.float32)
+    x64 = torch.arange(n, dtype=torch.float64, device="cuda") + 1000.0 * rank
+    islands.win_create(x32, "a")
+    islands.win_create(x64, "b")
+    islands.win_put(x32, "a")
+    islands.win_put(x64, "b")
+    islands.barrier()
+    # back-to-back updates while the card is busy: each copy_ from a result
+    # waits behind the matmuls, after the result itself was dropped
+    dst32, dst64 = torch.empty_like(x32), torch.empty_like(x64)
+    _busy()
+    dst32.copy_(islands.win_update("a"))
+    dst64.copy_(islands.win_update("b"))
+    torch.cuda.synchronize()
+    islands.win_free("a")
+    islands.win_free("b")
+    # the same through a two-dtype optimizer's settle on a busy card
+    w32 = torch.full((2 * n,), 1.0 + rank, device="cuda", requires_grad=True)
+    w64 = torch.full((n,), 100.0 + rank, dtype=torch.float64, device="cuda",
+                     requires_grad=True)
+    opt = islands.DistributedWinPutOptimizer(torch.optim.SGD([w32, w64], lr=0.0))
+    islands.barrier()
+    _busy()
+    opt.settle(rounds=2)
+    torch.cuda.synchronize()
+    out = (dst32.cpu().numpy(), dst64.cpu().numpy(),
+           [float(w32.min()), float(w32.max())], [float(w64.min()), float(w64.max())])
+    opt.free()
+    return out
+
+
+def test_island_updates_back_to_back_on_a_busy_card(cuda_device):
+    """``win_update`` hands back a tensor that the caller reads on its own
+    stream; two updates in a row (as ``settle`` makes them, one a dtype
+    group) must not let the second reuse the first's memory before the
+    caller's queued copy from it has run."""
+    import numpy as np
+
+    from bluefog_tpu_torch import islands
+
+    size = 4
+    res = islands.spawn(_island_busy_update_worker, size, timeout=300.0)
+    W = np.zeros((size, size))
+    for d in range(size):
+        for s in (d, (d - 1) % size, (d + 1) % size):
+            W[d, s] = 1.0 / 3
+    n = 1 << 20
+    x32 = np.stack([(np.arange(2 * n) % 7 + r).astype(np.float32) for r in range(size)])
+    x64 = np.stack([np.arange(n, dtype=np.float64) + 1000.0 * r for r in range(size)])
+    c32 = np.arange(size) + 1.0
+    c64 = np.arange(size) + 100.0
+    W2 = W @ W
+    for d, (a, b, r32, r64) in enumerate(res):
+        np.testing.assert_allclose(a, (W @ x32.astype(np.float64))[d], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(b, (W @ x64)[d], rtol=0, atol=1e-9)
+        np.testing.assert_allclose(r32, [(W2 @ c32)[d]] * 2, rtol=1e-6)
+        np.testing.assert_allclose(r64, [(W2 @ c64)[d]] * 2, rtol=0, atol=1e-12)

@@ -82,5 +82,12 @@ def test_order_devices_keeps_the_order_without_coords(devices):
 
 
 def test_optimize_assignment_waits_for_the_native_annealer():
-    with pytest.raises(NotImplementedError, match="native"):
-        ici_map.optimize_assignment(ttu.RingGraph(4), ici_map.snake_order((2, 2)), (2, 2))
+    """The port's native annealer (built from its own copy of
+    ``layout_optimizer.cc``) gives the reference's assignment and cost."""
+    coords, shape = ici_map.snake_order((2, 4)), (2, 4)
+    for graph in ("RingGraph", "ExponentialTwoGraph"):
+        got = ici_map.optimize_assignment(getattr(ttu, graph)(8), coords, shape,
+                                          iters=3000, seed=5)
+        want = jici.optimize_assignment(getattr(jtu, graph)(8), coords, shape,
+                                        iters=3000, seed=5)
+        assert list(got[0]) == list(want[0]) and got[1] == want[1]
