@@ -10,7 +10,10 @@ exponential(-2), fully connected) the class count equals the graph degree.
 
 Per class the plan carries dense per-rank weight vectors so the weighted
 combine is a fused multiply-add on device.  The class split is the pure
-Python one; the JAX package's native compiler is not ported.
+Python one, by choice: the native compiler is ported
+(:mod:`bluefog_tpu_torch.native.plan_native`, held against this split in
+the tests), but the plan keeps one Python route, so it needs no built
+library and no C++ toolchain.
 """
 
 from __future__ import annotations

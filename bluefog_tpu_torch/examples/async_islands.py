@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -157,7 +158,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=80)
     ap.add_argument("--sleep", type=float, default=0.002)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--worker", action="store_true",
+                    help="run as one island (under the launcher's --islands; "
+                    "implied by BLUEFOG_ISLAND_RANK); default self-spawns "
+                    "--nranks island processes")
     args = ap.parse_args(argv)
+    if args.worker or "BLUEFOG_ISLAND_RANK" in os.environ:
+        return _launched_worker(args)
     out = run(args.nranks, args.iters, args.sleep, args.device)
     for r in range(args.nranks):
         print(f"rank {r}: consensus err {out['consensus_err'][r]:.2e}  "
@@ -165,6 +172,26 @@ def main(argv=None) -> dict:
               f"acc {out['acc'][r]:.3f}")
     print(json.dumps(out))
     if not out["ok"]:
+        raise SystemExit(1)
+    return out
+
+
+def _launched_worker(args) -> dict:
+    """One island of a launcher-started fleet: prints its own line and one
+    JSON line, and exits non-zero when it misses the reference's bounds."""
+    islands.init()
+    rank = islands.rank()
+    err1, loss0, loss1, acc = worker(rank, islands.size(), args.iters,
+                                     args.sleep, args.device)
+    print(f"[rank {rank}] consensus err {err1:.2e}  full-data loss "
+          f"{loss0:.4f} -> {loss1:.4f}  acc {acc:.3f}")
+    ok = bool(err1 < CONSENSUS_TOL and acc > MIN_ACC and loss1 < loss0)
+    out = {"rank": rank, "consensus_err": err1, "loss_start": loss0,
+           "loss_end": loss1, "acc": acc, "ok": ok}
+    print(json.dumps(out))
+    islands.barrier()
+    islands.shutdown(unlink=(rank == 0))
+    if not ok:
         raise SystemExit(1)
     return out
 

@@ -246,7 +246,7 @@ class _IslandContext:
         # created lazily on the first *_async call so synchronous
         # programs never pay for the worker thread
         self.progress: Optional[_progress.ProgressEngine] = None
-        # serving plane (bluefog_tpu.serve): the snapshot region this
+        # serving plane (bluefog_tpu_torch.serve): the snapshot region this
         # rank publishes into (lazily created by serve_publish) and the
         # last committed version, mirrored onto the v5 status page
         self.serve_region = None
@@ -1073,7 +1073,10 @@ def merge_orphan(timeout: Optional[float] = None):
     est: Dict[str, np.ndarray] = {}
     for name, w in ctx.windows.items():
         x = np.array(w.self_tensor, copy=True)
-        if ctx.associated_p and w.p_self > 0.0:
+        if ctx.associated_p and w.p_self > 0.0 and x.dtype == _BF16:
+            x = _progress.staging.host_view(
+                (_bf16(x).float() / w.p_self).to(torch.bfloat16))
+        elif ctx.associated_p and w.p_self > 0.0:
             x = np.asarray(x / w.p_self, dtype=x.dtype)
         est[name] = x
         if reg.enabled:
@@ -1123,7 +1126,7 @@ def merge_orphan(timeout: Optional[float] = None):
 
 # ---------------------------------------------------------------------------
 # serving plane: fenced snapshot publication to the inference fleet
-# (bluefog_tpu.serve; docs/SERVING.md)
+# (bluefog_tpu_torch.serve; docs/SERVING.md)
 # ---------------------------------------------------------------------------
 
 
@@ -1144,11 +1147,50 @@ def serve_publish(name: str, payload_cap: Optional[int] = None) -> int:
     Returns the committed version — strictly monotone for the job, even
     across publisher death and handoff (the region persists the word).
 
-    The serving plane (``bluefog_tpu/serve``) is not in this package yet:
-    this raises NotImplementedError (ROADMAP A7)."""
-    raise NotImplementedError(
-        "serve_publish needs the serving plane (bluefog_tpu/serve), which "
-        "bluefog_tpu_torch does not port yet (ROADMAP A7)")
+    A bf16 window's estimate is f32 (f32(x) / f32(p)), as the JAX
+    package's ml_dtypes arithmetic gives it."""
+    from bluefog_tpu_torch.serve.snapshot import SnapshotRegion
+
+    ctx = _ctx()
+    _orphan_guard(ctx, "serve_publish")
+    if not _quorum_gate(ctx, set(ctx.detector.dead_ranks()),
+                        "serve_publish"):
+        _orphan_guard(ctx, "serve_publish")  # just quiesced: raise
+    win = _win(name)
+    reg = _telemetry.get_registry()
+    t0 = time.monotonic()
+    eng = ctx.progress
+    if eng is not None:
+        eng.quiesce()
+    try:
+        x = win.self_tensor
+        if x.dtype == _BF16:
+            if ctx.associated_p and win.p_self > 0.0:
+                est = (_bf16(x).float() / win.p_self).numpy()
+            else:
+                est = np.array(x, copy=True)
+        elif ctx.associated_p and win.p_self > 0.0:
+            est = np.asarray(x) / win.p_self
+        else:
+            est = np.array(x, copy=True)
+    finally:
+        if eng is not None:
+            eng.resume()
+    region = ctx.serve_region
+    if region is None:
+        cap = int(payload_cap) if payload_cap else max(1, est.nbytes)
+        region = ctx.serve_region = SnapshotRegion(ctx.base_job, cap)
+    version = region.publish(est, epoch=ctx.epoch, step=ctx.op_rounds)
+    ctx.serve_version = version
+    if reg.enabled:
+        reg.counter("serve.published").inc()
+        reg.gauge("serve.version").set(version)
+        reg.histogram("serve.publish_s").observe(time.monotonic() - t0)
+        reg.journal("serve_publish", win=name, version=version,
+                    epoch=ctx.epoch, step=ctx.op_rounds,
+                    nbytes=int(est.nbytes))
+    _statuspage_tick(ctx, name, "serve_pub")
+    return version
 
 
 # ---------------------------------------------------------------------------
@@ -1360,11 +1402,13 @@ def _is_tensor(x) -> bool:
 def _from_host(arr: np.ndarray, device):
     """``arr`` as the kind the window was created from: numpy when
     ``device`` is None, else a torch tensor on ``device`` (a CPU tensor
-    shares ``arr``'s memory when it is writable)."""
+    shares ``arr``'s memory when it is writable; bf16 bytes come back as
+    ``torch.bfloat16``)."""
     if device is None:
         return arr
     if device.type == "cpu":
-        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        return _progress.staging.tensor_view(
+            arr if arr.flags.writeable else arr.copy())
     return _progress.staging.to_device(arr, device)
 
 
@@ -1428,8 +1472,31 @@ def _island_fusion_split(tensor):
 
 def _np_dtype(x) -> np.dtype:
     if _is_tensor(x):
+        if x.dtype == torch.bfloat16:
+            return _BF16
         return np.dtype(str(x.dtype).replace("torch.", ""))
     return np.asarray(x).dtype
+
+
+# A bf16 window holds the JAX package's two-byte bf16 layout (staging.BF16),
+# so a mixed fleet shares its segment; its arithmetic runs on torch bf16
+# CPU tensors in the order the JAX package's ml_dtypes arrays take:
+#   t * w            -> f32(t) * f32(w), rounded to bf16 by the deposit;
+#   the win_update   -> f64(self) * sw + sum f64(f32(slot) * f32(w)),
+#   combine             rounded once to bf16 at the end;
+#   x / p            -> f32(x) / f32(p), an f32 estimate.
+_BF16 = _progress.staging.BF16
+
+
+def _bf16(a: np.ndarray):
+    return _progress.staging.tensor_view(a)
+
+
+def _scaled(a: np.ndarray, wgt: float) -> np.ndarray:
+    """``a * wgt`` as the deposit stores it."""
+    if a.dtype == _BF16:
+        return _progress.staging.host_view(_bf16(a) * wgt)
+    return a * wgt
 
 
 def _island_pack(name, tensor):
@@ -1634,7 +1701,7 @@ def win_put(tensor, name: str, dst_weights: WeightDict = None) -> bool:
                               p=win.p_self * wgt, accumulate=False,
                               scale=wgt)
             else:
-                payload = t if wgt == 1.0 else t * wgt
+                payload = t if wgt == 1.0 else _scaled(t, wgt)
                 win.shm.write(d, win.slot_of[d][ctx.rank], payload,
                               p=win.p_self * wgt, accumulate=False)
         if not exposed:
@@ -1887,7 +1954,7 @@ def win_accumulate(tensor, name: str, dst_weights: WeightDict = None) -> bool:
                               p=win.p_self * wgt, accumulate=True,
                               scale=wgt)
             else:
-                payload = t if wgt == 1.0 else t * wgt
+                payload = t if wgt == 1.0 else _scaled(t, wgt)
                 win.shm.write(d, win.slot_of[d][ctx.rank], payload,
                               p=win.p_self * wgt, accumulate=True)
         if reg.enabled:
@@ -2103,7 +2170,8 @@ def win_get(name: str, src_weights: WeightDict = None) -> bool:
                               p=p * wgt, accumulate=False, writer=s,
                               scale=wgt)
             else:
-                win.shm.write(ctx.rank, win.slot_of[ctx.rank][s], a * wgt,
+                win.shm.write(ctx.rank, win.slot_of[ctx.rank][s],
+                              _scaled(a, wgt),
                               p=p * wgt, accumulate=False, writer=s)
             if reg.enabled:
                 # the pull deposits into MY slot on edge s->me; this rank
@@ -2337,7 +2405,11 @@ def win_update(
             out = win.self_tensor
             out = np.array(out, copy=True) if clone else out
             return _island_unpack(name, out)
-        acc = np.multiply(win.self_tensor, sw, dtype=wdt)
+        bf16 = win.shm.dtype == _BF16
+        if bf16:
+            acc = _bf16(win.self_tensor).double() * sw
+        else:
+            acc = np.multiply(win.self_tensor, sw, dtype=wdt)
         p_acc = sw * win.p_self
         combine = (getattr(win.shm, "combine", None)
                    if wdt == win.shm.dtype else None)
@@ -2361,8 +2433,9 @@ def win_update(
             # One fused multiply into a persistent scratch buffer + an
             # in-place add keeps it to two passes with zero allocations
             # after the first call.
-            if (win._scratch is None or win._scratch.shape != acc.shape
-                    or win._scratch.dtype != acc.dtype):
+            if not bf16 and (win._scratch is None
+                             or win._scratch.shape != acc.shape
+                             or win._scratch.dtype != acc.dtype):
                 win._scratch = np.empty_like(acc)
             scratch = win._scratch
             for s in nbrs:
@@ -2371,10 +2444,17 @@ def win_update(
                 if reset and reg.enabled:
                     _ledger_retire(reg, win, slot, int(ver),
                                    _telemetry.LEDGER_COLLECTED)
-                np.multiply(a, nw[s], out=scratch, casting="unsafe")
-                np.add(acc, scratch, out=acc)
+                if bf16:
+                    acc += (_bf16(a).float() * nw[s]).double()
+                else:
+                    np.multiply(a, nw[s], out=scratch, casting="unsafe")
+                    np.add(acc, scratch, out=acc)
                 p_acc = p_acc + nw[s] * p
-        win.self_tensor = acc.astype(win.shm.dtype, copy=False)
+        if bf16:
+            win.self_tensor = _progress.staging.host_view(
+                acc.to(torch.bfloat16))
+        else:
+            win.self_tensor = acc.astype(win.shm.dtype, copy=False)
         if ctx.associated_p:
             win.p_self = float(p_acc)
         win.shm.expose(win.self_tensor, win.p_self)

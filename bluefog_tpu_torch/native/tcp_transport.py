@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import os
 import random
-import signal
 import socket
 import struct
 import threading
@@ -1003,9 +1002,9 @@ class _Peers:
                             outstanding += pend
                             pend = 0
                         if kill_after >= 0 and idx + 1 >= kill_after:
-                            # the chaos harness's kill_self: SIGKILL, no
-                            # teardown (resilience/chaos.py in the reference)
-                            os.kill(os.getpid(), signal.SIGKILL)
+                            from bluefog_tpu_torch.resilience.chaos import \
+                                kill_self
+                            kill_self()
                     if pend:
                         over = outstanding + pend - credit
                         if over > 0:

@@ -31,6 +31,12 @@ handed to the worker must be a snapshot.  Torch parameters are updated in
 place by the next ``optimizer.step()``, so the async ops snapshot a CUDA
 tensor at submit (:func:`snapshot`), and a CPU tensor handed to an async
 op must not be modified until its handle resolves.
+
+numpy has no bfloat16, so a ``torch.bfloat16`` tensor's host form is an
+ndarray of :data:`BF16`: the same two bytes a value, in the layout the JAX
+package's ``ml_dtypes.bfloat16`` arrays use, so windows and snapshot
+regions of either package hold the same bytes (:func:`host_view` /
+:func:`tensor_view` convert without a copy).
 """
 
 from __future__ import annotations
@@ -43,10 +49,33 @@ import numpy as np
 
 from bluefog_tpu_torch.telemetry import registry as _telemetry
 
+#: the host dtype of a ``torch.bfloat16`` tensor's bytes (see above)
+BF16 = np.dtype([("bfloat16", "<u2")])
+
 _tls = threading.local()
 _lock = threading.Lock()
 # (key, device index, dtype, numel) -> pinned host tensor
 _pinned: Dict[Tuple, object] = {}
+
+
+def host_view(t) -> np.ndarray:
+    """A CPU tensor's storage as an ndarray, without a copy (bf16 as
+    :data:`BF16`)."""
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16)
+    return t.numpy()
+
+
+def tensor_view(arr: np.ndarray):
+    """An ndarray as a CPU tensor sharing its memory (:data:`BF16` as
+    ``torch.bfloat16``)."""
+    import torch
+
+    if arr.dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def in_worker() -> bool:
@@ -145,7 +174,7 @@ def _stage_cuda(t, event, key) -> np.ndarray:
     reg = _telemetry.get_registry()
     if reg.enabled:
         reg.counter("progress.staging_d2h_bytes").add(int(t.numel() * t.element_size()))
-    return buf.numpy().reshape(tuple(t.shape))
+    return host_view(buf).reshape(tuple(t.shape))
 
 
 def release(key: Optional[str] = None) -> None:
@@ -169,7 +198,7 @@ def to_device(arr: np.ndarray, device):
 
     side = _side_stream(device)
     with torch.cuda.stream(side):
-        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(device)
+        t = tensor_view(arr if arr.flags.writeable else arr.copy()).to(device)
     side.synchronize()
     t.record_stream(torch.cuda.current_stream(t.device))
     return t
@@ -187,7 +216,7 @@ def stage(tensor, key: Optional[str] = None) -> np.ndarray:
         t = tensor.detach()
         if t.is_cuda:
             return _stage_cuda(t, None, key)
-        v = t.numpy()
+        v = host_view(t)
         if in_worker():
             reg = _telemetry.get_registry()
             if reg.enabled:

@@ -1,7 +1,8 @@
 """bluefog_tpu_torch.tracing — cross-rank distributed tracing for gossip.
 
-Counterpart of ``bluefog_tpu/tracing``: the per-rank tracer and the clock
-estimator, copied with their imports pointed at this package.
+What :mod:`bluefog_tpu_torch.telemetry` (aggregate counters/histograms) cannot
+answer — *which* deposit a collect consumed, *which* rank lengthened a
+round — this package does, with four pieces:
 
 * **Context propagation**: a u64 ``(round, op_id, origin_rank)`` word
   (:func:`pack_ctx`) rides both transports — an 8-byte sidecar word per
@@ -9,19 +10,33 @@ estimator, copied with their imports pointed at this package.
   span on one rank and the consuming span on another share an identity.
 * **Clock alignment**: a min-RTT offset estimator
   (:class:`~bluefog_tpu_torch.tracing.clock.ClockEstimator`) over the TCP
-  coordinator path; same-host shm ranks share ``CLOCK_MONOTONIC``.
+  coordinator path, re-sampled per heartbeat; same-host shm ranks share
+  ``CLOCK_MONOTONIC`` and keep offset 0.
+* **Merge CLI**: ``python -m bluefog_tpu_torch.tracing`` stitches per-rank
+  buffers (+ telemetry journals) into one Chrome trace with flow arrows
+  along gossip edges; ``--critical-path`` extracts each round's longest
+  causal chain and a straggler-attribution report.
 * **Flight recorder**: a SIGKILL-durable mmap ring of recent spans per
-  rank, dumped on SIGTERM / fatal errors / ``PeerTimeoutError``.
-
-The per-rank buffers use the reference's schema, so the reference's merge
-CLI (``python -m bluefog_tpu.tracing``) reads them; this package does not
-carry the merge step yet.
+  rank, dumped on SIGTERM / fatal errors / ``PeerTimeoutError`` and
+  recovered post-mortem by the spawner for killed ranks.
 
 Enable with ``BFTPU_TRACING=1`` (or ``=<dir>``); unset means
-:func:`get_tracer` returns a shared no-op ``NullTracer``.  Stdlib-only.
+:func:`get_tracer` returns a shared no-op ``NullTracer``.  See
+docs/OBSERVABILITY.md.  Stdlib-only: importable without jax, numpy, or
+the native library.
 """
 
 from bluefog_tpu_torch.tracing.clock import ClockEstimator
+from bluefog_tpu_torch.tracing.merge import (
+    MERGED_TRACE_SCHEMA,
+    critical_path,
+    find_flights,
+    find_traces,
+    flow_index,
+    load_flight,
+    load_trace,
+    merge_traces,
+)
 from bluefog_tpu_torch.tracing.tracer import (
     FLIGHT_SCHEMA,
     TRACE_SCHEMA,
@@ -40,6 +55,7 @@ from bluefog_tpu_torch.tracing.tracer import (
 __all__ = [
     "TRACE_SCHEMA",
     "FLIGHT_SCHEMA",
+    "MERGED_TRACE_SCHEMA",
     "ClockEstimator",
     "FlightRing",
     "Tracer",
@@ -51,4 +67,11 @@ __all__ = [
     "unpack_ctx",
     "read_flight_ring",
     "convert_flight_rings",
+    "find_traces",
+    "find_flights",
+    "load_trace",
+    "load_flight",
+    "merge_traces",
+    "flow_index",
+    "critical_path",
 ]

@@ -185,8 +185,30 @@ Phases, each printing one JSON line:
                64 MB host payloads, exp2, per-rank win_put GB/s against the
                host's raw memcpy (vs_raw_memcpy); then the rank-major
                win_put_update of 4 x 64 MB on the card against
-               neighbor_allreduce (vs_baseline).
-Phases 8-12, 14 and 18-23 run no kernel of the repo and add no row to the
+               neighbor_allreduce (vs_baseline); then the mailbox
+               protocol's single-process ceiling (--protocol-probe: one
+               process deposits and drains its own slot, 64 MB).
+24. bf16_window -- examples/bf16_window: 2 island processes, a bf16
+               window (rank 0 on cuda:0), one deposit + default combine,
+               every rank bit-equal to the plain bf16 combine.
+25. launcher_serving -- the launcher (python -m
+               bluefog_tpu_torch.run.launcher --islands 2 --serve-replicas
+               1) runs examples/serve_islands: one window holding
+               ResNet-50's (1000 classes) flat parameters, rank 0's on
+               cuda:0, 4 published versions, the replica on cuda:0
+               hot-swapping each and serving between swaps.  The launcher
+               exits 0, the replica's versions rise strictly, its last
+               snapshot's sha256 equals the last published estimate's,
+               served > 0, no bf_<job>_* segment is left, and
+               python -m bluefog_tpu_torch.tracing --check passes on the
+               merged trace; peak shm bytes sampled during the run.  Then
+               benchmarks/serving: publish_swap and serve_rate at 64 KB and
+               at the ResNet-50 payload, load and distrib at 4 replicas, all
+               on the card.
+26. recovery -- benchmarks/recovery with rank 0 on cuda:0: recovery_ms
+               (every survivor heals, to heal_topology's mixing matrix),
+               join_ms, partition_merge_ms, straggler_p99_ms.
+Phases 8-12, 14 and 18-26 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel
 and zero_8b paths, the f32 rows' the f32_path, seq_parallel and
 tensor_parallel paths.
@@ -197,12 +219,16 @@ It needs one CUDA device and exits non-zero without one.
 """
 
 import gc
+import glob
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -2709,6 +2735,161 @@ def phase_islands_bandwidth(torch):
     check(isl["transport_kind"] == "native" and isl["value"] > 0, f"islands_bandwidth: {isl}")
     check(all(math.isfinite(rm[k]) and rm[k] > 0 for k in ("value", "neighbor_allreduce_gbs")),
           f"islands_bandwidth: {rm}")
+    # the mailbox protocol alone: one process, no second process to wait on
+    proto = gossip_bandwidth.measure_island_protocol(64.0, 20)
+    emit({"phase": "islands_bandwidth", "protocol_ceiling": proto,
+          "islands_vs_ceiling": isl["value"] / proto["value"]})
+    check(proto["value"] > 0 and math.isfinite(proto["value"]), f"islands_bandwidth: {proto}")
+
+
+def phase_bf16_window(torch):
+    """C6: a bf16 island window round with rank 0 on the card."""
+    from bluefog_tpu_torch.examples import bf16_window
+
+    t0 = time.perf_counter()
+    out = bf16_window.run(nranks=2, n=1 << 20, device="cuda")
+    emit({"phase": "bf16_window", **out, "phase_seconds": time.perf_counter() - t0})
+    check(out["ok"] and out["rank0_device"] == "cuda", f"bf16_window: {out}")
+
+
+SERVE_VERSIONS = 4
+
+
+def _job_segments(job):
+    from bluefog_tpu_torch.native import shm_native
+
+    return sorted({p for d in ("/dev/shm", shm_native._FALLBACK_DIR)
+                   for p in glob.glob(os.path.join(d, f"bf_{job}_*"))})
+
+
+def _sample_shm(job, stop, peak):
+    """Peak bytes of the job's shm segments, sampled every 20 ms."""
+    while not stop.is_set():
+        total = 0
+        for p in _job_segments(job):
+            try:
+                total += os.path.getsize(p)
+            except OSError:
+                pass
+        peak[0] = max(peak[0], total)
+        stop.wait(0.02)
+
+
+def phase_launcher_serving(torch):
+    """The launcher's islands fleet and its replica, on the card."""
+    from bluefog_tpu_torch.benchmarks import serving
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="bftpu_smoke_serve_")
+    trace_dir = os.path.join(work, "trace")
+    os.makedirs(trace_dir)
+    job = f"smokesrv{os.getpid()}"
+    env = dict(os.environ, BFTPU_TRACING=trace_dir,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    record = os.path.join(work, "publisher.json")
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.run.launcher", "--islands", "2",
+           "--serve-replicas", "1", "--serve-report", work,
+           "--job", job, "--timeout", "400", "--",
+           sys.executable, "-m", "bluefog_tpu_torch.examples.serve_islands",
+           "--model", "resnet50", "--device", "cuda", "--replicas", "1",
+           "--versions", str(SERVE_VERSIONS), "--record", record]
+    stop, peak = threading.Event(), [0]
+    sampler = threading.Thread(target=_sample_shm, args=(job, stop, peak), daemon=True)
+    sampler.start()
+    t_run = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=450)
+    run_s = time.perf_counter() - t_run
+    stop.set()
+    sampler.join()
+    check(proc.returncode == 0, f"launcher_serving: launcher exit {proc.returncode}\n"
+          f"stdout:\n{proc.stdout[-3000:]}\nstderr:\n{proc.stderr[-3000:]}")
+    with open(record) as f:
+        pub = json.load(f)
+    with open(os.path.join(work, "replica-0.json")) as f:
+        rep = json.load(f)
+    versions = [v for v, _, _ in rep["installs"]]
+    left = _job_segments(job)
+    merged = os.path.join(trace_dir, f"merged-trace-{job}.json")
+    chk = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.tracing", trace_dir,
+                          "--check", "--out", os.path.join(work, "check-merged.json")],
+                         env=env, cwd=root, capture_output=True, text=True, timeout=120)
+    installs = rep["installs"][1:] or rep["installs"]  # the first swap waits on the first read
+    row = {"phase": "launcher_serving", "launcher_seconds": run_s,
+           "numel": pub["numel"], "payload_bytes": pub["numel"] * 4,
+           "rank0_device": pub["device"], "replica_device": rep["device"],
+           "published": [p["version"] for p in pub["published"]],
+           "replica_versions": versions, "served": rep["served"],
+           "publish_ms": [p["publish_ms"] for p in pub["published"]],
+           "publish_to_replica_ms": [p["replica_wait_ms"] for p in pub["published"]],
+           "install_read_crc_ms": [i[1] for i in installs],
+           "install_h2d_ms": [i[2] for i in installs],
+           "peak_shm_bytes": peak[0], "segments_left": left,
+           "merged_trace": os.path.exists(merged), "trace_check_rc": chk.returncode,
+           "trace_check": chk.stderr.strip().splitlines()[-1:]}
+    emit(row)
+    check(pub["device"].startswith("cuda") and rep["device"].startswith("cuda"),
+          f"launcher_serving: not on the card: {row}")
+    check(len(pub["published"]) == SERVE_VERSIONS, f"launcher_serving: {row}")
+    check(versions and all(a < b for a, b in zip(versions, versions[1:])),
+          f"launcher_serving: replica versions do not rise strictly: {versions}")
+    check(versions[-1] == pub["published"][-1]["version"]
+          and rep["last_sha256"] == pub["published"][-1]["sha256"],
+          f"launcher_serving: the replica's last snapshot is not the last published "
+          f"estimate: {rep['last_sha256']} vs {pub['published'][-1]}")
+    check(rep["served"] > 0, f"launcher_serving: served {rep['served']}")
+    check(not left, f"launcher_serving: segments left: {left}")
+    check(row["merged_trace"] and chk.returncode == 0,
+          f"launcher_serving: trace check rc {chk.returncode}: {chk.stderr[-2000:]}")
+    # the serving plane's own arms, every replica on the card
+    arms = {}
+    for name, kw in (("64kb", {}), ("resnet50", {"payload_model": "resnet50"})):
+        arms[name] = {"publish_swap": serving.measure_publish_swap(versions=8, device="cuda",
+                                                                   **kw),
+                      "serve_rate": serving.measure_serve_rate(steps=5000, device="cuda",
+                                                               **kw)}
+    load = serving.measure_load(replica_counts=(4,), device="cuda")
+    distrib = serving.measure_distrib(replicas=(4,), versions=8, device="cuda")
+    emit({"phase": "launcher_serving",
+          "publish_swap_ms": {k: a["publish_swap"]["value"] for k, a in arms.items()},
+          "install_read_crc_ms": {k: a["publish_swap"]["install_read_crc_ms_median"]
+                                  for k, a in arms.items()},
+          "install_h2d_ms": {k: a["publish_swap"]["install_h2d_ms_median"]
+                             for k, a in arms.items()},
+          "serve_steps_per_s": {k: a["serve_rate"]["value"] for k, a in arms.items()},
+          "peak_shm_bytes": row["peak_shm_bytes"],
+          "serving": arms, "load": load, "distrib": distrib,
+          "phase_seconds": time.perf_counter() - t0})
+    for name, arm in arms.items():
+        ps, sr = arm["publish_swap"], arm["serve_rate"]
+        check(ps["served_steps_during"] > 0 and math.isfinite(ps["value"]),
+              f"launcher_serving {name}: {ps}")
+        check(sr["value"] > 0 and math.isfinite(sr["value"]), f"launcher_serving {name}: {sr}")
+    check(math.isfinite(load["value"]), f"launcher_serving: {load}")
+    check(distrib["delta_ratio_bf16"] < 0.6, f"launcher_serving: {distrib}")
+
+
+def phase_recovery(torch):
+    """The resilience headlines with rank 0's window on the card."""
+    from bluefog_tpu_torch.benchmarks import recovery
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    rec = recovery.measure_recovery(device="cuda")
+    join = recovery.measure_join(device="cuda")
+    part = recovery.measure_partition(device="cuda")
+    strag = recovery.measure_straggler(device="cuda")
+    emit({"phase": "recovery", "recovery_ms": rec["value"], "join_ms": join["value"],
+          "partition_merge_ms": part["value"], "straggler_p99_ms": strag["value"],
+          "recovery": rec, "join": join, "partition": part, "straggler": strag,
+          "phase_seconds": time.perf_counter() - t0})
+    # every survivor healed to heal_topology's matrix (asserted inside), the
+    # joiner and the orphan were re-admitted, and the re-merged fleet agrees
+    check(rec["survivors"] == 3, f"recovery: {rec}")
+    check(join["members"] == 4, f"recovery: {join}")
+    check(part["consensus_spread"] < 1e-3, f"recovery: {part}")
+    check(strag["value"] < strag["adaptive_off_p99_ms"], f"recovery: {strag}")
 
 
 def main():
@@ -2756,6 +2937,9 @@ def main():
     phase_islands_async(torch)
     phase_islands_overlap(torch)
     phase_islands_bandwidth(torch)
+    phase_bf16_window(torch)
+    phase_launcher_serving(torch)
+    phase_recovery(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",

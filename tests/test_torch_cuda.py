@@ -908,3 +908,46 @@ def test_island_updates_back_to_back_on_a_busy_card(cuda_device):
         np.testing.assert_allclose(b, (W @ x64)[d], rtol=0, atol=1e-9)
         np.testing.assert_allclose(r32, [(W2 @ c32)[d]] * 2, rtol=1e-6)
         np.testing.assert_allclose(r64, [(W2 @ c64)[d]] * 2, rtol=0, atol=1e-12)
+
+
+def test_bf16_island_window_round_with_rank0_on_the_card(cuda_device):
+    """A bf16 window whose rank 0 tensor is on the card: one deposit and
+    the default combine give every rank, bit for bit, the plain bf16
+    combine of ``examples/bf16_window``, rank 0's result back on the
+    card as ``torch.bfloat16``."""
+    from bluefog_tpu_torch.examples import bf16_window
+
+    out = bf16_window.run(nranks=2, n=1 << 18, device="cuda")
+    assert out["rank0_device"] == "cuda", out
+    assert out["dtypes"] == ["torch.bfloat16"], out
+    assert not any(out["mismatched_elems"].values()), out
+
+
+def test_replica_installs_each_version_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """The replica's device path: a publish from a card tensor (staged to
+    the host by the region) is installed into the standby device buffer
+    byte for byte, the two buffers alternate, and ``serve_step`` computes
+    on the card."""
+    from bluefog_tpu_torch.native import shm_native
+    from bluefog_tpu_torch.serve import Replica, SnapshotRegion
+
+    monkeypatch.setattr(shm_native, "_FALLBACK_DIR", str(tmp_path))
+    job = f"cudarep{id(tmp_path) % 100000}"
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    region = SnapshotRegion(job, x.numel() * 4)
+    rep = Replica(job, 0, publish_page=False, device="cuda")
+    try:
+        bufs = []
+        for v in (1, 2, 3):
+            assert region.publish(x * v) == v
+            assert rep.poll_swap()
+            ver, snap = rep.serve_step()
+            assert ver == v and snap.is_cuda
+            assert torch.equal(snap, x * v)
+            bufs.append(snap.data_ptr())
+            _, y = rep.serve_step(torch.ones(4096, device="cuda"))
+            assert y.is_cuda and float(y) == float((x * v).sum())
+        assert bufs[0] == bufs[2] != bufs[1]
+    finally:
+        rep.close()
+        region.close(unlink=True)
