@@ -18,6 +18,9 @@ Counterpart of ``benchmarks/gossip_bandwidth.py``, two modes:
 
 ``--overheads`` adds the telemetry-, tracing- and status-page-on vs -off
 cost of the island loop (interleaved best-of floors, as the reference's).
+:func:`measure_lab_probe_overhead` and :func:`measure_monitor_overhead`
+price the convergence probe and the fleet monitor on the single-process
+self-edge round, its window on ``device``.
 ``--protocol-probe [--sweep]`` measures the mailbox protocol's ceiling in
 ONE process (a self-edge: deposit and drain of the chunk ring, no second
 process), ``--tcp-chunked`` the chunked TCP framing against the legacy
@@ -522,6 +525,163 @@ def measure_island_protocol(mb: float = 16.0, iters: int = 40,
                 grid[f"{ckb}KiB/x{depth}"] = round(g, 3)
         out["chunk_sweep_gbs"] = grid
     return out
+
+
+def _lab_probe_worker(rank, size, mb, iters, warmup, device="cuda"):
+    """Single-process self-edge gossip loop (trivial topology): the same
+    scheduler-confound-free workload as the protocol ceiling, with the
+    full win_put + win_update path the probe tick rides.  With
+    ``device="cuda"`` the window starts from a card tensor, so every
+    round pays the staging copy a card-resident model pays; with
+    ``"cpu"`` it is the reference's host array.  Returns the MEDIAN
+    per-iteration time: a scheduler preemption lands on a minority of
+    iterations and drops out of the median, where it would dominate a
+    whole-run total."""
+    import statistics
+
+    from bluefog_tpu_torch import islands
+
+    elems = max(int(mb * 1e6 / 4), 1)
+    if device == "cpu":
+        x = np.ones((elems,), np.float32)
+    else:
+        x = torch.ones((elems,), dtype=torch.float32, device=device)
+    islands.win_create(x, "lp")
+    for _ in range(warmup):
+        islands.win_put(x, "lp")
+        islands.win_update("lp")
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        islands.win_put(x, "lp")
+        islands.win_update("lp")
+        ts.append(time.perf_counter() - t0)
+    islands.win_free("lp")
+    return statistics.median(ts)
+
+
+def measure_lab_probe_overhead(mb: float = 16.0, iters: int = 100,
+                               warmup: int = 10, repeats: int = 5,
+                               device: str = "cuda") -> dict:
+    """Convergence-probe-on vs -off cost of the island gossip round.
+
+    Interleaved best-of-``repeats`` floors toggling ``BFTPU_LAB_PROBE``
+    on the SINGLE-process self-edge loop at the protocol-ceiling payload
+    (a second process would make the delta measure the OS scheduler, not
+    the probe).  Each run's statistic is the per-iteration MEDIAN (see
+    :func:`_lab_probe_worker`); the floors are best-of-``repeats``
+    medians per arm.  "On" pays, per win_update, a chunked ≤1024-element
+    subsample of the estimate gathered into preallocated buffers and one
+    max-abs-diff against the previous round's, batched over
+    ``BFTPU_LAB_FLUSH`` rounds.  The convergence observatory's contract
+    is < 2% of a gossip round.
+    """
+    from bluefog_tpu_torch import islands
+
+    def one_dt() -> float:
+        return islands.spawn(
+            functools.partial(_lab_probe_worker, mb=mb, iters=iters,
+                              warmup=warmup, device=device),
+            1, timeout=600.0,
+        )[0]
+
+    prev = os.environ.pop("BFTPU_LAB_PROBE", None)
+    t_off = t_on = None
+    try:
+        for _ in range(repeats):
+            os.environ.pop("BFTPU_LAB_PROBE", None)
+            dt = one_dt()
+            t_off = dt if t_off is None else min(t_off, dt)
+            os.environ["BFTPU_LAB_PROBE"] = "1"
+            dt = one_dt()
+            t_on = dt if t_on is None else min(t_on, dt)
+    finally:
+        os.environ.pop("BFTPU_LAB_PROBE", None)
+        if prev is not None:
+            os.environ["BFTPU_LAB_PROBE"] = prev
+    pct = (t_on - t_off) / t_off * 100.0 if t_off else 0.0
+    return {
+        "metric": f"island gossip convergence-probe overhead "
+                  f"(single process self-edge, {mb:g} MB payload on "
+                  f"{device}, per-iter median, best of {repeats})",
+        "value": pct,
+        "unit": "%",
+        "round_off_us": t_off * 1e6,
+        "round_on_us": t_on * 1e6,
+        "us_per_round": (t_on - t_off) * 1e6,
+        "device": device,
+        "contract_pct": 2.0,
+    }
+
+
+_MON_JOBS = iter(range(1 << 30))
+
+
+def measure_monitor_overhead(mb: float = 16.0, iters: int = 100,
+                             warmup: int = 10, repeats: int = 5,
+                             device: str = "cuda") -> dict:
+    """Monitor-attached vs unattached cost of the island gossip round.
+
+    Same single-process self-edge / per-iteration-median /
+    best-of-``repeats`` protocol as :func:`measure_lab_probe_overhead`,
+    but the toggled variable is a fleet-monitor daemon
+    (``python -m bluefog_tpu_torch.monitor --daemon``) — a SEPARATE
+    process, exactly as deployed — attached to the worker's job and
+    polling its status pages at a 0.1 s cadence (10x the default, so
+    scrapes land inside the timed region).  The monitor's contract is
+    that attaching it is free for the run: passive seqlock reads, no
+    locks taken, < 2%.
+    """
+    import subprocess
+
+    from bluefog_tpu_torch import islands
+
+    def one_dt(attach: bool) -> float:
+        job = f"monb{os.getpid()}_{next(_MON_JOBS)}"
+        proc = None
+        if attach:
+            env = dict(os.environ)
+            # no journal in the bench arm: the delta measures the
+            # scraper's page reads, not journal fsyncs
+            env.pop("BFTPU_TELEMETRY", None)
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "bluefog_tpu_torch.monitor",
+                 "--job", job, "--daemon", "--interval", "0.1"],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                env=env)
+        try:
+            return islands.spawn(
+                functools.partial(_lab_probe_worker, mb=mb, iters=iters,
+                                  warmup=warmup, device=device),
+                1, job=job, timeout=600.0)[0]
+        finally:
+            if proc is not None:
+                proc.terminate()
+                try:
+                    proc.wait(5.0)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+
+    t_off = t_on = None
+    for _ in range(repeats):
+        dt = one_dt(False)
+        t_off = dt if t_off is None else min(t_off, dt)
+        dt = one_dt(True)
+        t_on = dt if t_on is None else min(t_on, dt)
+    pct = (t_on - t_off) / t_off * 100.0 if t_off else 0.0
+    return {
+        "metric": f"island gossip fleet-monitor overhead (single process "
+                  f"self-edge, {mb:g} MB payload on {device}, scraper "
+                  f"attached at 0.1 s, per-iter median, best of {repeats})",
+        "value": pct,
+        "unit": "%",
+        "round_off_us": t_off * 1e6,
+        "round_on_us": t_on * 1e6,
+        "us_per_round": (t_on - t_off) * 1e6,
+        "device": device,
+        "contract_pct": 2.0,
+    }
 
 
 def main(argv=None) -> dict:

@@ -11,7 +11,8 @@ vector decays toward ``rank + 1``), the fleet runs two gossip
 rounds (``win_put`` + ``win_update``, barriered), then rank 0 calls
 ``islands.serve_publish`` and waits until each of the ``--replicas``
 replicas' status pages shows that version, so every replica installs
-every version.  Rank 0 records each published estimate's
+every version; ``--hold`` keeps the fleet up a while after the last one.
+Rank 0 records each published estimate's
 sha256 in ``--record`` (JSON), which a caller holds against the replicas'
 ``--report`` files.
 
@@ -89,6 +90,10 @@ def main(argv=None) -> int:
     ap.add_argument("--replicas", type=int, default=0,
                     help="replicas to wait for after each publish (the "
                     "launcher's --serve-replicas)")
+    ap.add_argument("--hold", type=float, default=0.0,
+                    help="seconds every rank waits after the last version "
+                    "before it frees the window, so an attached monitor "
+                    "still reads the fleet's last state")
     ap.add_argument("--record", default="",
                     help="rank 0 writes the published versions, their "
                     "estimates' sha256 and the publish ms here")
@@ -128,6 +133,7 @@ def main(argv=None) -> int:
                               "publish_ms": pub_ms,
                               "replica_wait_ms": waited * 1e3})
         islands.barrier()
+    time.sleep(args.hold)
     if rank == 0 and args.record:
         with open(args.record, "w", encoding="utf-8") as f:
             json.dump({"model": args.model, "size": size,

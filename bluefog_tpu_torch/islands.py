@@ -235,7 +235,7 @@ class _IslandContext:
         self.statuspage = None
         self.tracectl = None
         self.op_rounds = 0
-        # convergence observatory (bluefog_tpu.lab): per-window probes,
+        # convergence observatory (bluefog_tpu_torch.lab): per-window probes,
         # created lazily on the first win_update so the env decision is
         # made after spawn() has propagated the lab env keys to workers.
         # None = not yet checked, False = probe disabled, dict = live.
@@ -270,22 +270,26 @@ def _trivial_graph() -> topology_util.DiGraph:
 def _default_topology(size_: int) -> topology_util.DiGraph:
     """The launch topology for an island fleet of ``size_``.
 
-    Static default: exponential-2 (the paper's workhorse).  The
-    reference's ``BFTPU_LAB_AUTO_TOPOLOGY=1`` delegates the choice to its
-    lab plane, which this package does not have yet: asking for it
-    raises rather than fall back to the static default."""
-    if os.environ.get("BFTPU_LAB_AUTO_TOPOLOGY", "0").lower() in (
-            "1", "true", "yes", "on"):
-        _lab_missing("BFTPU_LAB_AUTO_TOPOLOGY")
+    Static default: exponential-2 (the paper's workhorse).  With
+    ``BFTPU_LAB_AUTO_TOPOLOGY=1`` the choice is delegated to the lab's
+    measured scaling laws (:func:`bluefog_tpu_torch.lab.recommend`), sized
+    by ``BFTPU_LAB_PAYLOAD_BYTES``; any failure there (no artifact, bad
+    env) falls back to the static default, as in the reference — opting
+    in to auto-topology must never be able to fail init."""
     if size_ <= 1:
         return _trivial_graph()
+    if os.environ.get("BFTPU_LAB_AUTO_TOPOLOGY", "0").lower() in (
+            "1", "true", "yes", "on"):
+        try:
+            from bluefog_tpu_torch import lab as _lab
+
+            payload = int(os.environ.get("BFTPU_LAB_PAYLOAD_BYTES",
+                                         "1048576"))
+            rec = _lab.recommend(size_, payload)
+            return _lab.build_topology(rec["topology"], size_)
+        except Exception:
+            pass
     return topology_util.ExponentialTwoGraph(size_)
-
-
-def _lab_missing(what: str):
-    raise NotImplementedError(
-        f"{what} needs the lab plane (bluefog_tpu/lab), which "
-        "bluefog_tpu_torch does not port yet (ROADMAP A7)")
 
 
 def _attach_edge_health(ctx: "_IslandContext") -> None:
@@ -1737,7 +1741,7 @@ def _note_op(op: str, name: str) -> None:
 def _lab_probe_tick(ctx: "_IslandContext", win: "_IslandWindow",
                     name: str) -> None:
     """Feed this round's post-combine tensor to the window's convergence
-    probe (:mod:`bluefog_tpu.lab`) and stream the sample into telemetry.
+    probe (:mod:`bluefog_tpu_torch.lab`) and stream the sample into telemetry.
     Off-path: when ``BFTPU_LAB_PROBE`` is unset the per-op cost is one
     attribute load and a falsy branch, same convention as tracing and
     the status page.  The enablement check is lazy (first win_update,
@@ -1748,19 +1752,23 @@ def _lab_probe_tick(ctx: "_IslandContext", win: "_IslandWindow",
     numpy has a ~40 µs floor the < 2% gate can't afford), so the page's
     ``(conv_err, conv_round)`` pair and the journal trail advance in
     flush-sized bursts — every round's exact value still lands, each
-    tagged with its own round index.
-
-    The probe lives in the reference's lab plane, which this package does
-    not have yet: with ``BFTPU_LAB_PROBE`` on, the first tick raises."""
+    tagged with its own round index."""
     probes = ctx.lab_probes
     if probes is False:
         return
     if probes is None:
-        if os.environ.get("BFTPU_LAB_PROBE", "0").lower() not in (
-                "1", "true", "yes", "on"):
+        from bluefog_tpu_torch.lab import probe as _lab_probe
+
+        if not _lab_probe.probe_enabled():
             ctx.lab_probes = False
             return
-        _lab_missing("BFTPU_LAB_PROBE")
+        probes = ctx.lab_probes = {}
+    if name not in probes:
+        from bluefog_tpu_torch.lab import probe as _lab_probe
+
+        probes[name] = _lab_probe.ConvergenceProbe(
+            flush_every=_lab_probe.flush_every_env())
+        probes[name]._journaled = 0  # history entries already journaled
     pr = probes[name]
     err = pr.observe(win.self_tensor,
                      win.p_self if ctx.associated_p else 1.0)
@@ -2582,7 +2590,7 @@ def win_set_exposed(name: str, tensor, associated_p: Optional[float] = None) -> 
 
 def win_conv_error(name: str) -> Tuple[int, float]:
     """``(round, err)`` from the window's convergence probe
-    (:mod:`bluefog_tpu.lab`): the round counter and the latest debiased
+    (:mod:`bluefog_tpu_torch.lab`): the round counter and the latest debiased
     consensus-error sample.  ``(-1, nan)`` when ``BFTPU_LAB_PROBE`` is
     off or no win_update has run yet; ``err`` is NaN on the first
     probed round (a successive difference needs a predecessor)."""

@@ -15,10 +15,11 @@ telemetry and traces merged.
 
 The reference's jax.distributed mode (``-np`` without ``--islands``,
 ``--coordinator``, ``--process-id``) and its ``--simulate`` CPU mesh wait
-for the ``torch.distributed`` backend; the fleet monitor (``--monitor``)
-and the lab probe (``--lab-probe``) wait for their planes.  Asking for any
-of them is an error that says so.  Only this package's environment is
-forwarded (no ``JAX_*`` / ``XLA_*`` / ``TPU_*``).
+for the ``torch.distributed`` backend: asking for any of them is an
+error that says so.  ``--monitor`` spawns the passive fleet monitor
+(``python -m bluefog_tpu_torch.monitor --daemon``) beside the islands and
+``--lab-probe`` turns on each rank's convergence probe.  Only this
+package's environment is forwarded (no ``JAX_*`` / ``XLA_*`` / ``TPU_*``).
 
 Usage:
   bftpu-torch-run --islands 4 python async_train.py  # N async islands
@@ -32,7 +33,11 @@ Usage:
                                                # + 2 inference replicas
                                                # hot-swapping published
                                                # weight snapshots
+  bftpu-torch-run --islands 4 --monitor --lab-probe python async_train.py
+                                               # + the fleet monitor and the
+                                               # convergence probe
   bftpu-torch-run --attach JOB scale +2        # resize a running islands job
+  bftpu-torch-run --attach JOB monitor         # the monitor's live export
 """
 
 from __future__ import annotations
@@ -74,16 +79,15 @@ def build_env(args, base_env=None) -> dict:
         # plain env spelling BFTPU_ADAPTIVE=1 is forwarded anyway
         env["BFTPU_ADAPTIVE"] = "1"
     if getattr(args, "lab_probe", False):
-        _plane_missing("--lab-probe", "the lab plane", "A7.5")
+        # islands mode: per-rank convergence probe (lab/probe.py); plain
+        # env spelling BFTPU_LAB_PROBE=1 is forwarded anyway
+        env["BFTPU_LAB_PROBE"] = "1"
     if getattr(args, "monitor", False):
-        _plane_missing("--monitor", "the fleet monitor", "A7.3")
+        # islands mode: spawn the passive fleet monitor next to the
+        # workers (monitor/scraper.py); plain env spelling
+        # BFTPU_MONITOR=1 is forwarded anyway
+        env["BFTPU_MONITOR"] = "1"
     return env
-
-
-def _plane_missing(what: str, plane: str, item: str):
-    raise NotImplementedError(
-        f"{what} needs {plane}, which bluefog_tpu_torch does not port yet "
-        f"(ROADMAP {item})")
 
 
 def parse_hosts(spec: str) -> list:
@@ -496,7 +500,15 @@ def attach_main(job: str, command) -> int:
 
         return top_main(["--job", job] + list(command[1:]))
     if command[0] == "monitor":
-        _plane_missing("--attach JOB monitor", "the fleet monitor", "A7.3")
+        # fleet monitor: scrape daemon / store export / attribution
+        # report, all over shm + journals — no control socket needed
+        from bluefog_tpu_torch.monitor.__main__ import main as mon_main
+
+        rest = list(command[1:])
+        if not any(a in ("--daemon", "--export", "--serve", "--report")
+                   for a in rest):
+            rest = ["--daemon"] + rest
+        return mon_main(["--job", job] + rest)
     if command[0] == "trace":
         if len(command) < 2 or command[1] not in ("on", "off", "default"):
             print("bftpu-run: trace needs a mode: trace on|off|default",
@@ -940,7 +952,11 @@ def _run_islands(cmd, env, nranks: int, job, hosts, timeout: float,
         # fleet's pages are reclaimed, and is SIGTERMed with the serve
         # procs — a monitor dying never fails the training run.
         if env.get("BFTPU_MONITOR", "0") not in ("", "0"):
-            _plane_missing("BFTPU_MONITOR", "the fleet monitor", "A7.3")
+            mc = dict(env)
+            mc["BLUEFOG_ISLAND_JOB"] = job
+            serve_procs.append(subprocess.Popen(
+                [sys.executable, "-m", "bluefog_tpu_torch.monitor",
+                 "--job", job, "--daemon"], env=mc))
         control = None
         try:
             if multi_host:

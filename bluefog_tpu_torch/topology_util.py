@@ -190,10 +190,18 @@ def is_strongly_connected(G: DiGraph) -> bool:
             and reach(nodes[0], G.predecessors) == len(nodes))
 
 
-def relabel_nodes(G: DiGraph, mapping: Dict[int, int]) -> DiGraph:
+def relabel_nodes(G: DiGraph, mapping: Dict[int, int],
+                  copy: bool = True) -> DiGraph:
     """A relabeled copy of ``G`` (``networkx.relabel_nodes(G, mapping,
     copy=True)``): nodes, edges and their attributes in ``G``'s order,
-    nodes missing from ``mapping`` keep their label, ``graph`` is copied."""
+    nodes missing from ``mapping`` keep their label, ``graph`` is copied.
+
+    Only the copy is supported: ``copy=False`` (networkx's in-place
+    relabel) raises ``ValueError``."""
+    if not copy:
+        raise ValueError("relabel_nodes supports only copy=True "
+                         "(a relabeled copy); in-place relabeling is "
+                         "not implemented")
     H = DiGraph()
     H.graph.update(G.graph)
     H.add_nodes_from(mapping.get(n, n) for n in G.nodes)

@@ -208,7 +208,28 @@ Phases, each printing one JSON line:
 26. recovery -- benchmarks/recovery with rank 0 on cuda:0: recovery_ms
                (every survivor heals, to heal_topology's mixing matrix),
                join_ms, partition_merge_ms, straggler_p99_ms.
-Phases 8-12, 14 and 18-26 run no kernel of the repo and add no row to the
+27. monitor_lab -- the fleet monitor, the convergence probe and the
+               simulator.  (a) The launcher with --islands 2 --monitor
+               --lab-probe --serve-replicas 1 runs examples/serve_islands
+               on ResNet-50's window (rank 0 and the replica on cuda:0),
+               scraped every 0.1 s: the launcher exits 0, the daemon
+               reports >= 1 scrape and 0 alert windows, python -m
+               bluefog_tpu_torch.monitor --export read during the run has
+               schema bftpu-monitor/1 with serve_lag and the probe's conv
+               series, --report exits 0, rank 0's journal holds the
+               probe's lab.conv_err trail of its card window, and no
+               segment is left.  (b) --islands 4 --monitor runs
+               examples/chaos_heal (rank 0 on cuda:0) with a
+               BFTPU_CHAOS_KILL_* schedule that SIGKILLs rank 2 mid-run:
+               every survivor heals to 3 ranks, and --report attributes
+               every alert window (exactly MONITOR_KILL_ALERTS) to the
+               journaled death and heal.  (c) The monitor's and the
+               probe's overhead on the single-process 16 MB round with its
+               window on the card, beside the 2% contract (not gated).
+               (d) The reference's 256-rank acceptance campaign twice: equal
+               digests and event logs, ok, a balanced ledger, and the
+               digest the JAX package's simulator gives (SIM_256_DIGEST).
+Phases 8-12, 14 and 18-27 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel
 and zero_8b paths, the f32 rows' the f32_path, seq_parallel and
 tensor_parallel paths.
@@ -2892,6 +2913,221 @@ def phase_recovery(torch):
     check(strag["value"] < strag["adaptive_off_p99_ms"], f"recovery: {strag}")
 
 
+
+# (b): the alert windows a SIGKILLed rank may raise, each explained by the
+# journaled death and heal (tests/test_torch_monitor.py derives the same
+# set from the same run on the CPU)
+MONITOR_KILL_ALERTS = {"edge_dead"}
+MONITOR_KILL_VICTIM = 2
+# the victim dies at its 100th round (~2 s of rounds): the daemon, started
+# beside the islands, is scraping by then
+MONITOR_KILL_ROUND = 100
+# the reference simulator's digest of SimConfig(ranks=256, rounds=50,
+# seed=7, quiesce_rounds=40) (tests/test_torch_sim.py holds both packages
+# to it)
+SIM_256_DIGEST = "22f48b2ee7b64680a8e94d8ebc84396bea5ad4e167585ff2a04fba11ce9470f6"
+# (a): the fleet stays up this long after its last version, so exports
+# read during the run see the probe's series (its first flush lands at
+# round 8 of 12); one export's start takes a few seconds (torch's import)
+MONITOR_HOLD_S = 8.0
+MONITOR_OVERHEAD_REPEATS = 1  # the reference's best of 5, cut to keep the phase near 150 s
+
+
+def _monitor_summary(stderr):
+    """(scrapes, alert windows) from the daemon's last summary line."""
+    found = re.findall(r"monitor: (\d+) scrape\(s\), (\d+) alert window\(s\)", stderr)
+    check(found, f"monitor_lab: no daemon summary in the launcher's stderr:\n{stderr[-3000:]}")
+    return int(found[-1][0]), int(found[-1][1])
+
+
+def _poll_export(env, root, job, stop, seen):
+    """python -m bluefog_tpu_torch.monitor --job J --export, back to back
+    while the run lasts: the union of the series names and the largest
+    export."""
+    while not stop.is_set():
+        p = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.monitor", "--job", job,
+                            "--export"], env=env, cwd=root, capture_output=True, text=True,
+                           timeout=60)
+        if p.returncode == 0:
+            try:
+                doc = json.loads(p.stdout)
+            except ValueError:
+                doc = None
+            if doc is not None:
+                seen["schemas"].add(doc.get("schema"))
+                seen["series"].update(x["series"] for x in doc.get("series", ()))
+                seen["bytes"] = max(seen["bytes"], len(p.stdout))
+                seen["exports"] += 1
+        stop.wait(0.1)
+
+
+def _monitor_report(env, root, tel):
+    rep = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.monitor", "--report", tel,
+                          "--json"], env=env, cwd=root, capture_output=True, text=True,
+                         timeout=120)
+    doc = json.loads(rep.stdout) if rep.stdout.strip() else {}
+    return rep.returncode, doc
+
+
+def _monitored_clean_run(root, device="cuda", model="resnet50"):
+    """(a): the launcher's islands fleet and replica under the monitor
+    and the probe, rank 0's window on ``device``."""
+    work = tempfile.mkdtemp(prefix="bftpu_smoke_mon_")
+    tel = os.path.join(work, "tel")
+    os.makedirs(tel)
+    job = f"smokemon{os.getpid()}"
+    env = dict(os.environ, BFTPU_TELEMETRY=tel, BFTPU_MON_SCRAPE_S="0.1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    record = os.path.join(work, "publisher.json")
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.run.launcher", "--islands", "2",
+           "--monitor", "--lab-probe", "--serve-replicas", "1", "--serve-report", work,
+           "--job", job, "--timeout", "400", "--",
+           sys.executable, "-m", "bluefog_tpu_torch.examples.serve_islands",
+           "--model", model, "--device", device, "--replicas", "1",
+           "--versions", str(SERVE_VERSIONS), "--hold", str(MONITOR_HOLD_S),
+           "--record", record]
+    stop = threading.Event()
+    seen = {"schemas": set(), "series": set(), "bytes": 0, "exports": 0}
+    poller = threading.Thread(target=_poll_export, args=(env, root, job, stop, seen),
+                              daemon=True)
+    t_run = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    poller.start()
+    try:
+        out, err = proc.communicate(timeout=450)
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        poller.join()
+    run_s = time.perf_counter() - t_run
+    check(proc.returncode == 0, f"monitor_lab: launcher exit {proc.returncode}\n"
+          f"stdout:\n{out[-3000:]}\nstderr:\n{err[-3000:]}")
+    scrapes, alerts = _monitor_summary(err)
+    rep_rc, rep = _monitor_report(env, root, tel)
+    with open(record) as f:
+        pub = json.load(f)
+    trail = []
+    with open(os.path.join(tel, f"telemetry-{job}-r0.events.jsonl")) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("event") == "conv" and ev.get("win") == "params":
+                trail.append([ev["round"], ev["err"]])
+    left = _job_segments(job)
+    row = {"phase": "monitor_lab", "run": "clean", "launcher_seconds": run_s,
+           "numel": pub["numel"], "rank0_device": pub["device"],
+           "scrapes": scrapes, "scrape_interval_s": float(env["BFTPU_MON_SCRAPE_S"]),
+           "alert_windows": alerts, "exports": seen["exports"],
+           "export_schemas": sorted(s for s in seen["schemas"] if s),
+           "export_series": sorted(seen["series"]), "export_bytes": seen["bytes"],
+           "report_rc": rep_rc, "report_windows": rep.get("total_windows"),
+           "conv_err_trail": trail, "segments_left": left}
+    emit(row)
+    check(pub["device"].startswith(device), f"monitor_lab: rank 0 not on {device}: {row}")
+    check(scrapes >= 1 and alerts == 0, f"monitor_lab: {scrapes} scrapes, {alerts} alert "
+          f"windows on a clean run: {rep.get('windows')}")
+    check(row["export_schemas"] == ["bftpu-monitor/1"], f"monitor_lab: export {row}")
+    check("serve_lag" in seen["series"] and any(x.startswith("conv_") for x in seen["series"]),
+          f"monitor_lab: the export lacks serve_lag or the conv series: {row['export_series']}")
+    check(rep_rc == 0 and rep.get("unattributed") == 0, f"monitor_lab: --report {rep_rc}: {rep}")
+    check(trail and all(math.isfinite(e) for _, e in trail),
+          f"monitor_lab: no lab.conv_err trail of rank 0's card window: {trail}")
+    check(not left, f"monitor_lab: segments left: {left}")
+    return row
+
+
+def _monitored_kill_run(root, device="cuda"):
+    """(b): a SIGKILLed rank under the monitor; the survivors heal and
+    the report explains every alert window."""
+    work = tempfile.mkdtemp(prefix="bftpu_smoke_kill_")
+    tel = os.path.join(work, "tel")
+    os.makedirs(tel)
+    job = f"smokekill{os.getpid()}"
+    # the launcher gives the survivors BFTPU_LAUNCH_GRACE_S after the kill
+    # to heal, gossip and hold before it tears them down
+    env = dict(os.environ, BFTPU_TELEMETRY=tel, BFTPU_MON_SCRAPE_S="0.1",
+               BFTPU_FAILURE_TIMEOUT_S="1.0", BFTPU_LAUNCH_GRACE_S="30",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    from bluefog_tpu_torch.resilience import chaos
+
+    chaos.schedule_kill(env, rank=MONITOR_KILL_VICTIM, step=MONITOR_KILL_ROUND)
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.run.launcher", "--islands", "4",
+           "--monitor", "--job", job, "--timeout", "300", "--",
+           sys.executable, "-m", "bluefog_tpu_torch.examples.chaos_heal", "--device", device]
+    t_run = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=360)
+    run_s = time.perf_counter() - t_run
+    survivors = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            d = json.loads(line)
+            survivors[d["rank"]] = d
+    scrapes, alerts = _monitor_summary(proc.stderr)
+    rep_rc, rep = _monitor_report(env, root, tel)
+    rules = sorted({w["rule"] for w in rep.get("windows", ())})
+    kinds = sorted({c["kind"] for w in rep.get("windows", ()) for c in w["causes"]})
+    row = {"phase": "monitor_lab", "run": "kill", "launcher_seconds": run_s,
+           "launcher_rc": proc.returncode, "victim": MONITOR_KILL_VICTIM,
+           "survivors": survivors, "scrapes": scrapes, "alert_windows": alerts,
+           "report_rc": rep_rc, "report_rules": rules, "cause_kinds": kinds,
+           "unattributed": rep.get("unattributed"),
+           "windows": [{k: w[k] for k in ("rule", "subject", "duration_s", "worst")}
+                       for w in rep.get("windows", ())],
+           "segments_left": _job_segments(job)}
+    emit(row)
+    check(sorted(survivors) == [r for r in range(4) if r != MONITOR_KILL_VICTIM]
+          and all(d["healed"] and d["dead"] == [MONITOR_KILL_VICTIM] and d["healed_size"] == 3
+                  and d["row_err"] < 1e-9 and d["col_err"] < 1e-9
+                  for d in survivors.values()),
+          f"monitor_lab: the survivors did not heal: {proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(survivors[0]["device"].startswith(device), f"monitor_lab: rank 0 not on {device}")
+    check(rep_rc == 0 and rep.get("unattributed") == 0 and alerts >= 1,
+          f"monitor_lab: --report {rep_rc} after the kill: {rep}")
+    check(set(rules) == MONITOR_KILL_ALERTS and {"death_declared", "heal"} <= set(kinds),
+          f"monitor_lab: alert windows {rules} (causes {kinds}), want {MONITOR_KILL_ALERTS}")
+    check(not row["segments_left"], f"monitor_lab: segments left: {row['segments_left']}")
+    return row
+
+
+def phase_monitor_lab(torch):
+    """The fleet monitor, the convergence probe and the simulator on the
+    card's host, rank 0's windows on the card."""
+    from bluefog_tpu_torch.benchmarks import gossip_bandwidth
+    from bluefog_tpu_torch.sim import SimConfig, run_campaign
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    _monitored_clean_run(root)
+    _monitored_kill_run(root)
+    over = {"monitor": gossip_bandwidth.measure_monitor_overhead(
+                repeats=MONITOR_OVERHEAD_REPEATS, device="cuda"),
+            "lab_probe": gossip_bandwidth.measure_lab_probe_overhead(
+                repeats=MONITOR_OVERHEAD_REPEATS, device="cuda")}
+    emit({"phase": "monitor_lab", "overheads": over})
+    for name, o in over.items():
+        check(all(math.isfinite(o[k]) for k in ("value", "round_off_us", "round_on_us")),
+              f"monitor_lab: {name} overhead {o}")
+    cfg = SimConfig(ranks=256, rounds=50, seed=7, quiesce_rounds=40)
+    runs, secs = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        runs.append(run_campaign(cfg))
+        secs.append(time.perf_counter() - t)
+    a, b = runs
+    emit({"phase": "monitor_lab", "sim_256": {
+              "seconds": secs, "digest": a.digest, "reference_digest": SIM_256_DIGEST,
+              "events": len(a.event_log), "ok": a.ok, "violations": len(a.violations),
+              "ledger_balanced": a.final["ledger"]["balanced"]},
+          "phase_seconds": time.perf_counter() - t0})
+    check(a.digest == b.digest and a.event_log == b.event_log,
+          f"monitor_lab: the 256-rank campaign does not replay: {a.digest} {b.digest}")
+    check(a.ok and a.final["ledger"]["balanced"], f"monitor_lab: {a.violations[:3]}")
+    check(a.digest == SIM_256_DIGEST,
+          f"monitor_lab: digest {a.digest}, the reference simulator's is {SIM_256_DIGEST}")
+
 def main():
     import concurrent.futures
 
@@ -2940,6 +3176,7 @@ def main():
     phase_bf16_window(torch)
     phase_launcher_serving(torch)
     phase_recovery(torch)
+    phase_monitor_lab(torch)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",

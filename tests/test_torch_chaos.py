@@ -1,8 +1,7 @@
 """Port twin of ``tests/test_resilience.py`` (chaos, healing and the
 launcher e2e cases) against ``bluefog_tpu_torch``.  The cases that need a
-module the port does not have yet (the analysis rule families, the
-networkx corpus, ``windows.degraded_update_weights`` of the JAX package)
-wait for ROADMAP A8.
+module the port does not have yet (the plan and resilience rule families,
+the networkx corpus) wait for ROADMAP A8.
 
 Resilience subsystem: failure detection, topology healing, degraded
 gossip, and fault-injected end-to-end runs (docs/RESILIENCE.md).
@@ -896,3 +895,36 @@ def test_chaos_env_written_by_one_package_drives_the_other(monkeypatch):
     payload = chaos.schedule_to_json()
     assert chaos.apply_schedule_json(payload, {}) == \
         ref_chaos.apply_schedule_json(payload, {})
+
+
+def test_degraded_update_weights_absorb_conserves_rows():
+    """The SPMD degraded-combine helper: dead in-neighbors are dropped and
+    their compiled weight is ABSORBED into self, so every row total is
+    bit-identical to the healthy plan's (convexity and push-sum mass
+    conservation survive the excision)."""
+    from bluefog_tpu_torch.core.plan import compile_plan
+    from bluefog_tpu_torch.windows import degraded_update_weights
+
+    plan = compile_plan(topology_util.ExponentialTwoGraph(8))
+    W = plan.mixing_matrix()
+    sw, nw = degraded_update_weights(plan, dead=[3, 6])
+    for d in range(8):
+        assert sw[d] + sum(nw[d].values()) == pytest.approx(
+            W[d].sum(), abs=1e-15)
+        if d not in (3, 6):
+            assert not {3, 6} & set(nw[d])
+
+
+def test_grow_after_heal_splices_into_survivor_topology():
+    """Shrink (heal) then grow: the corpse stays excised, the joiner is
+    spliced in, and the grown plan is doubly stochastic (the relabel the
+    reference spells ``nx.relabel_nodes(..., copy=True)``)."""
+    healed = healing.heal_topology(topology_util.StarGraph(6), dead=[0])
+    Gg = topology_util.relabel_nodes(healed.topology,
+                                     dict(enumerate(healed.to_global)), copy=True)
+    grown = healing.grow_topology(Gg, [6])
+    assert 0 not in grown.to_global
+    assert grown.to_global == (1, 2, 3, 4, 5, 6)
+    assert grown.joined == (6,)
+    row, col = grown.plan.stochasticity_error()
+    assert row < 1e-9 and col < 1e-9

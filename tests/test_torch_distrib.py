@@ -1,6 +1,6 @@
 """Port twin of ``tests/test_distrib.py``: the same cases against
-``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``).
-The simulator cases wait for ROADMAP A7.4.
+``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``),
+the simulator cases included.
 
 Snapshot distribution plane: delta-encoded fan-out trees feeding
 cross-host replica fleets (docs/SERVING.md).
@@ -630,3 +630,110 @@ def test_distrib_relay_sigkill_e2e(monkeypatch):
             victim.terminate()
         pub.close()
         chaos.clear_schedule()
+
+
+# ---------------------------------------------------------------------------
+# the reference's simulator cases (sim campaigns, no subprocesses unless
+# marked; virtual clock)
+# ---------------------------------------------------------------------------
+
+
+def test_sim_distrib_off_emits_no_distrib_events():
+    """distrib_fanout=0 (the default) is digest-neutral: zero distrib
+    events, so every pinned pre-distrib campaign replays unchanged."""
+    from bluefog_tpu_torch.analysis.serve_rules import serve_campaign
+
+    _c, _s, res = serve_campaign(16, 24, 3)
+    assert res.violations == []
+    assert not any(e[1].startswith("distrib") for e in res.event_log)
+    assert "distrib" not in res.final.get("serve", {})
+
+
+def test_sim_distrib_clean_campaign_converges_through_the_tree():
+    from bluefog_tpu_torch.analysis.distrib_rules import (_distrib_path_findings,
+                                                    distrib_campaign)
+    from bluefog_tpu_torch.analysis.sim_rules import campaign_findings
+
+    _c, _s, res = distrib_campaign(16, 24, 3)
+    assert res.violations == []
+    assert campaign_findings(res, "t") == []
+    assert _distrib_path_findings(res, "t") == []
+    d = res.final["serve"]["distrib"]
+    assert d["fanout"] == 4 and d["depth"] >= 1
+    assert dt.tree_valid({int(k): v for k, v in d["parents"].items()},
+                         d["fanout"]) is None
+
+
+def test_sim_distrib_relay_kill_reparents_and_replays():
+    from bluefog_tpu_torch.analysis.distrib_rules import distrib_campaign
+    from bluefog_tpu_torch.sim.campaign import run_campaign
+
+    sched = FaultSchedule([Fault(kind="serve_kill", step=2, rank=0,
+                                 stop=16)])
+    cfg, _s, res = distrib_campaign(16, 24, 3, schedule=sched)
+    assert res.violations == []
+    kinds = [e[1] for e in res.event_log]
+    assert "distrib_reparent" in kinds
+    assert res.final["serve"]["distrib"]["reparents"] >= 1
+    again = run_campaign(cfg, sched)
+    assert again.digest == res.digest
+    assert again.event_log == res.event_log
+
+
+def test_sim_distrib_join_storm_lands_as_leaves():
+    from bluefog_tpu_torch.analysis.distrib_rules import distrib_campaign
+
+    _c, _s, res = distrib_campaign(16, 32, 3, distrib_join_round=8,
+                                   distrib_join_n=4)
+    assert res.violations == []
+    joins = [e for e in res.event_log if e[1] == "distrib_join"]
+    assert len(joins) == 4
+    d = res.final["serve"]["distrib"]
+    assert d["joins"] == 4
+    parents = {int(k): v for k, v in d["parents"].items()}
+    assert len(parents) == 12  # 8 seed replicas + 4 joiners
+    assert dt.tree_valid(parents, d["fanout"]) is None
+    assert all(r["version"] == res.final["serve"]["published"]
+               for r in res.final["serve"]["replicas"].values())
+
+
+def test_sim_seeded_distrib_bugs_are_caught():
+    """The two standing distrib invariants fire on their seeded bugs
+    and on nothing else: uncapped repair trips tree-validity, a dead
+    relay never repaired trips the staleness SLO."""
+    from bluefog_tpu_torch.analysis.distrib_rules import distrib_campaign
+
+    sched = FaultSchedule([Fault(kind="serve_kill", step=2, rank=1)])
+    _c, _s, res = distrib_campaign(
+        16, 24, 3, schedule=sched, serve_replicas=13, distrib_fanout=3,
+        distrib_slo=0, debug_bugs=("distrib_degree_overflow",))
+    assert {v["name"] for v in res.violations} == {"distrib-tree"}
+
+    sched = FaultSchedule([Fault(kind="serve_kill", step=2, rank=0)])
+    _c, _s, res = distrib_campaign(
+        16, 40, 3, schedule=sched, distrib_slo=4,
+        debug_bugs=("distrib_stall",))
+    assert {v["name"] for v in res.violations} == {"distrib-staleness"}
+
+
+def test_sim_distrib_64rank_storm_campaign_replays():
+    """The acceptance campaign: >= 64 ranks, interior relay kills AND
+    a join storm mid-rollout — invariants silent after every event,
+    bit-identical replay."""
+    from bluefog_tpu_torch.analysis.distrib_rules import (_distrib_path_findings,
+                                                    _storm_schedule,
+                                                    distrib_campaign)
+    from bluefog_tpu_torch.analysis.sim_rules import campaign_findings
+    from bluefog_tpu_torch.sim.campaign import run_campaign
+
+    sched = _storm_schedule(40, 11)
+    cfg, _s, res = distrib_campaign(64, 40, 11, schedule=sched,
+                                    distrib_join_round=12,
+                                    distrib_join_n=4)
+    assert res.violations == []
+    assert campaign_findings(res, "storm") == []
+    assert _distrib_path_findings(res, "storm", expect_reparents=1,
+                                  expect_joins=4) == []
+    again = run_campaign(cfg, sched)
+    assert again.digest == res.digest
+

@@ -1,7 +1,7 @@
 """Port twin of ``tests/test_introspect.py``: the same cases against
-``bluefog_tpu_torch``.  The cases that need a module the port does not have yet (the
-simulator, the analysis rule families other than ``trace_rules``, the
-networkx corpus) wait for ROADMAP A7.4 and A8.
+``bluefog_tpu_torch``.  The cases that need a module the port does not have yet
+(the adaptive, plan and introspect rule families, the fixture corpus, the
+networkx corpus) wait for ROADMAP A8.
 
 Live introspection plane (docs/OBSERVABILITY.md "Live introspection").
 

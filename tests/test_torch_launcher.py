@@ -12,7 +12,9 @@ the port's async example and ``--timeout`` over hung islands.  The
 reference's fake-ssh case is left out: an islands rank on a second host
 advertises that host's name to its TCP peers, and the shim's made-up
 host name would have to be resolved.  ``--serve-replicas`` drives
-``examples/serve_islands`` end to end on the CPU.
+``examples/serve_islands`` end to end on the CPU, and so do ``--monitor
+--lab-probe``; ``--attach JOB monitor`` reads a monitor store as the
+reference's attach does.
 """
 
 import argparse
@@ -110,11 +112,13 @@ def test_build_env_flags():
     assert env["BLUEFOG_TIMELINE"] == "/tmp/t.json"
 
 
-@pytest.mark.parametrize("flag,item", [("monitor", "A7.3"),
-                                       ("lab_probe", "A7.5")])
-def test_build_env_unported_planes_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_env(_args(**{flag: True}), base_env={})
+@pytest.mark.parametrize("flag,key", [("monitor", "BFTPU_MONITOR"),
+                                      ("lab_probe", "BFTPU_LAB_PROBE")])
+def test_build_env_planes_match_reference(flag, key):
+    base = {"PATH": "/bin"}
+    got = build_env(_args(**{flag: True}), base_env=base)
+    assert got == _port_view(ref.build_env(_args(**{flag: True}), base_env=base))
+    assert got[key] == "1"
 
 
 def test_env_whitelist_matches_reference_apart_from_jax_env():
@@ -214,10 +218,55 @@ def test_parser_errors(argv, needle):
     assert needle in proc.stderr
 
 
-def test_monitor_raises_naming_its_plane():
-    proc = _run(["--islands", "2", "--monitor", "--", "true"], timeout=60)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "A7.3" in proc.stderr
+def test_monitor_and_lab_probe_islands_run_is_clean(tmp_path):
+    """``--islands 2 --monitor --lab-probe`` over the serving example on
+    the CPU (no replica, the fleet held up after its last version): exit
+    0, the daemon scraped and raised no alert, ``--report`` exits 0, and
+    both ranks journaled the probe's trail."""
+    tel = tmp_path / "tel"
+    tel.mkdir()
+    job = f"tlmon{os.getpid()}"
+    env = dict(os.environ, BFTPU_TELEMETRY=str(tel), BFTPU_MON_SCRAPE_S="0.1")
+    proc = _run(["--islands", "2", "--monitor", "--lab-probe", "--job", job, "--",
+                 sys.executable, "-m", "bluefog_tpu_torch.examples.serve_islands",
+                 "--device", "cpu", "--model", "lenet5", "--versions", "2",
+                 "--hold", "10"],  # the daemon's start (torch's import) may take seconds
+                timeout=300, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert " 0 alert window(s)" in proc.stderr, proc.stderr
+    rep = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.monitor", "--report",
+                          str(tel)], capture_output=True, text=True, timeout=120,
+                         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    assert rep.returncode == 0, rep.stdout + rep.stderr
+    for rank in (0, 1):
+        with open(tel / f"telemetry-{job}-r{rank}.events.jsonl") as f:
+            conv = [json.loads(line) for line in f if '"conv"' in line]
+        assert [e["round"] for e in conv] == list(range(2, 7)), rank
+    assert not glob.glob(f"/dev/shm/bf_{job}_*")
+
+
+def test_attach_monitor_export_reads_the_store_as_the_reference(tmp_path,
+                                                               monkeypatch, capsys):
+    """``--attach JOB monitor --export`` prints the job's monitor store;
+    over the same store it prints what the reference's attach prints."""
+    from bluefog_tpu.native import shm_native as ref_shm
+    from bluefog_tpu_torch.monitor import store as mstore
+    from bluefog_tpu_torch.native import shm_native
+
+    monkeypatch.setattr(shm_native, "_FALLBACK_DIR", str(tmp_path))
+    monkeypatch.setattr(ref_shm, "_FALLBACK_DIR", str(tmp_path))
+    st = mstore.MonitorStore("attj", create=True, nslots=8, cap_raw=16)
+    for i in range(12):
+        st.append("dead_edges", "fleet", 5.0 + i, float(i % 2))
+    st.close()
+    outs = []
+    for attach in (launcher.attach_main, ref.attach_main):
+        assert attach("attj", ["monitor", "--export"]) == 0
+        outs.append(json.loads(capsys.readouterr().out))
+    assert outs[0] == outs[1]
+    assert outs[0]["schema"] == "bftpu-monitor/1"
+    assert [s["series"] for s in outs[0]["series"]] == ["dead_edges"]
+    mstore.MonitorStore("attj").close(unlink=True)
 
 
 # ---------------------------------------------------------------------------

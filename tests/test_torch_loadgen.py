@@ -1,7 +1,8 @@
 """Port twin of ``tests/test_loadgen.py``: the same cases against
-``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``).
-The simulator cases (campaigns, the trace latency table) wait for ROADMAP
-A7.4.
+``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``),
+the simulator cases (campaigns, the trace latency table) included.
+``test_bench_r10_serve_load_gates_frozen`` has no twin: it reads the JAX
+package's frozen bench record, not code of the port.
 
 Serve traffic observatory (docs/SERVING.md "Measuring serve latency
 under churn").
@@ -54,6 +55,8 @@ from bluefog_tpu_torch.resilience import chaos
 from bluefog_tpu_torch.serve import Replica, SnapshotRegion
 from bluefog_tpu_torch.serve.loadgen import (LoadGenerator, SLOMonitor,
                                        arrival_times)
+from bluefog_tpu_torch.sim import SimConfig, run_campaign
+from bluefog_tpu_torch.sim.latency import EmpiricalLatency, load_trace_latency
 from bluefog_tpu_torch.sim.schedule import Fault, FaultSchedule
 from bluefog_tpu_torch.telemetry import merge as tmerge
 
@@ -483,3 +486,131 @@ def test_loadgen_chaos_e2e(tmp_path, monkeypatch):
     wide = tmerge.slo_report([tdir], margin_s=6.0)
     assert any(c["kind"] == "serve_respawn" for w in wide["windows"]
                if w["replica"] == 1 for c in w["causes"])
+
+
+# ---------------------------------------------------------------------------
+# the reference's simulator cases (sim campaigns, no subprocesses unless
+# marked; virtual clock)
+# ---------------------------------------------------------------------------
+
+
+def test_trace_latency_table_roundtrip(tmp_path):
+    report = {"stragglers": {"edge_latency": {
+        "0->1": {"n": 64, "p50_us": 500.0, "p99_us": 2000.0},
+        "1->0": {"n": 64, "p50_us": 900.0, "p99_us": 900.0},
+    }}}
+    path = tmp_path / "crit.json"
+    path.write_text(json.dumps(report))
+    rows = load_trace_latency(str(path))
+    assert rows == (("0->1", 500e-6, 2000e-6), ("1->0", 900e-6, 900e-6))
+    lat = EmpiricalLatency(rows)
+    assert len(lat) == 2
+    # the measured anchors round-trip exactly through the inverse CDF
+    assert lat.quantile(0, 1, 0.5) == pytest.approx(500e-6, abs=1e-12)
+    assert lat.quantile(0, 1, 0.99) == pytest.approx(2000e-6, abs=1e-12)
+    assert lat.quantile(0, 1, 0.0) == pytest.approx(250e-6, abs=1e-12)
+    assert lat.quantile(0, 1, 1.0) == pytest.approx(2000e-6, abs=1e-12)
+    # quantiles are monotone; a degenerate edge's tail segment is flat
+    qs = [lat.quantile(0, 1, q / 100.0) for q in range(101)]
+    assert qs == sorted(qs)
+    assert (lat.quantile(1, 0, 0.5) == lat.quantile(1, 0, 0.99)
+            == pytest.approx(900e-6, abs=1e-12))
+    # an edge the trace never saw draws from the pooled fallback
+    assert lat.quantile(5, 6, 0.5) in (500e-6, 900e-6)
+    # sample() consumes exactly ONE rng.random() per draw — armed
+    # tables stay stream-compatible with the uniform path they replace
+    r1, r2 = random.Random(11), random.Random(11)
+    draws = [lat.sample(0, 1, r1) for _ in range(50)]
+    assert draws == [lat.quantile(0, 1, r2.random()) for _ in range(50)]
+    # accepted equivalents: the stragglers sub-object and the bare map
+    bare = tmp_path / "bare.json"
+    bare.write_text(json.dumps(report["stragglers"]["edge_latency"]))
+    assert load_trace_latency(str(bare)) == rows
+    broken = tmp_path / "broken.json"
+    broken.write_text(json.dumps({"edge_latency": {"0->1": {"n": 1}}}))
+    with pytest.raises(ValueError, match="p50_us"):
+        load_trace_latency(str(broken))
+
+
+def test_sim_cli_latency_from_trace(tmp_path):
+    report = {"edge_latency": {
+        "0->1": {"n": 8, "p50_us": 300.0, "p99_us": 1200.0}}}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(report))
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.sim", "--ranks", "8",
+           "--rounds", "10", "--seed", "3",
+           "--latency-from-trace", str(path)]
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r1 = subprocess.run(cmd, capture_output=True, text=True, env=env)
+    r2 = subprocess.run(cmd, capture_output=True, text=True, env=env)
+    assert r1.returncode == 0, r1.stdout + r1.stderr
+    assert "latency fitted to 1 traced edge" in r1.stdout
+    assert r1.stdout == r2.stdout         # fitted campaigns stay pinned
+    bad = tmp_path / "bad.json"
+    bad.write_text("{}")
+    r3 = subprocess.run(cmd[:-1] + [str(bad)], capture_output=True,
+                        text=True, env=env)
+    assert r3.returncode != 0
+    assert "edge_latency" in r3.stderr
+
+
+_SIM_KW = dict(ranks=8, rounds=16, seed=3, quiesce_rounds=10,
+               serve_every=4, serve_replicas=2)
+
+
+def test_sim_arrivals_off_is_event_neutral():
+    res1 = run_campaign(SimConfig(**_SIM_KW))
+    res2 = run_campaign(SimConfig(**_SIM_KW))
+    assert res1.ok and res1.digest == res2.digest
+    assert not any(e[1] == "serve_requests" for e in res1.event_log)
+    assert "arrivals" not in res1.final
+
+
+def test_sim_arrivals_deterministic_and_accounted():
+    cfg = SimConfig(arrivals="poisson", arrival_rate=3.0, **_SIM_KW)
+    res1 = run_campaign(cfg)
+    res2 = run_campaign(cfg)
+    assert res1.ok, res1.violations
+    assert res1.digest == res2.digest      # bit-identical same-seed
+    arr = res1.final["arrivals"]
+    assert arr["process"] == "poisson" and arr["rate"] == 3.0
+    assert arr["admitted"] == arr["served"] > 0
+    assert arr["violations"] == 0
+    assert res1.summary()["arrivals"] == arr
+    assert any(e[1] == "serve_requests" for e in res1.event_log)
+    # fixed arrivals are a distinct pinned schedule
+    res3 = run_campaign(SimConfig(arrivals="fixed", arrival_rate=3.0,
+                                  **_SIM_KW))
+    assert res3.ok and res3.digest != res1.digest
+
+
+def test_sim_arrivals_replica_kill_is_excused():
+    cfg = SimConfig(ranks=16, rounds=24, seed=3, quiesce_rounds=12,
+                    serve_every=4, serve_replicas=4,
+                    arrivals="poisson", arrival_rate=3.0)
+    sched = FaultSchedule([Fault(kind="serve_kill", step=2, rank=1,
+                                 stop=18)])
+    res = run_campaign(cfg, sched)
+    assert res.ok, res.violations
+    arr = res.final["arrivals"]
+    # the killed replica's queued backlog missed its SLO — every one of
+    # those requests is excused by the kill's fault window, none leaks
+    # into a violation
+    assert arr["attributed"] > 0
+    assert arr["served"] <= arr["admitted"]
+    assert arr["violations"] == 0
+    assert arr["windows"] > 0
+
+
+@pytest.mark.parametrize("bug,invariant", [
+    ("slo_silent_violation", "request-slo"),
+    ("loadgen_omission", "open-loop"),
+])
+def test_sim_seeded_traffic_bugs_caught(bug, invariant):
+    cfg = SimConfig(arrivals="poisson", arrival_rate=3.0,
+                    debug_bugs=(bug,), **_SIM_KW)
+    res = run_campaign(cfg)
+    assert not res.ok
+    names = {v["name"] for v in res.violations}
+    assert invariant in names, names
+

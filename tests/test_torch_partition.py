@@ -1,7 +1,5 @@
 """Port twin of ``tests/test_partition.py``: the same cases against
-``bluefog_tpu_torch``.  The cases that need a module the port does not have yet (the
-simulator, the analysis rule families other than ``trace_rules``, the
-networkx corpus) wait for ROADMAP A7.4 and A8.
+``bluefog_tpu_torch``, the simulator cases included.
 
 Partition-tolerant membership: quorum fence, ORPHAN quiesce, and
 TCP session resume (docs/RESILIENCE.md "Orphan quiesce").
@@ -490,3 +488,77 @@ def test_tcp_session_resume_mid_chunk_stream(monkeypatch, tmp_path):
     # are the deposit (a double-commit would accumulate/double)
     assert (p0, intact0) == (0.5, True), (p0, intact0)
     assert (p1, intact1) == (0.25, True), (p1, intact1)
+
+
+# ---------------------------------------------------------------------------
+# the reference's simulator cases (sim campaigns, no subprocesses unless
+# marked; virtual clock)
+# ---------------------------------------------------------------------------
+
+
+def test_sim_partition_orphans_minority_and_merges():
+    from bluefog_tpu_torch.analysis.partition_rules import (_path_findings,
+                                                      partition_campaign)
+    from bluefog_tpu_torch.analysis.sim_rules import campaign_findings
+
+    _cfg, _sched, res = partition_campaign(8, 30, 5, (6, 7))
+    assert res.violations == []
+    kinds = [e[1] for e in res.event_log]
+    assert kinds.count("orphan") == 2
+    assert kinds.count("merge_enter") == 2
+    assert (res.final.get("ledger") or {}).get("balanced")
+    assert campaign_findings(res, "t") == []
+    assert _path_findings(res, "t", 2) == []
+
+
+def test_sim_partition_campaign_bit_identical_n64():
+    """The acceptance-scale determinism pin: the same seed replays the
+    same 64-rank partition campaign event for event."""
+    from bluefog_tpu_torch.analysis.partition_rules import partition_campaign
+    from bluefog_tpu_torch.sim.campaign import run_campaign
+
+    cfg, sched, res = partition_campaign(64, 40, 7, (9, 23, 55),
+                                         quiesce_rounds=60)
+    assert res.violations == []
+    again = run_campaign(cfg, sched)
+    assert again.digest == res.digest
+    assert again.event_log == res.event_log
+
+
+def test_sim_split_brain_caught_and_shrinks_to_partition_alone():
+    """``--debug-bug split_brain`` skips the fence: both sides heal,
+    the single-lineage standing invariant fires, and ddmin shrinks a
+    noisy schedule back to the partition fault alone."""
+    from bluefog_tpu_torch.analysis.partition_rules import partition_campaign
+    from bluefog_tpu_torch.sim.campaign import run_campaign, shrink_schedule
+
+    cfg, sched, res = partition_campaign(16, 30, 3, (6, 11),
+                                         debug_bugs=("split_brain",))
+    names = {v["name"] for v in res.violations}
+    assert "single-lineage" in names, names
+    # same-seed replay reproduces the violation bit-identically
+    again = run_campaign(cfg, sched)
+    assert again.digest == res.digest
+    # ddmin: kill + slow noise shrinks away, the partition cut remains
+    noisy = FaultSchedule(
+        list(sched.faults)
+        + [Fault(kind="kill", step=3, rank=1),
+           Fault(kind="slow", step=4, rank=2, duration_s=0.9, stop=12)],
+        seed=cfg.seed)
+    minimal, viol, _runs = shrink_schedule(cfg, noisy,
+                                           target="single-lineage")
+    assert viol is not None and viol["name"] == "single-lineage"
+    assert [f.kind for f in minimal] == ["partition"]
+
+
+def test_sim_quorum_off_restores_split_brain():
+    """``BFTPU_SIM_QUORUM=off`` (cfg.quorum="off") is the pre-quorum
+    behavior: both partition sides heal, and the single-lineage
+    invariant duly reports the fork — off really means unfenced."""
+    from bluefog_tpu_torch.analysis.partition_rules import partition_campaign
+
+    _cfg, _sched, res = partition_campaign(8, 30, 5, (6, 7),
+                                           quorum="off")
+    names = {v["name"] for v in res.violations}
+    assert "single-lineage" in names, names
+

@@ -92,6 +92,35 @@ def test_digraph_connectivity_and_relabel_match_networkx(seed):
         nx.is_strongly_connected(nx.DiGraph())
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_relabel_nodes_copy_keyword_matches_networkx(seed):
+    """``relabel_nodes(G, m, copy=True)``, the spelling the simulator's
+    fleet uses when it grants a join, against networkx: nodes, edges and
+    edge attributes in order, partial mappings included; ``copy=False``
+    is refused rather than half-supported."""
+    for n, edges in _random_digraphs(seed=seed):
+        g, h = ttu.DiGraph(), nx.DiGraph()
+        g.add_nodes_from(range(n))
+        h.add_nodes_from(range(n))
+        for u, v in edges:
+            g.add_edge(u, v, weight=u + 0.5 * v, tag=(u, v))
+            h.add_edge(u, v, weight=u + 0.5 * v, tag=(u, v))
+        g.graph["weighted"] = h.graph["weighted"] = True
+        for mapping in ({v: (v * 3 + 1) % (n + 5) for v in range(n)},
+                        {v: n + 10 + v for v in range(0, n, 2)},
+                        {v: n - 1 - v for v in range(n)}):
+            if len(set(mapping.get(v, v) for v in range(n))) != n:
+                continue
+            gr = ttu.relabel_nodes(g, mapping, copy=True)
+            hr = nx.relabel_nodes(h, mapping, copy=True)
+            assert list(gr.nodes) == list(hr.nodes)
+            assert gr.edges(data=True) == list(hr.edges(data=True))
+            assert dict(gr.graph) == dict(hr.graph)
+            assert list(g.nodes) == list(range(n))  # the source is untouched
+    with pytest.raises(ValueError, match="copy=True"):
+        ttu.relabel_nodes(ttu.DiGraph(), {}, copy=False)
+
+
 @pytest.mark.parametrize("graph,n", GRAPHS)
 def test_heal_grow_demote_match_reference(graph, n):
     tg, jg = getattr(ttu, graph)(n), getattr(jtu, graph)(n)

@@ -1,6 +1,6 @@
 """Port twin of ``tests/test_serve.py``: the same cases against
-``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``).
-The simulator cases wait for ROADMAP A7.4.
+``bluefog_tpu_torch`` (replicas on the CPU through ``BFTPU_SERVE_DEVICE``),
+the simulator cases included.
 
 Serving fleet: fenced weight publication with zero-downtime hot-swap
 (docs/SERVING.md).
@@ -745,3 +745,118 @@ def test_port_publish_is_read_byte_for_byte_by_the_reference_replica(dtype):
             rep.close(unlink=True)
         islands.shutdown(unlink=True)
         shm_native.unlink_all(job)
+
+
+# ---------------------------------------------------------------------------
+# the reference's simulator cases (sim campaigns, no subprocesses unless
+# marked; virtual clock)
+# ---------------------------------------------------------------------------
+
+
+def test_sim_serve_off_emits_no_serve_events():
+    """serve_every=0 (the default) is digest-neutral: zero serve events,
+    so every pinned pre-serve campaign replays unchanged."""
+    from bluefog_tpu_torch.sim.campaign import SimConfig, run_campaign
+
+    res = run_campaign(SimConfig(ranks=8, rounds=20, seed=3),
+                       FaultSchedule())
+    assert not any(e[1].startswith("serve") for e in res.event_log)
+    assert "serve" not in res.final
+
+
+def test_sim_serve_clean_campaign_publishes_and_converges():
+    from bluefog_tpu_torch.analysis.serve_rules import (_publish_versions,
+                                                  _serve_path_findings,
+                                                  serve_campaign)
+    from bluefog_tpu_torch.analysis.sim_rules import campaign_findings
+
+    _cfg, _sched, res = serve_campaign(16, 24, 3)
+    assert res.violations == []
+    vers = _publish_versions(res)
+    assert len(vers) >= 3 and vers == sorted(set(vers))
+    assert campaign_findings(res, "t") == []
+    assert _serve_path_findings(res, "t") == []
+    sv = res.final["serve"]
+    assert all(r["version"] == sv["published"] and r["steps"] > 0
+               for r in sv["replicas"].values())
+
+
+def test_sim_serve_replica_kill_rejoin_reconverges_bit_identically():
+    from bluefog_tpu_torch.analysis.serve_rules import (_serve_path_findings,
+                                                  serve_campaign)
+    from bluefog_tpu_torch.sim.campaign import run_campaign
+
+    sched = FaultSchedule([Fault(kind="serve_kill", step=2, rank=0,
+                                 stop=16)])
+    cfg, _s, res = serve_campaign(16, 24, 3, schedule=sched)
+    assert res.violations == []
+    kinds = [e[1] for e in res.event_log]
+    assert "serve_replica_kill" in kinds
+    assert "serve_replica_join" in kinds
+    assert _serve_path_findings(res, "t") == []
+    again = run_campaign(cfg, sched)
+    assert again.digest == res.digest
+    assert again.event_log == res.event_log
+
+
+def test_sim_serve_pub_kill_leaves_versions_gap_free():
+    """Publisher killed mid-payload: the interrupted publish commits
+    NOTHING, the successor continues the sequence — versions 1..n with
+    no gap and no regression; mid-flip commits forward via the repair
+    (exactly one repaired commit)."""
+    from bluefog_tpu_torch.analysis.serve_rules import (_publish_versions,
+                                                  serve_campaign)
+
+    sched = FaultSchedule([Fault(kind="serve_pub_kill", step=2, rank=-1,
+                                 group="payload")])
+    _c, _s, res = serve_campaign(16, 24, 3, schedule=sched)
+    assert res.violations == []
+    vers = _publish_versions(res)
+    assert vers == list(range(1, len(vers) + 1)) and len(vers) >= 3
+    assert [e[1] for e in res.event_log].count("serve_pub_kill") == 1
+
+    sched = FaultSchedule([Fault(kind="serve_pub_kill", step=2, rank=-1,
+                                 group="flip")])
+    _c, _s, res = serve_campaign(16, 24, 3, schedule=sched)
+    assert res.violations == []
+    repaired = [e for e in res.event_log if e[1] == "serve_publish"
+                and dict(e[3]).get("repaired")]
+    assert len(repaired) == 1
+
+
+def test_sim_seeded_serve_bugs_are_caught():
+    """The two standing serve invariants fire on their seeded bugs:
+    a publisher handoff restarting at version 1 trips serve-monotone,
+    a swap that mixes two buffer generations trips serve-committed."""
+    from bluefog_tpu_torch.analysis.serve_rules import serve_campaign
+
+    _c, _s, res = serve_campaign(16, 24, 3,
+                                 debug_bugs=("serve_version_reset",))
+    assert "serve-monotone" in {v["name"] for v in res.violations}
+
+    _c, _s, res = serve_campaign(16, 24, 3, debug_bugs=("serve_torn",))
+    assert "serve-committed" in {v["name"] for v in res.violations}
+
+
+def test_sim_orphaned_publisher_is_fenced():
+    """A partition's minority-side publisher is fenced (never
+    publishes): the quorum gate at the publish boundary is the same
+    production arithmetic the heal uses."""
+    from bluefog_tpu_torch.analysis.serve_rules import serve_campaign
+
+    sched = FaultSchedule([Fault.partition([(0, 1, 2)], 5, 14)], seed=3)
+    _c, _s, res = serve_campaign(8, 24, 3, schedule=sched,
+                                 serve_every=1, serve_replicas=1,
+                                 quiesce_rounds=30)
+    assert res.violations == []
+    fenced = [e for e in res.event_log if e[1] == "serve_fenced"]
+    assert fenced, "the orphaned publisher was never denied"
+    orphan_time = {}
+    for e in res.event_log:
+        if e[1] == "orphan":
+            orphan_time.setdefault(e[2], e[0])
+    for e in res.event_log:
+        if e[1] == "serve_publish" and e[2] in orphan_time:
+            assert e[0] < orphan_time[e[2]], \
+                "an orphaned rank published a snapshot"
+
