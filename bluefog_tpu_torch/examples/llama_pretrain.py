@@ -233,7 +233,10 @@ def run(args: argparse.Namespace,
     ``setup``, where given, is called once before the first step (to
     register hooks, e.g. on the local step): ``setup(params,
     base_optimizer)`` on the data-parallel path, ``setup(model,
-    optimizer)`` under ``--seq-parallel``."""
+    optimizer)`` under ``--seq-parallel``.  On the data-parallel path a
+    context manager that ``setup`` returns is entered around the steps
+    alone (e.g. a ``CollectiveInventory`` that records their rank-axis
+    ops)."""
     cfg = dict(PRESETS[args.preset])
     _check_flags(args, cfg)
     if args.seq_parallel:
@@ -262,13 +265,13 @@ def run(args: argparse.Namespace,
             communication_type=CommunicationType[args.comm],
             plan=bf.context().plan, loss_fn=loss_fn)
 
-        if setup is not None:
-            setup(params, opt)
+        around = setup(params, opt) if setup is not None else None
         rng = np.random.default_rng(args.seed)
         toks = make_streams(rng, cfg["vocab"], n * B * args.steps, T)
         data = torch.from_numpy(toks).view(args.steps, n, B, T).to(dev)
-        timed = _timed_steps(lambda s: step_fn(data[s], data[s])[0], args.steps, dev,
-                             args.profile)
+        with around if around is not None else contextlib.nullcontext():
+            timed = _timed_steps(lambda s: step_fn(data[s], data[s])[0], args.steps,
+                                 dev, args.profile)
         with torch.no_grad():
             spread = max(float(v.float().std(dim=0).max()) for v in params.values())
         out = {

@@ -119,6 +119,17 @@ class DiGraph:
         del self._succ[u][v]
         del self._pred[v][u]
 
+    def copy(self) -> "DiGraph":
+        """An independent copy (``networkx.DiGraph.copy()``): the same
+        nodes and edges in the same order, each attribute dict (and
+        ``graph``) copied shallowly."""
+        H = DiGraph()
+        H.graph.update(self.graph)
+        H.add_nodes_from(self._succ)
+        for u, v, d in self.edges(data=True):
+            H.add_edge(u, v, **d)
+        return H
+
     def subgraph(self, nodes) -> "DiGraph":
         """The induced subgraph on ``nodes`` (a copy; networkx returns a
         view), in this graph's node and edge order."""

@@ -229,16 +229,38 @@ Phases, each printing one JSON line:
                (d) The reference's 256-rank acceptance campaign twice: equal
                digests and event logs, ok, a balanced ledger, and the
                digest the JAX package's simulator gives (SIM_256_DIGEST).
+28. analysis_interactive -- the analysis plane and the interactive island
+               session.  (a) One step of examples/llama_pretrain at the
+               small preset's widths (vocab 32000, hidden 768, 12 layers),
+               4 ranks, batch 2 x 2048, ATC on ExponentialTwoGraph(4) (2
+               shift classes), under the collective inventory
+               (common/collective_inspect.py): exactly classes x leaves
+               collective-permutes, all index_select, and no other
+               rank-axis op; each bf16 flash kernel launches 12 x 4 times.
+               (b) The collective family on cuda: the reference's HLO
+               budgets (exp2 3, ring 2, ring_uni 1, full 7 permutes, the
+               window exchange 3).  (c) The epoch lint over a
+               windows.record_win_ops trace of the reference test's
+               sequence on a cuda window: clean.  (d) python -m
+               bluefog_tpu_torch.analysis --json (every family, the
+               collective one on the card) and --self-test, run beside
+               the other parts: both exit 0, more than 400 subjects, the
+               seconds of each family.  (e) IslandSession(2), rank 0's
+               window on cuda:0: examples/interactive_islands' cells give
+               the reference example's means [0.5, 0.5], a closure ships
+               as source without cloudpickle, an error cell's traceback
+               reaches the caller and no segment is left.
 Phases 8-12, 14 and 18-27 run no kernel of the repo and add no row to the
-kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel
-and zero_8b paths, the f32 rows' the f32_path, seq_parallel and
-tensor_parallel paths.
+kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel,
+zero_8b and analysis_interactive paths, the f32 rows' the f32_path,
+seq_parallel and tensor_parallel paths.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
 failed check raises, so the script exits non-zero and prints no result.
 It needs one CUDA device and exits non-zero without one.
 """
 
+import contextlib
 import gc
 import glob
 import importlib
@@ -246,6 +268,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3128,6 +3151,250 @@ def phase_monitor_lab(torch):
     check(a.digest == SIM_256_DIGEST,
           f"monitor_lab: digest {a.digest}, the reference simulator's is {SIM_256_DIGEST}")
 
+
+# (e): the reference example's per-rank means at 2 ranks after 12 rounds
+# (examples/jax_interactive_islands.py prints them; the CPU test
+# tests/test_torch_interactive_islands.py holds the port's example to them)
+INTERACTIVE_REFERENCE_MEANS = [0.5, 0.5]
+# (d): the reference's CLI gate
+CLI_MIN_SUBJECTS = 400
+
+
+@contextlib.contextmanager
+def _without_cloudpickle():
+    """cloudpickle cannot be imported in this process nor in the processes
+    spawned inside the block (they inherit sys.path, whose first entry
+    then holds a stub that raises)."""
+    stub = tempfile.mkdtemp(prefix="bftpu_nocp_")
+    with open(os.path.join(stub, "cloudpickle.py"), "w") as f:
+        f.write("raise ImportError('cloudpickle is blocked for this run')\n")
+    saved = sys.modules.pop("cloudpickle", None)
+    sys.modules["cloudpickle"] = None
+    sys.path.insert(0, stub)
+    try:
+        yield
+    finally:
+        sys.path.remove(stub)
+        del sys.modules["cloudpickle"]
+        if saved is not None:
+            sys.modules["cloudpickle"] = saved
+        shutil.rmtree(stub, ignore_errors=True)
+
+
+def _session_cells(sess, ex, closure_cell, probe_cell, error_cell):
+    """The example's create / gossip / device / cleanup cells (rank 0's
+    window on cuda:0), a closure, a probe of the workers' modules, then an
+    error cell, on one session."""
+    row = {"starts": sess.run(ex.cell_create, "cuda:0"),
+           "means": sess.run(ex.cell_gossip, ex.ROUNDS),
+           "window_devices": sess.run(ex.cell_device),
+           "closure": sess.run(closure_cell),
+           "freed": sess.run(ex.cell_cleanup),
+           "cloudpickle_loaded": sess.run(probe_cell), "error": None}
+    try:
+        sess.run(error_cell)
+    except RuntimeError as exc:
+        row["error"] = str(exc)
+    err = row["error"] or ""
+    row["error_reached_caller"] = "cell exploded" in err and "Traceback" in err
+    return row
+
+
+def _analysis_cli(root, args, out_dir, tag):
+    """Start ``python -m bluefog_tpu_torch.analysis ARGS`` with its output
+    in files; returns (process, stdout path, stderr path, start time)."""
+    out = os.path.join(out_dir, f"{tag}.out")
+    err = os.path.join(out_dir, f"{tag}.err")
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", "bluefog_tpu_torch.analysis", *args],
+                                cwd=root, stdout=fo, stderr=fe)
+    return proc, out, err, time.perf_counter()
+
+
+def _finish_cli(run, what, timeout):
+    proc, out, err, t0 = run
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    with open(out) as f:
+        stdout = f.read()
+    with open(err) as f:
+        stderr = f.read()
+    check(rc == 0, f"analysis_interactive: {what} exited {rc}: {stdout[-2000:]} {stderr[-2000:]}")
+    return stdout, time.perf_counter() - t0
+
+
+def phase_analysis_interactive(torch, fa):
+    """The analysis plane and the interactive island session on the card.
+    (a) One step of examples/llama_pretrain at the small preset's widths
+    under the collective inventory: the ATC gossip is exactly classes x
+    leaves collective-permutes (index_select), nothing else crosses the
+    rank axis, and each bf16 flash kernel launches layers x ranks times.
+    (b) The collective family's corpus on cuda at the reference's
+    budgets.  (c) The epoch lint over a live window trace on cuda.
+    (d) python -m bluefog_tpu_torch.analysis --json (every family, the
+    collective one on the card) and --self-test, both started first and
+    run beside (a)-(c) and (e).  (e) An IslandSession(2) with rank 0's
+    window on cuda:0: the example's create / gossip / cleanup cells, a
+    closure shipped as source, and an error cell whose traceback must
+    reach here, its segments reclaimed.  The CLI processes are killed if
+    a check fails first."""
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="bftpu_analysis_")
+    cli_json = _analysis_cli(root, ["--json"], out_dir, "json")
+    cli_self = _analysis_cli(root, ["--self-test"], out_dir, "self_test")
+    try:
+        return _analysis_interactive_body(torch, fa, cli_json, cli_self, t0)
+    finally:
+        for run in (cli_json, cli_self):
+            if run[0].poll() is None:
+                run[0].kill()
+                run[0].wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _analysis_interactive_body(torch, fa, cli_json, cli_self, t0):
+    import importlib.util
+
+    from bluefog_tpu_torch import analysis, topology_util, windows
+    from bluefog_tpu_torch.analysis import collective_corpus, epoch_rules
+    from bluefog_tpu_torch.common.collective_inspect import CollectiveInventory
+    from bluefog_tpu_torch.core.plan import compile_plan
+    from bluefog_tpu_torch.examples import interactive_islands as ex
+    from bluefog_tpu_torch.examples import llama_pretrain
+    from bluefog_tpu_torch.run.interactive_islands import IslandSession
+
+
+    # (a) the collective contract on the main path
+    seen = {}
+
+    def setup(params, opt):
+        seen["leaves"] = len(params)
+        seen["inv"] = CollectiveInventory(RANKS)
+        return seen["inv"]
+
+    fa.reset_launches()
+    ta = time.perf_counter()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+        ["--preset", "small", "--steps", "1", "--size", str(RANKS),
+         "--batch", str(BATCH), "--device", "cuda"]), setup=setup)
+    counts = dict(fa.launches)
+    inv = seen["inv"]
+    classes = len(compile_plan(topology_util.ExponentialTwoGraph(RANKS)).classes)
+    want_ops = {"collective-permute": classes * seen["leaves"]}
+    want_aten = {("collective-permute", "aten.index_select.default"): classes * seen["leaves"]}
+    got_aten = dict(inv.aten_counts())
+    layers = out["layers"]
+    row_a = {"classes": classes, "leaves": seen["leaves"], "layers": layers,
+             "ranks": RANKS, "counts": dict(inv.counts()),
+             "aten": {f"{k[0]} {k[1]}": v for k, v in got_aten.items()},
+             "expected": want_ops, "launches": counts,
+             "losses": out["losses"], "seconds": time.perf_counter() - ta}
+    emit({"phase": "analysis_interactive", "collective_contract": row_a})
+    check(all(math.isfinite(x) for step in out["losses"] for x in step),
+          f"analysis_interactive: non-finite loss {out['losses']}")
+    check(dict(inv.counts()) == want_ops,
+          f"analysis_interactive: the step's rank-axis ops {dict(inv.counts())}, "
+          f"expected exactly {want_ops}")
+    check(got_aten == want_aten, f"analysis_interactive: aten ops {got_aten}")
+    for kname, n in counts.items():
+        check(n == layers * RANKS,
+              f"analysis_interactive: {kname} launched {n} times, expected {layers * RANKS}")
+
+    # (b) the collective corpus on the card
+    report = analysis.Report()
+    with collective_corpus.on_device("cuda"):
+        analysis.registry.run(families=["collective"], report=report)
+    emit({"phase": "analysis_interactive", "collective_family": report.to_dict()})
+    check(report.ok and report.subjects_checked == len(collective_corpus.GOSSIP_CORPUS) + 1,
+          f"analysis_interactive: collective family {report.summary()} "
+          f"{[str(f) for f in report.findings][:5]}")
+
+    # (c) the epoch lint over a live trace on the card
+    import bluefog_tpu_torch as bf
+
+    bf.init(topology_util.ExponentialTwoGraph(8), size=8, local_size=2, device="cuda")
+    try:
+        x = torch.zeros((8, 4), device="cuda")
+        with windows.record_win_ops() as trace:
+            bf.win_create(x, "lint_me")
+            bf.win_accumulate(x, "lint_me")
+            bf.win_update_then_collect("lint_me")
+            bf.win_put(x, "lint_me")
+            bf.win_update("lint_me")
+            bf.win_free("lint_me")
+        lint = [str(f) for f in epoch_rules.check_trace(trace, "live-session")]
+    finally:
+        bf.win_free()
+        bf.shutdown()
+    emit({"phase": "analysis_interactive", "epoch_lint": {"trace": trace, "findings": lint}})
+    check(("win_create", "lint_me") in trace and not lint,
+          f"analysis_interactive: live epoch lint {trace} -> {lint}")
+
+    # (e) an interactive island session, rank 0's window on the card
+    scale = 7.0
+
+    def closure_cell(rank, size):
+        return rank * scale
+
+    def error_cell(rank, size):
+        raise ValueError("cell exploded")
+
+    def cloudpickle_cell(rank, size):
+        # after the other cells: did anything in this worker load it?
+        return sys.modules.get("cloudpickle") is not None
+
+    te = time.perf_counter()
+    installed = importlib.util.find_spec("cloudpickle") is not None
+    with _without_cloudpickle():
+        sess = IslandSession(2, timeout=300.0)
+        try:
+            row_e = _session_cells(sess, ex, closure_cell, cloudpickle_cell, error_cell)
+        finally:
+            if sess._alive:
+                sess.terminate()
+    row_e.update(segments_left=_job_segments(sess.job), alive_after_error=sess._alive,
+                 cloudpickle_installed=installed,
+                 reference_means=INTERACTIVE_REFERENCE_MEANS,
+                 expected_means=ex.expected_means(2, ex.ROUNDS),
+                 seconds=time.perf_counter() - te)
+    emit({"phase": "analysis_interactive", "session": row_e})
+    means, devices = row_e["means"], row_e["window_devices"]
+    check(row_e["cloudpickle_loaded"] == [False, False],
+          f"analysis_interactive: cloudpickle loaded in the workers {row_e['cloudpickle_loaded']}")
+    check(means == INTERACTIVE_REFERENCE_MEANS,
+          f"analysis_interactive: session means {means}, the reference example's "
+          f"{INTERACTIVE_REFERENCE_MEANS}")
+    check(devices == ["cuda:0", "cpu"], f"analysis_interactive: window devices {devices}")
+    check(row_e["closure"] == [0.0, 7.0] and row_e["freed"] == [True, True],
+          f"analysis_interactive: closure {row_e['closure']}, freed {row_e['freed']}")
+    check(row_e["error_reached_caller"], f"analysis_interactive: error cell {row_e['error']!r}")
+    check(not row_e["segments_left"] and not sess._alive,
+          f"analysis_interactive: segments left {row_e['segments_left']}")
+
+    # (d) the CLI runs started at the top
+    stdout, secs_json = _finish_cli(cli_json, "--json", timeout=600)
+    payload = json.loads(stdout)
+    selftest, secs_self = _finish_cli(cli_self, "--self-test", timeout=600)
+    row_d = {"json_ok": payload["ok"], "subjects_checked": payload["subjects_checked"],
+             "family_seconds": payload["family_seconds"], "json_seconds": secs_json,
+             "self_test_seconds": secs_self,
+             "self_test_last_line": selftest.strip().splitlines()[-1]}
+    emit({"phase": "analysis_interactive", "cli": row_d,
+          "phase_seconds": time.perf_counter() - t0})
+    check(payload["ok"] and payload["subjects_checked"] > CLI_MIN_SUBJECTS,
+          f"analysis_interactive: --json ok={payload['ok']} "
+          f"subjects={payload['subjects_checked']} {payload['findings'][:3]}")
+    check("collective" in payload["family_seconds"],
+          "analysis_interactive: the CLI run skipped the collective family")
+    check("self-test OK" in selftest, f"analysis_interactive: {selftest[-2000:]}")
+    return counts
+
 def main():
     import concurrent.futures
 
@@ -3177,6 +3444,7 @@ def main():
     phase_launcher_serving(torch)
     phase_recovery(torch)
     phase_monitor_lab(torch)
+    counts_ai = phase_analysis_interactive(torch, fa)
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",
@@ -3190,9 +3458,11 @@ def main():
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k],
-         "launches": counts[k] + counts_1b[k] + counts_sp[k] + counts_z8[k],
+         "launches": counts[k] + counts_1b[k] + counts_sp[k] + counts_z8[k]
+         + counts_ai[k],
          "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k],
-                               "seq_parallel": counts_sp[k], "zero_8b": counts_z8[k]},
+                               "seq_parallel": counts_sp[k], "zero_8b": counts_z8[k],
+                               "analysis_interactive": counts_ai[k]},
          **table[k]}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f32", "route": "cuda",

@@ -1,7 +1,6 @@
 """Port twin of ``tests/test_adaptive.py``: the same cases against
-``bluefog_tpu_torch``.  The cases that need a module the port does not have yet
-(the adaptive, plan and introspect rule families, the fixture corpus, the
-networkx corpus) wait for ROADMAP A8.
+``bluefog_tpu_torch``, the adaptive and plan rule families and the
+fixture corpus of ``bluefog_tpu_torch.analysis`` included.
 
 Adaptive topology: the straggler-aware gray-failure control loop
 (docs/RESILIENCE.md, "Adaptive topology").
@@ -23,6 +22,7 @@ import numpy as np
 import pytest
 
 from bluefog_tpu_torch import islands, topology_util
+from bluefog_tpu_torch.analysis import adaptive_rules, plan_rules
 from bluefog_tpu_torch.native import shm_native
 from bluefog_tpu_torch.resilience import adaptive, chaos, healing
 from bluefog_tpu_torch.resilience.detector import (
@@ -87,6 +87,20 @@ def test_edge_health_flapping_cannot_thrash():
 
 
 
+def test_edge_health_floor_bounds_cycle():
+    """Even with thresholds at 1 (hair trigger), consecutive transitions
+    for one peer are >= floor_s apart — audited by the same rule the
+    analysis family runs."""
+    eh, now = _clocked(misses=1, clean=1, floor_s=1.0)
+    for _ in range(500):
+        eh.note_miss(7)
+        eh.note_clean(7)
+        now[0] += 0.05
+    log = eh.transitions()
+    assert len(log) >= 2
+    assert adaptive_rules.check_hysteresis(log, 1.0, "unit") == []
+
+
 def test_edge_health_dead_is_absorbing_and_floor_exempt():
     eh, now = _clocked(misses=3, floor_s=10.0)
     for _ in range(3):
@@ -100,6 +114,27 @@ def test_edge_health_dead_is_absorbing_and_floor_exempt():
     assert eh.absolve(7) == EDGE_DEAD  # promote verdicts cannot revive
 
 
+
+
+def test_edge_health_absolve_mirrors_fleet_verdict():
+    eh, now = _clocked(misses=3)
+    for _ in range(3):
+        eh.note_miss(7)
+    assert eh.state(7) == EDGE_SUSPECT
+    now[0] = 5.0
+    assert eh.absolve(7) == EDGE_ALIVE
+    log = eh.transitions()
+    assert log[-1]["adopted"] and log[-1]["to"] == EDGE_ALIVE
+    assert eh.absolve(7) == EDGE_ALIVE  # idempotent: no second event
+    assert len(eh.transitions()) == len(log)
+    # the mirror restarts the local floor: an immediate relapse is gated
+    for _ in range(3):
+        eh.note_miss(7)
+    assert eh.state(7) == EDGE_ALIVE
+    now[0] = 6.5
+    eh.note_miss(7)
+    assert eh.state(7) == EDGE_SUSPECT
+    assert adaptive_rules.check_hysteresis(eh.transitions(), 1.0, "unit") == []
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +215,37 @@ def test_policy_epoch_floor_gates_commits():
 
 
 
+def test_demote_caps_degree_and_keeps_member():
+    d = healing.demote_topology(topology_util.ExponentialTwoGraph(8), [3])
+    assert d.survivors == tuple(range(8))       # nobody excised
+    assert d.demoted == (3,) and d.dead == ()
+    v = d.to_local[3]
+    nbrs = set(d.topology.successors(v)) | set(d.topology.predecessors(v))
+    nbrs.discard(v)
+    assert len(nbrs) == 1                       # one anchor edge
+    row, col = d.plan.stochasticity_error()
+    assert row < 1e-9 and col < 1e-9
+    _, gap = plan_rules.check_spectral_gap(d.plan, "exp2@8-slow3")
+    assert gap > 0
+
+
+def test_demote_cut_stragglers_ring_repairs_healthy_core():
+    """Demoting ranks 1 and 4 of a 6-ring disconnects the healthy core
+    ({2,3} from {5,0}) — the repair ring goes through HEALTHY members
+    only (a ring through a straggler would re-raise its degree past the
+    cap)."""
+    d = healing.demote_topology(topology_util.RingGraph(6), [1, 4])
+    assert d.reconnected
+    for g in (1, 4):
+        v = d.to_local[g]
+        nbrs = (set(d.topology.successors(v))
+                | set(d.topology.predecessors(v)))
+        nbrs.discard(v)
+        assert len(nbrs) == 1, (g, nbrs)
+    report = adaptive_rules.check_demoted(d, "ring@6-slow14")
+    assert report.ok, [str(f) for f in report.findings]
+
+
 def test_demote_rejects_bad_straggler_sets():
     topo = topology_util.RingGraph(4)
     with pytest.raises(ValueError, match=">= 1 rank"):
@@ -190,6 +256,21 @@ def test_demote_rejects_bad_straggler_sets():
         healing.demote_topology(topo, [0, 1, 2, 3])
 
 
+
+
+def test_adaptive_rule_family_and_fixtures():
+    """The verifier's adaptive family passes on the real constructions
+    and every seeded-bug fixture fires."""
+    import bluefog_tpu_torch.analysis as analysis
+    from bluefog_tpu_torch.analysis.fixtures import FIXTURES, run_fixture
+
+    report = analysis.run(families=["adaptive"])
+    assert report.ok, [str(f) for f in report.findings[:10]]
+    assert report.subjects_checked > 300
+    seeded = [n for n in FIXTURES if n.startswith("adaptive-")]
+    assert len(seeded) >= 3
+    for name in seeded:
+        assert run_fixture(name), f"fixture {name} did not fire"
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 """Port twin of ``tests/test_introspect.py``: the same cases against
-``bluefog_tpu_torch``.  The cases that need a module the port does not have yet
-(the adaptive, plan and introspect rule families, the fixture corpus, the
-networkx corpus) wait for ROADMAP A8.
+``bluefog_tpu_torch``, the introspect rule family and its fixtures
+included.
 
 Live introspection plane (docs/OBSERVABILITY.md "Live introspection").
 
@@ -332,6 +331,19 @@ def test_merge_cli_flags_truncated_snapshot(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+
+
+def test_introspect_rule_family_and_fixtures():
+    from bluefog_tpu_torch import analysis
+    from bluefog_tpu_torch.analysis import fixtures as afx
+
+    report = analysis.run(families=["introspect"])
+    assert report.ok, [str(f) for f in report.findings[:10]]
+    assert report.subjects_checked >= 8
+    for name in ("introspect-torn-page", "introspect-ghost-holder",
+                 "introspect-blame-regression"):
+        findings = afx.run_fixture(name)
+        assert findings, f"seeded bug {name} was not caught"
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Port twin of ``tests/test_lab.py``: the same cases against
 ``bluefog_tpu_torch.lab`` (the np=4 e2e stays slow, as in the reference;
-the analysis fixtures are the reference's corpus, which waits for ROADMAP
-A8, so the family case seeds the same three corruptions inline), then the
+the family case runs the port's fixture corpus, and also seeds its three
+lab corruptions inline against both packages), then the
 cross-package cases: the port's ``ConvergenceProbe`` gives the
 reference's trail on fixed push-sum sequences (f64, f32, push-sum
 weights, batched flushes, sample caps, and a bf16 island window's
@@ -310,6 +310,18 @@ def test_lab_rule_family_and_seeded_corruptions():
     assert report.ok, [str(f) for f in report.findings[:10]]
     for name, findings in _seeded_lab_corruptions(lab_rules, TOPOLOGIES,
                                                   load_artifact()).items():
+        assert findings, f"seeded bug {name} was not caught"
+
+
+def test_lab_rule_family_and_fixtures():
+    from bluefog_tpu_torch import analysis
+    from bluefog_tpu_torch.analysis import fixtures as afx
+
+    report = analysis.run(families=["lab"])
+    assert report.ok, [str(f) for f in report.findings[:10]]
+    for name in ("lab-corrupted-fit", "lab-tampered-rate",
+                 "lab-recommendation-contradicts-corpus"):
+        findings = afx.run_fixture(name)
         assert findings, f"seeded bug {name} was not caught"
 
 

@@ -121,6 +121,33 @@ def test_relabel_nodes_copy_keyword_matches_networkx(seed):
         ttu.relabel_nodes(ttu.DiGraph(), {}, copy=False)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_digraph_copy_matches_networkx(seed):
+    """``G.copy()``, which the adaptive fixtures use to add an edge to a
+    demoted topology, against networkx: the same nodes, edges, attributes
+    and graph dict in order, and a copy that shares nothing mutable with
+    its source."""
+    for n, edges in _random_digraphs(seed=seed):
+        g, h = ttu.DiGraph(), nx.DiGraph()
+        g.add_nodes_from(range(n))
+        h.add_nodes_from(range(n))
+        for u, v in edges:
+            g.add_edge(u, v, weight=u + 0.5 * v)
+            h.add_edge(u, v, weight=u + 0.5 * v)
+        g.graph["demoted_from"] = h.graph["demoted_from"] = (1,)
+        gc, hc = g.copy(), h.copy()
+        assert list(gc.nodes) == list(hc.nodes)
+        assert gc.edges(data=True) == list(hc.edges(data=True))
+        assert dict(gc.graph) == dict(hc.graph)
+        gc.add_edge(0, n + 1)
+        gc.graph["x"] = 1
+        if edges:
+            u, v = edges[0]
+            gc[u][v]["weight"] = -1.0
+            assert g[u][v]["weight"] == u + 0.5 * v
+        assert n + 1 not in g and "x" not in g.graph
+
+
 @pytest.mark.parametrize("graph,n", GRAPHS)
 def test_heal_grow_demote_match_reference(graph, n):
     tg, jg = getattr(ttu, graph)(n), getattr(jtu, graph)(n)
@@ -143,6 +170,47 @@ def test_heal_grow_demote_match_reference(graph, n):
     g_t = thealing.grow_topology(h_t.topology, [h_t.size])
     g_j = jhealing.grow_topology(h_j.topology, [h_j.size])
     assert _healed_record(g_t) == _healed_record(g_j)
+
+
+def test_healed_topology_corpus():
+    """Every named topology x sizes 4..16 x dead-rank sets: the healed
+    survivor plan is doubly stochastic, mixing (positive spectral gap),
+    covers the healed edge set, and fully excises the dead; the port's
+    corpus report equals the reference's."""
+    from bluefog_tpu.analysis import resilience_rules as jrules
+    from bluefog_tpu.analysis.engine import Report as JReport
+    from bluefog_tpu_torch.analysis import resilience_rules
+    from bluefog_tpu_torch.analysis.engine import Report
+
+    report, ref = Report(), JReport()
+    subjects = 0
+    for (label, healed), (jlabel, jhealed) in zip(resilience_rules.iter_healed_corpus(),
+                                                 jrules.iter_healed_corpus()):
+        assert label == jlabel
+        resilience_rules.check_healed(healed, label, report)
+        jrules.check_healed(jhealed, jlabel, ref)
+        row, col = healed.plan.stochasticity_error()
+        assert row < 1e-9 and col < 1e-9, (label, row, col)
+        assert set(healed.survivors).isdisjoint(healed.dead), label
+        subjects += 1
+    assert report.ok, report.summary() + "\n" + "\n".join(
+        str(f) for f in report.findings[:10])
+    assert subjects > 300  # 7 topologies x 13 sizes x 3-4 dead sets
+    assert report.to_dict() == ref.to_dict()
+
+
+def test_heal_star_center_death_reconnects():
+    """Killing the star's center disconnects every survivor pair — the
+    healing must add the ring and still come out doubly stochastic."""
+    from bluefog_tpu_torch.analysis import plan_rules
+
+    healed = thealing.heal_topology(ttu.StarGraph(8), dead=[0])
+    assert healed.reconnected
+    assert healed.survivors == tuple(range(1, 8))
+    row, col = healed.plan.stochasticity_error()
+    assert row < 1e-12 and col < 1e-12
+    _, gap = plan_rules.check_spectral_gap(healed.plan, "star-headless")
+    assert gap > 0
 
 
 def test_heal_errors_match_reference():
