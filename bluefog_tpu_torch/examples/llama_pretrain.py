@@ -43,7 +43,7 @@ import bluefog_tpu_torch as bf
 from bluefog_tpu_torch import topology_util
 from bluefog_tpu_torch.kernels import make_flash_attention_fn
 from bluefog_tpu_torch.models.transformer import LlamaLM
-from bluefog_tpu_torch.optim import CommunicationType, TraceSGD
+from bluefog_tpu_torch.optim import Adafactor, CommunicationType, TraceSGD
 from bluefog_tpu_torch.parallel.ring_attention import make_ring_attention_fn, shard_inputs
 from bluefog_tpu_torch.parallel.ulysses import make_ulysses_attention_fn
 from bluefog_tpu_torch.profiling import device_profile
@@ -67,14 +67,17 @@ PRESETS = {
 }
 
 
-# base optimizers of benchmarks/llama.py (adafactor is left out: torch's
-# Adafactor is not optax's), at its learning rate 3e-4 unless --lr
+# base optimizers of benchmarks/llama.py, at its learning rate 3e-4 unless
+# --lr, over the rank-major leaves; ``shapes`` maps a leaf to the per-rank
+# shape of its reference leaf (LlamaLM.split_head_shapes), which only
+# adafactor's factoring reads
 OPTIMIZERS = {
-    "adamw": lambda leaves, lr: torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999),
-                                                  eps=1e-8, weight_decay=1e-4),
-    "sgdm": lambda leaves, lr: torch.optim.SGD(leaves, lr=lr, momentum=0.9),
-    "sgdm_bf16": lambda leaves, lr: TraceSGD(leaves, lr=lr, momentum=0.9,
-                                             trace_dtype=torch.bfloat16),
+    "adamw": lambda leaves, lr, shapes: torch.optim.AdamW(
+        leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
+    "sgdm": lambda leaves, lr, shapes: torch.optim.SGD(leaves, lr=lr, momentum=0.9),
+    "sgdm_bf16": lambda leaves, lr, shapes: TraceSGD(leaves, lr=lr, momentum=0.9,
+                                                     trace_dtype=torch.bfloat16),
+    "adafactor": lambda leaves, lr, shapes: Adafactor(leaves, lr=lr, shapes=shapes),
 }
 DP_LR = 3e-4  # benchmarks/llama.py
 SP_LR = 3e-3  # examples/jax_llama_pretrain.py's --lr, its seq-parallel Adam
@@ -212,8 +215,16 @@ def _timed_steps(step: Callable[[int], torch.Tensor], steps: int, dev: torch.dev
     return out
 
 
-def _model(args: argparse.Namespace, cfg: Dict, layers: int, head_chunks: int,
-           attention_fn: Optional[Callable]) -> LlamaLM:
+def make_optimizer(name: str, model: LlamaLM, params: Dict[str, torch.Tensor],
+                   lr: float) -> torch.optim.Optimizer:
+    """Base optimizer ``name`` of :data:`OPTIMIZERS` over the rank-major
+    ``params`` (``model``'s parameters by name)."""
+    shapes = {params[k]: s for k, s in model.split_head_shapes().items()}
+    return OPTIMIZERS[name](list(params.values()), lr, shapes)
+
+
+def build_model(args: argparse.Namespace, cfg: Dict, layers: int, head_chunks: int,
+                attention_fn: Optional[Callable]) -> LlamaLM:
     """The preset's LlamaLM on the host, drawn from ``--seed``."""
     return LlamaLM(
         vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=layers,
@@ -252,13 +263,13 @@ def run(args: argparse.Namespace,
     try:
         dev = bf.device()
         n = bf.size()
-        model = _model(args, cfg, layers, head_chunks,
-                       make_flash_attention_fn() if args.attention == "flash" else None)
+        model = build_model(args, cfg, layers, head_chunks,
+                            make_flash_attention_fn() if args.attention == "flash" else None)
         # the model stays on the host: the step calls it on the rank-major
         # leaves' slices, so its own weights need no copy on the card
         params = replicate_for_mesh({k: v.to(dev) for k, v in model.named_parameters()}, n)
         n_params = sum(v[0].numel() for v in params.values())
-        opt = OPTIMIZERS[optimizer](list(params.values()), lr)
+        opt = make_optimizer(optimizer, model, params, lr)
         apply_fn, loss_fn = make_lm_loss_fns(model)
         step_fn = make_decentralized_train_step(
             apply_fn, params, opt,
@@ -345,7 +356,7 @@ def _run_seq_parallel(args: argparse.Namespace, cfg: Dict,
             attention_fn = make_ulysses_attention_fn(n, flash=flash)
         else:
             attention_fn = make_ring_attention_fn(n, flash=flash, striped=args.striped)
-        model = _model(args, cfg, layers, 0, attention_fn).to(dev)
+        model = build_model(args, cfg, layers, 0, attention_fn).to(dev)
         opt = torch.optim.Adam(model.parameters(), lr=lr)  # optax.adam's defaults
         if setup is not None:
             setup(model, opt)

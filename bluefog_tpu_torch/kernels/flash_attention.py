@@ -41,6 +41,18 @@ serves plain attention and one ring-attention hop; rows with no visible key
 return o = 0 and lse = -1e30.  The lse output is differentiable: its
 cotangent folds into dS through ``corr = g_lse - rowsum(o * dO)``, computed
 here in plain torch, as the JAX package computes it outside its kernels.
+
+The public functions take the reference's ``impl``: ``"auto"``,
+``"pallas"`` and ``"cuda"`` select the kernels above (their plain versions
+on CPU tensors); ``"xla"`` selects the blockwise route, the twin of the
+reference's ``_blockwise_fwd_xla`` and ``_blockwise_bwd`` in plain torch ops
+on any device (:func:`blockwise_fwd`, :func:`blockwise_bwd`), blocked over
+``block_k`` by the reference's rules.  The blockwise route is never a
+default and never a fallback, and launches no kernel.  On the kernel route
+the tile is fixed when the kernels are built, so ``block_q`` / ``block_k``
+other than that tile raise (``bluefog_tpu_torch.benchmarks.flash_variants``
+times other builds); ``interpret=True`` raises: the tensors' device picks
+the CPU route.
 """
 
 from __future__ import annotations
@@ -64,6 +76,11 @@ __all__ = [
     "flash_fwd_plain",
     "flash_dkv_plain",
     "flash_dq_plain",
+    "blockwise_fwd",
+    "blockwise_bwd",
+    "blockwise_route",
+    "key_blocks",
+    "fit_block",
     "launches",
     "launches_f32",
     "reset_launches",
@@ -78,6 +95,8 @@ _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
 _HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
+_KERNEL_IMPLS = ("auto", "pallas", "cuda")  # the kernel route's names
+_MAX_UNROLL = 64  # the blockwise route's triangular branch unrolls at most this many blocks
 
 # Kernel launches per wrapper since the last reset_launches(), of the bf16
 # kernels and of the f32 kernels.  Only a launch of a CUDA kernel counts; a
@@ -189,6 +208,125 @@ def flash_dq_plain(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0,
                            scale=scale, causal=causal, bmm=bmm)
         acc += bmm(ds.float(), k[:, j0:j0 + _BLOCK].float())
     return (acc * scale).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# The blockwise route (impl="xla"): the reference's XLA twin in plain torch
+# --------------------------------------------------------------------------
+
+
+def fit_block(t: int, b: int) -> int:
+    """The reference's ``_fit_block``: the largest power-of-two shrink of
+    ``b`` (capped at ``t``) that divides ``t``; below 8 (and not ``t``
+    itself) raises."""
+    b = min(b, t)
+    while t % b and b > 1:
+        b = max(b // 2, 1)
+    if b < 8 and b < t:
+        raise ValueError(f"no block size >= 8 divides sequence length {t} (best fit {b}); "
+                         f"pad the sequence/shard to a multiple of 8")
+    return b
+
+
+def _triangular(causal, tri_delta, tq, tk, num_k) -> bool:
+    """The reference's ``_use_triangular``: offsets with a small key-ahead
+    delta, square shapes, at most ``_MAX_UNROLL`` blocks."""
+    return causal and tri_delta is not None and tq == tk and num_k <= _MAX_UNROLL
+
+
+def _tri_mask(rows, block_k, delta, device):
+    """Visible iff col + delta <= row, for q rows starting at the k block."""
+    return (torch.arange(rows, device=device)[:, None]
+            >= torch.arange(block_k, device=device)[None, :] + delta)
+
+
+def key_blocks(tq: int, tk: int, block_k=None) -> Tuple[int, int]:
+    """``(block, count)`` of the blockwise route's key blocks: ``block_k``,
+    or the reference's ``_default_blocks`` choice (1024 where the longer
+    sequence is at least 2048, else 512), fitted to ``tk``."""
+    block_k = fit_block(tk, block_k or (1024 if max(tq, tk) >= 2048 else 512))
+    return block_k, tk // block_k
+
+
+def blockwise_fwd(q, k, v, q_start: int = 0, k_start: int = 0, *, scale: float,
+                  causal: bool, block_k=None, tri_delta=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o [BH,Tq,D] in q.dtype, lse [BH,Tq] f32)`` by the reference's
+    ``_blockwise_fwd_xla``: the online-softmax recurrence over key blocks
+    of ``block_k`` (:func:`key_blocks`), products of the
+    inputs' values accumulated in f32, p rounded to v's dtype before P.V.
+    With ``tri_delta`` (key-ahead delta of square, causal inputs) and at
+    most 64 blocks it runs the triangular branch, where key block ``j``
+    touches only the query rows from ``j * block_k`` on; else the general
+    branch, masked on global positions."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    block_k, num_k = key_blocks(tq, tk, block_k)
+    qf = q.float()
+    o = torch.zeros(bh, tq, d, dtype=torch.float32, device=q.device)
+    m = torch.full((bh, tq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(bh, tq, 1, dtype=torch.float32, device=q.device)
+    tri = _triangular(causal, tri_delta, tq, tk, num_k)
+    for j in range(num_k):
+        j0 = j * block_k
+        r0 = j0 if tri else 0  # the triangular branch skips rows above the block
+        kb, vb = k[:, j0:j0 + block_k].float(), v[:, j0:j0 + block_k].float()
+        s = torch.bmm(qf[:, r0:], kb.transpose(1, 2)) * scale
+        if tri:
+            s = torch.where(_tri_mask(tq - r0, block_k, tri_delta, q.device)[None], s, _NEG_INF)
+        else:
+            s = _mask(s, q_start, k_start, j0, causal)
+        m_new = torch.maximum(m[:, r0:], s.amax(-1, keepdim=True))
+        alpha = torch.exp(m[:, r0:] - m_new)
+        p = torch.exp(s - m_new)  # masked entries underflow to 0...
+        if (tri and tri_delta) or (not tri and causal):
+            # ...except on fully-masked rows, where m_new is the sentinel
+            p = torch.where(s > _MASK_THRESH, p, 0.0)
+        l[:, r0:] = l[:, r0:] * alpha + p.sum(-1, keepdim=True)
+        o[:, r0:] = o[:, r0:] * alpha + torch.bmm(p.to(v.dtype).float(), vb)
+        m[:, r0:] = m_new
+    out = (o / l.clamp_min(1e-30)).to(q.dtype)
+    lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+    return out, lse
+
+
+def blockwise_bwd(q, k, v, o, lse, g, g_lse, q_start: int = 0, k_start: int = 0, *,
+                  scale: float, causal: bool, block_k=None,
+                  tri_delta=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dQ, dK, dV)`` by the reference's ``_blockwise_bwd``: per key
+    block, p recomputed from lse, dV = p^T.dO (p in dO's dtype), dS = p *
+    (dO.V^T + g_lse - rowsum(o * dO)) * scale rounded to q's dtype (the lse
+    cotangent ``g_lse`` folds in as ``p * g_lse``), dQ += dS.K, dK = dS^T.Q.
+    Branches and blocks as :func:`blockwise_fwd`."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    block_k, num_k = key_blocks(tq, tk, block_k)
+    qf, gf = q.float(), g.float()
+    delta = (o.float() * gf).sum(-1, keepdim=True)
+    corr = g_lse.float()[..., None] - delta  # [BH, Tq, 1]
+    tri = _triangular(causal, tri_delta, tq, tk, num_k)
+    dq = torch.zeros(bh, tq, d, dtype=torch.float32, device=q.device)
+    dk = torch.empty(bh, tk, d, dtype=torch.float32, device=q.device)
+    dv = torch.empty(bh, tk, d, dtype=torch.float32, device=q.device)
+    for j in range(num_k):
+        j0 = j * block_k
+        r0 = j0 if tri else 0
+        kb, vb = k[:, j0:j0 + block_k].float(), v[:, j0:j0 + block_k].float()
+        qj, gj = qf[:, r0:], gf[:, r0:]
+        s = torch.bmm(qj, kb.transpose(1, 2)) * scale
+        if tri:
+            s = torch.where(_tri_mask(tq - r0, block_k, tri_delta, q.device)[None], s, _NEG_INF)
+        else:
+            s = _mask(s, q_start, k_start, j0, causal)
+        p = torch.exp(s - lse[:, r0:, None])  # masked entries underflow to 0...
+        if (tri and tri_delta) or (not tri and causal):
+            # ...except on fully-masked rows, whose lse is the sentinel
+            p = torch.where(s > _MASK_THRESH, p, 0.0)
+        dv[:, j0:j0 + block_k] = torch.bmm(p.to(g.dtype).float().transpose(1, 2), gj)
+        dp = torch.bmm(gj, vb.transpose(1, 2))
+        ds = (p * (dp + corr[:, r0:]) * scale).to(q.dtype).float()
+        dq[:, r0:] += torch.bmm(ds, kb)
+        dk[:, j0:j0 + block_k] = torch.bmm(ds.transpose(1, 2), qj)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -473,28 +611,40 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
 
 class _FlashCore(torch.autograd.Function):
     """(o, lse) over folded ``[BH, T, D]`` inputs; the twin of the JAX
-    package's ``_flash_core`` custom VJP."""
+    package's ``_flash_core`` custom VJP.  ``blockwise`` selects the
+    blockwise route (``impl="xla"``), with ``block_k`` and ``tri_delta``;
+    otherwise the kernels run."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_start, k_start, scale, causal):
-        o, lse = flash_fwd(q, k, v, q_start, k_start, scale=scale, causal=causal)
+    def forward(ctx, q, k, v, q_start, k_start, scale, causal, blockwise, block_k, tri_delta):
+        if blockwise:
+            o, lse = blockwise_fwd(q, k, v, q_start, k_start, scale=scale, causal=causal,
+                                   block_k=block_k, tri_delta=tri_delta)
+        else:
+            o, lse = flash_fwd(q, k, v, q_start, k_start, scale=scale, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (q_start, k_start, scale, causal)
+        ctx.args = (q_start, k_start, scale, causal, blockwise, block_k, tri_delta)
         return o, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        q_start, k_start, scale, causal = ctx.args
+        q_start, k_start, scale, causal, blockwise, block_k, tri_delta = ctx.args
         g = g.contiguous()
-        delta = (o.float() * g.float()).sum(-1)  # [BH, Tq]
-        corr = -delta if g_lse is None else g_lse.float() - delta
-        corr = corr.contiguous()
-        dk, dv = flash_dkv(q, k, v, g, lse, corr, q_start, k_start,
-                           scale=scale, causal=causal)
-        dq = flash_dq(q, k, v, g, lse, corr, q_start, k_start,
-                      scale=scale, causal=causal)
-        return dq, dk, dv, None, None, None, None
+        if blockwise:
+            g_lse = torch.zeros_like(lse) if g_lse is None else g_lse
+            dq, dk, dv = blockwise_bwd(q, k, v, o, lse, g, g_lse, q_start, k_start,
+                                       scale=scale, causal=causal, block_k=block_k,
+                                       tri_delta=tri_delta)
+        else:
+            delta = (o.float() * g.float()).sum(-1)  # [BH, Tq]
+            corr = -delta if g_lse is None else g_lse.float() - delta
+            corr = corr.contiguous()
+            dk, dv = flash_dkv(q, k, v, g, lse, corr, q_start, k_start,
+                               scale=scale, causal=causal)
+            dq = flash_dq(q, k, v, g, lse, corr, q_start, k_start,
+                          scale=scale, causal=causal)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _fold(x):  # [B, T, H, D] -> [B*H, T, D]
@@ -502,12 +652,43 @@ def _fold(x):  # [B, T, H, D] -> [B*H, T, D]
     return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
 
 
+def blockwise_route(impl: str = "auto", block_q=None, block_k=None, interpret=None) -> bool:
+    """True where ``impl`` selects the blockwise route (``"xla"``), False for
+    the kernel route (``"auto"``, ``"pallas"``, ``"cuda"``); the reference's
+    ``:915`` check for any other name, and the port's rules: on the kernel
+    route ``block_q`` / ``block_k`` must be None or the built tile (128
+    query rows a block, 64 keys a stage), and ``interpret=True`` raises on
+    either route."""
+    if impl not in _KERNEL_IMPLS + ("xla",):
+        raise ValueError(f"impl must be auto/pallas/cuda/xla, got {impl!r}")
+    if interpret:
+        raise ValueError("interpret=True has no counterpart: the tensors' device picks the "
+                         "route (the kernels on CUDA tensors, their plain versions on CPU "
+                         "tensors)")
+    if impl == "xla":
+        return True
+    for name, value, tile in (("block_q", block_q, _BLOCK_ROWS), ("block_k", block_k, _BLOCK)):
+        if value is not None and value != tile:
+            raise ValueError(
+                f"{name}={value} on the kernel route (impl={impl!r}): the CUDA kernels' tile "
+                f"is fixed when they are built ({name} {tile}); "
+                f"bluefog_tpu_torch.benchmarks.flash_variants builds and times other tiles")
+    return False
+
+
 def flash_attention_with_lse(q, k, v, *, q_start: int = 0, k_start: int = 0,
-                             causal: bool = True):
+                             causal: bool = True, block_q=None, block_k=None,
+                             interpret=None, impl: str = "auto"):
     """``(out [B,T,H,D], lse [B,H,T] f32)`` for q, k, v of shape
     ``[B, T, H, D]``.  ``q_start``/``k_start`` are global sequence offsets
     for the causal mask.  Rows with no visible key give out = 0 and
     lse = -1e30.
+
+    ``impl``: ``"auto"`` (the default), ``"pallas"`` or ``"cuda"`` run the
+    kernels (their plain versions on CPU tensors); ``"xla"`` the blockwise
+    route (:func:`blockwise_fwd`), which blocks on ``block_k`` alone, as
+    the reference's does (``block_q`` is accepted and unused there).  See
+    :func:`blockwise_route` for what raises.
 
     The offsets are host integers (converted with ``int()``), where the
     reference accepts traced ones: under ``shard_map`` each device's
@@ -515,21 +696,34 @@ def flash_attention_with_lse(q, k, v, *, q_start: int = 0, k_start: int = 0,
     every rank's offset is known on the host, so a ring hop passes
     integers, one launch for the ranks that share them
     (:func:`bluefog_tpu_torch.parallel.ring_attention.hop_launches`), and
-    the kernels read no offset from device memory."""
+    the kernels read no offset from device memory.  As in the reference
+    with host offsets, square inputs whose key offset is 0 to 8 ahead of
+    the query offset take the blockwise route's triangular branch."""
+    blockwise = blockwise_route(impl, block_q, block_k, interpret)
     b, tq, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    o, lse = _FlashCore.apply(_fold(q), _fold(k), _fold(v), int(q_start),
-                              int(k_start), scale, bool(causal))
+    q_start, k_start = int(q_start), int(k_start)
+    tri_delta = (k_start - q_start if 0 <= k_start - q_start <= 8 and tq == k.shape[1]
+                 else None)
+    o, lse = _FlashCore.apply(_fold(q), _fold(k), _fold(v), q_start, k_start, scale,
+                              bool(causal), blockwise, block_k, tri_delta)
     return o.reshape(b, h, tq, d).permute(0, 2, 1, 3), lse.reshape(b, h, tq)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, block_q=None, block_k=None,
+                    interpret=None, impl: str = "auto"):
     """Exact attention, ``[B, T, H, D]`` layout; drop-in for
-    :func:`bluefog_tpu_torch.models.transformer.dense_attention`."""
-    o, _ = flash_attention_with_lse(q, k, v, causal=causal)
+    :func:`bluefog_tpu_torch.models.transformer.dense_attention`.  The
+    other arguments as :func:`flash_attention_with_lse`."""
+    o, _ = flash_attention_with_lse(q, k, v, causal=causal, block_q=block_q,
+                                    block_k=block_k, interpret=interpret, impl=impl)
     return o
 
 
-def make_flash_attention_fn(causal: bool = True) -> Callable:
-    """``attention_fn`` for :class:`bluefog_tpu_torch.models.transformer.LlamaLM`."""
-    return functools.partial(flash_attention, causal=causal)
+def make_flash_attention_fn(causal: bool = True, block_q=None, block_k=None,
+                            interpret=None, impl: str = "auto") -> Callable:
+    """``attention_fn`` for :class:`bluefog_tpu_torch.models.transformer.LlamaLM`;
+    the arguments are checked here, as :func:`blockwise_route` checks them."""
+    blockwise_route(impl, block_q, block_k, interpret)
+    return functools.partial(flash_attention, causal=causal, block_q=block_q,
+                             block_k=block_k, interpret=interpret, impl=impl)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -510,6 +510,22 @@ class LlamaLM(nn.Module):
                         w.fill_(1.0)
                     else:
                         lecun_normal_(w, w.shape[-1], generator)
+
+    def split_head_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The q, k and v weights' shapes with the output axis split into
+        (heads, head dim), by parameter name: ``[(L,) heads, hd, d]`` for
+        ``[(L,) heads * hd, d]``.  These are the reference's DenseGeneral
+        kernels ``[(L,) d, heads, hd]`` with the axes in another order, the
+        shapes :class:`bluefog_tpu_torch.optim.Adafactor` factors them in."""
+        heads = {"q": self.spec.num_heads, "k": self.spec.kv_heads, "v": self.spec.kv_heads}
+        out = {}
+        for name, p in self.named_parameters():
+            parts = name.split(".")  # layers.{i}.q.weight, or layers.q stacked
+            key = parts[-2] if parts[-1] == "weight" else parts[-1]
+            if parts[0] == "layers" and key in heads:
+                h = heads[key]
+                out[name] = (*p.shape[:-2], h, p.shape[-2] // h, p.shape[-1])
+        return out
 
     def _block(self, x, positions, weights):
         if not self.remat:

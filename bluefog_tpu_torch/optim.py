@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import enum
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from bluefog_tpu_torch import ops, topology_util, windows
@@ -45,6 +46,7 @@ __all__ = [
     "DistributedGradientAllreduceOptimizer",
     "DistributedWinPutOptimizer",
     "TraceSGD",
+    "Adafactor",
     "one_peer_plan_schedule",
 ]
 
@@ -322,6 +324,117 @@ class TraceSGD(torch.optim.Optimizer):
                 trace.copy_(new)
                 p.add_(new.mul_(-group["lr"]))
         return loss
+
+
+def _rank_mean(x: torch.Tensor) -> torch.Tensor:
+    """Each rank's mean of rank-major ``x [n, ...]``, shaped to broadcast
+    against ``x`` (a per-rank scalar leaf is its own mean)."""
+    return x.reshape(x.shape[0], -1).mean(1).view((-1,) + (1,) * (x.dim() - 1))
+
+
+def _factored_dims(shape: Sequence[int], min_dim: int) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims`` on a per-rank shape: the two largest dims
+    ``(d1, d0)`` by ``np.argsort``, or None below two dims or where the
+    second largest is under ``min_dim``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)`` with its defaults (optax 0.2.6), over
+    rank-major leaves ``[n, ...]``: each rank's slice is updated as optax
+    updates that rank's leaf, and no rank's update reads another rank's
+    gradient.  Per leaf, with ``t`` the step (0 first)::
+
+        beta  = 1 - (t + 1)^-0.8
+        G     = g^2 + 1e-30
+        factored (the per-rank leaf's two largest dims d1, d0 by
+        np.argsort, the second at least 128):
+            v_row = beta v_row + (1 - beta) mean_d0(G)
+            v_col = beta v_col + (1 - beta) mean_d1(G)
+            u = g (v_row / mean_d1(v_row))^-1/2 v_col^-1/2
+        else:
+            v = beta v + (1 - beta) G;  u = g v^-1/2
+        u /= max(1, rms(u))                  # clip_by_block_rms(1.0)
+        p -= lr u max(rms(p), 1e-3)          # scale_by_param_block_rms
+
+    where every mean over a leaf and every rms is a rank's own, and the
+    parameter's rms is taken before the update.  The state is kept in the
+    parameter's dtype, as optax keeps it.  Since mean(v_row) = mean(v_col)
+    the rule is unchanged when the leaf's axes are permuted (a torch
+    ``[out, in]`` weight gets the update of its flax ``[in, out]`` kernel,
+    transposed), but not when they are merged: ``shapes`` maps a leaf to
+    the per-rank shape in which to factor it, a reshape of its own whose
+    axes are the reference leaf's in some order (the Llama q, k and v
+    weights ``[H * hd, d]`` as ``[H, hd, d]``, flax's ``[d, H, hd]``
+    DenseGeneral kernels: :meth:`~bluefog_tpu_torch.models.transformer.LlamaLM.split_head_shapes`)."""
+
+    DECAY, EPS, MIN_DIM_TO_FACTOR, CLIP, MIN_SCALE = 0.8, 1e-30, 128, 1.0, 1e-3
+
+    def __init__(self, params, lr: float,
+                 shapes: Optional[Mapping[torch.Tensor, Sequence[int]]] = None):
+        super().__init__(params, dict(lr=lr))
+        self._shapes = {id(p): tuple(int(d) for d in s) for p, s in (shapes or {}).items()}
+        for group in self.param_groups:
+            for p in group["params"]:
+                shape = self._shapes.get(id(p))
+                if shape is not None and math.prod(shape) != p[0].numel():
+                    raise ValueError(f"shapes: {shape} is not a reshape of the per-rank "
+                                     f"shape {tuple(p.shape[1:])}")
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.add_(self._update(p, p.grad, group["lr"]))
+        return loss
+
+    def _update(self, p: torch.Tensor, grad: torch.Tensor, lr: float) -> torch.Tensor:
+        n = p.shape[0]
+        shape = self._shapes.get(id(p), tuple(p.shape[1:]))
+        g = grad.reshape((n,) + shape)
+        dims = _factored_dims(shape, self.MIN_DIM_TO_FACTOR)
+        state = self.state[p]
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros_like(g, dtype=p.dtype)
+            else:
+                d1, d0 = dims
+                state["v_row"] = torch.zeros_like(g.select(d0 + 1, 0), dtype=p.dtype)
+                state["v_col"] = torch.zeros_like(g.select(d1 + 1, 0), dtype=p.dtype)
+        t = np.float32(state["step"] + 1)
+        beta = float(np.float32(1.0) - t ** np.float32(-self.DECAY))
+        state["step"] += 1
+        g_sqr = g * g + self.EPS
+        if dims is None:
+            v = state["v"]
+            v.copy_(beta * v + (1.0 - beta) * g_sqr)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims  # the per-rank dims; +1 on the rank-major leaf
+            v_row, v_col = state["v_row"], state["v_col"]
+            v_row.copy_(beta * v_row + (1.0 - beta) * g_sqr.mean(d0 + 1))
+            v_col.copy_(beta * v_col + (1.0 - beta) * g_sqr.mean(d1 + 1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = v_row.mean(reduced_d1 + 1, keepdim=True)
+            row_factor = (v_row / row_col_mean) ** -0.5
+            col_factor = v_col ** -0.5
+            u = g * row_factor.unsqueeze(d0 + 1) * col_factor.unsqueeze(d1 + 1)
+        u = u / torch.clamp_min(_rank_mean(u * u).sqrt() / self.CLIP, 1.0)
+        u = u * lr
+        rms = _rank_mean(p * p).sqrt()
+        u = u.reshape(p.shape) * torch.where(rms <= self.MIN_SCALE, self.MIN_SCALE, rms)
+        return u * -1.0
 
 
 # --------------------------------------------------------------------------

@@ -239,6 +239,9 @@ def hop_launches(step: int, n: int, tq: int, tk: int, *, causal: bool,
     - not causal: one launch over all ranks (offsets mask nothing);
     - causal with ``Tq != Tk``: one launch a rank, ``q_start = idx*Tq``,
       ``k_start = j*Tk``.
+
+    These are the kernel route's launches; under ``impl="xla"`` the same
+    groups run the blockwise route, which launches nothing.
     """
     if causal and tq == tk:
         if step == 0:
@@ -266,8 +269,8 @@ def _assemble(n: int, old, pieces) -> torch.Tensor:
 
 
 def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_size: int,
-                         *, causal: bool = True, striped: bool = False,
-                         impl: str = "auto") -> torch.Tensor:
+                         *, causal: bool = True, striped: bool = False, block_q=None,
+                         block_k=None, interpret=None, impl: str = "auto") -> torch.Tensor:
     """Ring attention with the flash kernels as the hop compute: same
     semantics and layout as :func:`ring_attention`, each hop one
     :func:`bluefog_tpu_torch.kernels.flash_attention_with_lse` call a
@@ -276,15 +279,15 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis
     cotangent reaches the kernels' backward.  On CUDA tensors every hop
     launches the CUDA kernels; on CPU tensors their plain versions run.
 
-    ``impl`` is accepted for the reference's signature and has no effect:
-    it picks the reference's per-hop implementation (Pallas or blockwise
-    XLA), and the port has one.  The reference's ``block_q``, ``block_k``
-    and ``interpret`` (TPU block tuning) and its aligned-triangle fast
-    paths have no counterpart: the kernels skip invisible tiles
-    themselves."""
+    ``impl``, ``block_q``, ``block_k`` and ``interpret`` reach every hop's
+    :func:`~bluefog_tpu_torch.kernels.flash_attention_with_lse`, as in the
+    reference: ``impl="xla"`` runs each hop group by the blockwise route
+    (plain torch, no kernel launch; a hop with a key offset 0 or 1 ahead,
+    the diagonal and the striped hops, takes its triangular branch),
+    ``"auto"`` / ``"pallas"`` / ``"cuda"`` the kernels, which skip
+    invisible tiles themselves."""
     from bluefog_tpu_torch.kernels import flash_attention_with_lse
 
-    del impl
     n = resolve_axis_size(axis_size, q.shape[0])
     rows, tq, h, d = q.shape
     tk = k.shape[1]
@@ -302,7 +305,8 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis
                    _ranks(v4, r.start - step, c, n))
             o_s, lse_s = flash_attention_with_lse(
                 *(x.reshape(c * b, *x.shape[2:]) for x in qkv),
-                q_start=hop.q_start, k_start=hop.k_start, causal=hop.causal)
+                q_start=hop.q_start, k_start=hop.k_start, causal=hop.causal,
+                block_q=block_q, block_k=block_k, interpret=interpret, impl=impl)
             o_s = o_s.float().permute(0, 2, 1, 3).reshape(c, b, h, tq, d)
             lse_s = lse_s.reshape(c, b, h, tq)
             if o is not None:

@@ -47,8 +47,8 @@ def _to_sequence(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_size: int, *,
-                      causal: bool = True, flash: bool = False,
-                      impl: str = "auto") -> torch.Tensor:
+                      causal: bool = True, flash: bool = False, block_q=None,
+                      block_k=None, interpret=None, impl: str = "auto") -> torch.Tensor:
     """Exact attention across ``axis_size`` sequence shards by head
     re-sharding.
 
@@ -56,10 +56,10 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_si
     ``axis_size``.  Returns ``[n*B, T_local, H, D]`` in q's dtype.
     ``flash=True`` runs :func:`bluefog_tpu_torch.kernels.flash_attention`
     on the gathered sequence (the CUDA kernels on CUDA tensors), else
-    :func:`bluefog_tpu_torch.models.transformer.dense_attention`.  ``impl``
-    is accepted for the reference's signature and has no effect (see
-    :func:`bluefog_tpu_torch.parallel.ring_attention.ring_flash_attention`)."""
-    del impl
+    :func:`bluefog_tpu_torch.models.transformer.dense_attention`.  Under
+    ``flash=True``, ``impl``, ``block_q``, ``block_k`` and ``interpret``
+    reach the flash call, as in the reference (``impl="xla"``: the
+    blockwise route, no kernel launch); the dense path does not read them."""
     n = resolve_axis_size(axis_size, q.shape[0])
     H = q.shape[2]
     if H % n != 0:
@@ -77,7 +77,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_si
     if flash:
         from bluefog_tpu_torch.kernels import flash_attention
 
-        out = flash_attention(qg, kg, vg, causal=causal)
+        out = flash_attention(qg, kg, vg, causal=causal, block_q=block_q, block_k=block_k,
+                              interpret=interpret, impl=impl)
     else:
         from bluefog_tpu_torch.models.transformer import dense_attention
 

@@ -3,8 +3,9 @@
 Counterpart of ``bluefog_tpu/profiling.py`` (``slope_time``,
 ``slope_time_fused``, ``segment_times``) together with a copy of the
 estimators that ``bench.py`` shares between the JAX package's benchmarks
-(``paired_slope``, ``conservative_delta``, ``subtract_rtt``), with the same
-rules and the same ``(seconds, used_fallback)`` contract.
+(``paired_slope``, ``conservative_delta``, ``subtract_rtt``, ``robust_min``,
+``throughput_range``, ``measure_rtt``), with the same rules and the same
+``(seconds, used_fallback)`` contract.
 
 Where the timed work runs on a CUDA tensor, each timed run is bracketed by
 two ``torch.cuda.Event``s on the current stream and ends in
@@ -36,7 +37,8 @@ import torch
 
 __all__ = ["slope_time", "slope_time_fused", "segment_times", "timed_region",
            "graph_seconds", "paired_slope", "conservative_delta", "subtract_rtt",
-           "device_profile", "device_timeline"]
+           "robust_min", "throughput_range", "measure_rtt", "device_profile",
+           "device_timeline"]
 
 
 def _on_cuda(obj) -> bool:
@@ -224,6 +226,42 @@ def subtract_rtt(total: float, rt: float, iters: int, label: str = "") -> float:
         )
         return total / iters
     return (total - rt) / iters
+
+
+def robust_min(ts: Sequence[float], label: str = "") -> float:
+    """The throughput-defining minimum, guarded on the low side: a stall in
+    a pass's small region deflates that pass's paired-slope time, and a
+    plain ``min`` would pick it.  Where the second smallest does not
+    reproduce the smallest within 3%, the second smallest is reported."""
+    s = sorted(ts)
+    if len(s) >= 2 and (s[1] - s[0]) / s[0] > 0.03:
+        print(
+            f"robust-min{' (' + label + ')' if label else ''}: smallest "
+            f"pass {s[0] * 1e3:.1f} ms not reproduced by 2nd "
+            f"{s[1] * 1e3:.1f} ms within 3% -- reporting the 2nd "
+            "(guards stall-deflated slopes)",
+            file=sys.stderr,
+        )
+        return s[1]
+    return s[0]
+
+
+def throughput_range(times: Sequence[float], scale: float) -> list:
+    """``[lo, hi]`` throughput (``scale`` / seconds) over the passes."""
+    return [round(scale / max(times), 2), round(scale / min(times), 2)]
+
+
+def measure_rtt(x: torch.Tensor, n: int = 3) -> float:
+    """Seconds of one synchronization round trip on the materialized tensor
+    ``x``, the mean of ``n``: ``torch.cuda.synchronize()`` and a scalar
+    fetch of ``x`` on the card, the scalar fetch alone (host clock, no
+    device) on the CPU.  The fallback of :func:`paired_slope`."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        x.reshape(-1)[0].item()
+    return (time.perf_counter() - t0) / n
 
 
 def device_timeline(prof) -> Dict:

@@ -166,6 +166,22 @@ Phases, each printing one JSON line:
                against the sequential blocks.
 19. expert   -- examples/moe_gossip at the same widths, 8 experts, ep 4 and
                ep 1, dp 2, batch 4 x 512, 3 steps each: loss for loss.
+19b. bench_twins -- the benchmark twins (bluefog_tpu_torch/benchmarks):
+               (a) the Llama twin (benchmarks/llama.py) at the small
+               widths, 4 ranks, batch 2 x 2048, 4 iterations, one pass,
+               the gossip phase and the allreduce baseline, once with
+               AdamW and once with Adafactor: finite losses, each bf16
+               kernel launched layers x ranks x the steps the run took,
+               vs_baseline and the MFU keys; (b) the blockwise route
+               (impl="xla") against the kernels at [24, 2048, 64]: o, lse
+               and gradients by the bf16 rule, no launch of its own;
+               (c) the attention twin at S = 1024 and 2048 (flash, dense
+               and SDPA forward + backward); (d) the forward A/B at
+               B4/H12/T2048/D64 (the kernel, the blockwise route, SDPA);
+               (e) the decomposition at small, one round; (f) the peaks
+               as their own process (bf16 and f32 matmul rates, the HBM
+               stream at one kernel a pass by a profiler trace, the
+               dispatch cost).
 20. islands_native -- the island runtime's native library, built by g++
                from bluefog_tpu_torch/native/*.cc (started in a thread at
                the top, beside the nvcc builds): build seconds, the g++
@@ -252,7 +268,8 @@ Phases, each printing one JSON line:
                reaches the caller and no segment is left.
 Phases 8-12, 14 and 18-27 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel,
-zero_8b and analysis_interactive paths, the f32 rows' the f32_path,
+zero_8b, bench_twins (its Llama runs) and analysis_interactive paths, the
+f32 rows' the f32_path,
 seq_parallel and tensor_parallel paths.
 
 Then the kernel table, the nvidia-smi line, and the result line.  Any
@@ -2703,6 +2720,166 @@ def phase_expert(torch):
     check(max(rel) <= PAR_TOL, f"expert: ep={EP_RANKS} against ep=1 losses {rel}")
 
 
+TWIN_LLAMA = ["--preset", "small", "--size", str(RANKS), "--batch", str(BATCH), "--iters", "4",
+              "--passes", "1", "--warmup", "1", "--device", "cuda"]
+TWIN_XLA_SHAPE = (BATCH, 2048, 12, 64)  # [B, T, H, D]: BH = 24, the main path's
+TWIN_ATTN_SEQS = (1024, 2048)
+TWIN_FWD_AB = ["--chain", "20", "--group", "3", "--repeats", "2", "--device", "cuda"]
+
+
+def _twin_llama(torch, fa, llama, optimizer):
+    """One run of the Llama twin (both phases) at the small widths with the
+    counts set to 0 just before: finite losses, each bf16 kernel launched
+    layers x ranks x the steps the run took, none of the f32 ones."""
+    fa.reset_launches()
+    out = llama.run(llama._parser().parse_args(TWIN_LLAMA + ["--optimizer", optimizer]))
+    counts = dict(fa.launches)
+    emit({"phase": "bench_twins", "part": f"llama_{optimizer}", **out, "launches": counts,
+          "launches_f32": dict(fa.launches_f32)})
+    want = out["layers"] * RANKS * out["steps"]
+    check(all(n == want for n in counts.values()),
+          f"bench_twins: llama {optimizer} launched {counts}, expected {want} each")
+    check(not any(fa.launches_f32.values()), f"bench_twins: f32 kernels ran: {fa.launches_f32}")
+    nums = out["losses"] + [out["value"], out["vs_baseline"], out["mfu_vs_989tf_bf16"],
+                            out["mfu_attn_incl"]]
+    check(all(math.isfinite(x) and x > 0 for x in nums), f"bench_twins: llama {optimizer} {nums}")
+    check(out["effective_attn"] == "cuda kernels", f"bench_twins: {out['effective_attn']}")
+    return counts
+
+
+def _twin_xla_route(torch, fa):
+    """The blockwise route (impl="xla") on the card against the kernels on
+    the same bf16 inputs: o and lse, and dq, dk, dv of <o, g> + <lse, g_lse>.
+    The two round p and dS to bf16 at different points (the route as the
+    reference's XLA code, with exp; the kernels with exp2 and the scale
+    folded), so as in TRUTH_CASES the element gate is the float64 truth's
+    (TOLERANCE_TRUTH, the route against the kernels) and the norm gate the
+    bf16 rule's; the element ratio against the kernels is reported beside
+    it.  lse by the bf16 rule.  The blockwise route launches no kernel."""
+    from bluefog_tpu_torch.benchmarks.flash_bf16_rounding import truth
+
+    b, t, h, d = TWIN_XLA_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    g_lse = torch.randn(b, h, t, generator=gen, device="cuda")
+    res = {}
+    for impl in ("cuda", "xla"):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = dict(fa.launches)
+        o, lse = fa.flash_attention_with_lse(*xs, causal=True, impl=impl)
+        ((o.float() * g.float()).sum() + (lse * g_lse).sum()).backward()
+        torch.cuda.synchronize()
+        res[impl] = {"o": o.detach(), "lse": lse.detach(),
+                     **{f"d{n}": x.grad for n, x in zip("qkv", xs)},
+                     "launches": {kk: fa.launches[kk] - before[kk] for kk in before}}
+    check(res["cuda"]["launches"] == {"fwd": 1, "dkv": 1, "dq": 1}, f"bench_twins: {res}")
+    check(not any(res["xla"]["launches"].values()),
+          f"bench_twins: the blockwise route launched {res['xla']['launches']}")
+
+    def fold(x):  # [B, T, H, D] -> [B*H, T, D], the kernels' layout
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, d)
+
+    qf, kf, vf, gf = (fold(x) for x in (q, k, v, g))
+    scale = 1.0 / math.sqrt(d)
+    lse64 = torch.empty(b * h, t, dtype=torch.float64, device="cuda")
+    mask = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    for h0 in range(0, b * h, 8):
+        s64 = (qf[h0:h0 + 8].double() @ kf[h0:h0 + 8].double().transpose(1, 2)) * scale
+        lse64[h0:h0 + 8] = torch.logsumexp(s64.masked_fill(~mask, -math.inf), -1)
+    del s64
+    o64 = truth(qf, kf, vf, gf, lse64, torch.zeros_like(lse64), scale)["o"]
+    corr64 = g_lse.reshape(b * h, t).double() - (o64 * gf.double()).sum(-1)
+    exact = {"o": o64, **truth(qf, kf, vf, gf, lse64, corr64, scale)}
+    row = {"phase": "bench_twins", "part": "xla_route", "shape_bthd": TWIN_XLA_SHAPE,
+           "tolerance": TOLERANCE, "element_gate": TOLERANCE_TRUTH}
+    failures = []
+    for what in ("o", "dq", "dk", "dv"):
+        got, ref = fold(res["xla"][what]), fold(res["cuda"][what])
+        check(torch.isfinite(got).all().item(), f"bench_twins: xla route non-finite {what}")
+        err, ratio, norm_rel = compare(got, ref)
+        excess = excess_over_reference(got, ref, exact[what])
+        row.update({f"{what}_max_abs_err": err, f"{what}_tol_ratio": ratio,
+                    f"{what}_norm_rel_err": norm_rel, f"{what}_excess_over_kernel_vs_truth": excess,
+                    f"{what}_kernel_vs_truth_tol_ratio": compare(ref, exact[what])[1]})
+        if excess > 1.0 or norm_rel > NORM_REL:
+            failures.append(f"{what}: {excess:.3g} x the element tolerance beyond the kernels "
+                            f"from float64, norm {norm_rel:.3g}")
+    lse_err, lse_ratio = compare_lse(res["xla"]["lse"], res["cuda"]["lse"])
+    row["lse_max_abs_err"] = lse_err
+    if lse_ratio > 1.0:
+        failures.append(f"lse: max error {lse_err} > {LSE_ABS}")
+    emit(row)
+    check(not failures, f"bench_twins: the xla route against the kernels: {failures}")
+
+
+def phase_bench_twins(torch, fa):
+    """The benchmark twins on the card: (a) the Llama twin at the small
+    widths, RANKS ranks, batch BATCH, 4 iterations and one pass, with adamw
+    and with adafactor; (b) the blockwise route against the kernels at
+    [24, 2048, 64]; (c) the attention twin at TWIN_ATTN_SEQS; (d) the
+    forward A/B at B4/H12/T2048/D64; (e) the decomposition at small, one
+    round; (f) the peaks, in a process of their own.  Returns the bf16
+    counts of (a)."""
+    from bluefog_tpu_torch.benchmarks import attention, attention_fwd_ab, llama, llama_decompose
+
+    t_phase = time.perf_counter()
+    _free_device_cache(torch)
+    counts = {kk: 0 for kk in fa.launches}
+    for optimizer in ("adamw", "adafactor"):
+        for kk, n in _twin_llama(torch, fa, llama, optimizer).items():
+            counts[kk] += n
+        _free_device_cache(torch)
+    _twin_xla_route(torch, fa)
+
+    fa.reset_launches()
+    att = attention.run(attention._parser().parse_args(
+        ["--seqs", *map(str, TWIN_ATTN_SEQS), "--device", "cuda"]))
+    emit({"phase": "bench_twins", "part": "attention", **att, "launches": dict(fa.launches)})
+    check(att["vs_baseline"] is not None and all(
+        math.isfinite(r[key]) and r[key] > 0 for r in att["by_seq"]
+        for key in ("flash_ms", "sdpa_ms", "dense_ms")), f"bench_twins: attention {att}")
+    check(all(fa.launches.values()), f"bench_twins: attention launched {fa.launches}")
+    _free_device_cache(torch)
+
+    fa.reset_launches()
+    ab = attention_fwd_ab.measure(attention_fwd_ab._parser().parse_args(TWIN_FWD_AB))
+    emit({"phase": "bench_twins", "part": "attention_fwd_ab", **ab,
+          "launches": dict(fa.launches)})
+    check(all(math.isfinite(ab[key]) and ab[key] > 0 for key in ("cuda_ms", "xla_ms", "sdpa_ms")),
+          f"bench_twins: fwd A/B {ab}")
+    check(fa.launches["fwd"] > 0 and fa.launches["dkv"] == fa.launches["dq"] == 0,
+          f"bench_twins: the forward A/B launched {fa.launches}")
+
+    fa.reset_launches()
+    dec = llama_decompose.measure(llama_decompose._parser().parse_args(
+        ["--preset", "small", "--rounds", "1", "--device", "cuda"]))
+    emit({"phase": "bench_twins", "part": "llama_decompose", **dec,
+          "launches": dict(fa.launches)})
+    check(math.isfinite(dec["per_block_ms"]) and dec["per_block_ms"] > 0
+          and math.isfinite(dec["embed_head_ms"]), f"bench_twins: decomposition {dec}")
+    check(all(fa.launches.values()), f"bench_twins: decomposition launched {fa.launches}")
+    _free_device_cache(torch)
+
+    # its own process, as a user runs it: the stream's kernel count reads a
+    # profiler trace, and this process has traced other phases before
+    run = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.benchmarks.peaks"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=300)
+    check(run.returncode == 0, f"bench_twins: peaks exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+    pk = json.loads(run.stdout.strip().splitlines()[-1])
+    emit({"phase": "bench_twins", "part": "peaks", **pk,
+          "phase_seconds": time.perf_counter() - t_phase})
+    rates = [pk[key]["tflops"] for key in ("bf16_matmul_4096", "bf16_matmul_8192",
+                                           "f32_matmul_4096", "f32_tf32_matmul_4096")]
+    check(all(math.isfinite(x) and x > 0 for x in rates + [pk["hbm_stream"]["gbs"]]),
+          f"bench_twins: peaks {pk}")
+    check(pk["hbm_stream"]["kernels_per_pass"] == 1.0,
+          f"bench_twins: the stream pass launched {pk['hbm_stream']['kernels_per_pass']} kernels")
+    return counts
+
+
 def _free_device_cache(torch):
     """Free what the earlier phases cached: the island phases start
     processes of their own on the card."""
@@ -3436,6 +3613,7 @@ def main():
     counts_tp_f32 = phase_tensor_parallel(torch, fa)
     phase_pipeline(torch)
     phase_expert(torch)
+    counts_bt = phase_bench_twins(torch, fa)
     phase_islands_native(native_build)
     phase_islands_async(torch)
     phase_islands_overlap(torch)
@@ -3459,9 +3637,10 @@ def main():
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k],
          "launches": counts[k] + counts_1b[k] + counts_sp[k] + counts_z8[k]
-         + counts_ai[k],
+         + counts_bt[k] + counts_ai[k],
          "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k],
                                "seq_parallel": counts_sp[k], "zero_8b": counts_z8[k],
+                               "bench_twins": counts_bt[k],
                                "analysis_interactive": counts_ai[k]},
          **table[k]}
         for k in ("fwd", "dkv", "dq")] + [
