@@ -89,11 +89,18 @@ def matmul_peak(dim: int, dtype: torch.dtype, k_lo: int = 4, k_hi: int = 24, n: 
 
 def _kernels_per_pass(step: Callable[[], object], passes: int = 2) -> float:
     """Device operations a call of ``step`` runs, from the timeline of a
-    profiled run (``profiling.device_timeline``: kernels, copies, sets)."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(passes):
-            step()
-        torch.cuda.synchronize()
+    profiled run (``profiling.device_timeline``: kernels, copies, sets).
+    The profiler traces one cycle of ``passes`` calls and discards it before
+    the cycle it counts: a trace's first device activity can be lost while
+    the tracing starts up (a pair of passes once read 0.5 a pass)."""
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=sched) as prof:
+        for _ in range(2):  # the warm-up cycle, then the counted one
+            for _ in range(passes):
+                step()
+            torch.cuda.synchronize()
+            prof.step()
     return device_timeline(prof)["device_ops"] / passes
 
 

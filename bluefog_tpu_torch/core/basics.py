@@ -1,20 +1,30 @@
-"""Context basics: init, size, topology installation.
+"""Context basics: init, size, topology installation, and the process
+layout of the multi-process mode.
 
 Counterpart of ``bluefog_tpu/core/basics.py`` on the rank-major backend:
-``N`` virtual ranks live along dim 0 of every tensor on one device, the
-twin of the JAX package's one-rank-per-device mesh.  Where the JAX context
-builds a ``Mesh``, this one records the device and the rank count; the
-topology is compiled into a cached :class:`CommPlan` the same way.  The
-context also holds the one-sided window state of
-:mod:`bluefog_tpu_torch.windows`.  The ``torch.distributed`` backend (one
-process per rank) is not ported yet.
+``N`` ranks live along dim 0 of every tensor, the twin of the JAX
+package's one-rank-per-device mesh.  Where the JAX context builds a
+``Mesh``, this one records the device and the rank count; the topology is
+compiled into a cached :class:`CommPlan` the same way.  The context also
+holds the one-sided window state of :mod:`bluefog_tpu_torch.windows`.
+
+One process holds every rank by default.  With ``init(distributed=True)``
+(the default under ``bftpu-torch-run -np N``, which exports the
+coordinator) the ranks spread over the launched processes as in the
+reference's ``jax.distributed`` world: a gloo process group
+(:mod:`bluefog_tpu_torch.core.distributed`), each process holding one
+contiguous block of ``size // nprocs`` ranks on its own device.  Eager ops
+then take and return this process's rows: :func:`to_rank_major_global`
+keeps them (from the full ``[size, ...]`` or from the block), and
+:func:`local_slice` gives them back, as in the reference.  :func:`rank`
+is the first rank of the block and :func:`local_ranks` lists it.
 
 Ranks are machine-major, as in the reference: ``rank // local_size`` is the
-machine, so a machine's ranks are one contiguous block of the rank axis.
-The reference's sharding plumbing (``mesh``, ``hierarchical_mesh``,
-``rank_major_sharding``, ``replicated_sharding``, ``to_rank_major_global``,
-``local_slice``) has no counterpart here: every rank's row lives in one
-tensor on one device, so there is nothing to shard or assemble.
+machine, so a machine's ranks are one contiguous block of the rank axis;
+without an explicit ``local_size`` or ``BLUEFOG_SIMULATE_SLICES``, a
+process is a machine.  The reference's sharding objects (``mesh``,
+``hierarchical_mesh``, ``rank_major_sharding``, ``replicated_sharding``)
+have no counterpart: a process's rows live in one tensor on one device.
 """
 
 from __future__ import annotations
@@ -23,11 +33,14 @@ import os
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from bluefog_tpu_torch import topology_util
 from bluefog_tpu_torch.common.config import Config
 from bluefog_tpu_torch.common.logging_util import logger
+from bluefog_tpu_torch.core import distributed as _distributed
+from bluefog_tpu_torch.core.distributed import ProcessLayout
 from bluefog_tpu_torch.core.plan import CommPlan, compile_plan
 from bluefog_tpu_torch.topology_util import DiGraph
 
@@ -55,21 +68,25 @@ __all__ = [
     "is_topo_weighted",
     "is_machine_topo_weighted",
     "unified_mpi_window_model_supported",
+    "local_ranks",
+    "process_layout",
+    "to_rank_major_global",
+    "local_slice",
 ]
 
 
-def _machine_grid(size: int, local_size: Optional[int]) -> Tuple[int, int]:
+def _machine_grid(size: int, local_size: Optional[int], nprocs: int = 1) -> Tuple[int, int]:
     """``(machine_size, local_size)`` for ``size`` ranks, chosen as the
     reference's ``_machine_grid`` chooses them, in priority order:
 
     1. an explicit ``local_size``, which must divide ``size``;
     2. ``BLUEFOG_SIMULATE_SLICES=k`` (k > 1): k machines of ``size // k``
        ranks, k must divide ``size``;
-    3. one machine holding every rank.
+    3. several processes: one machine a process (its block of ranks);
+    4. one machine holding every rank.
 
-    The reference's other branches group devices by TPU slice or by host
-    process; here one process holds every rank on one device, so there
-    is neither to group by."""
+    The reference's TPU-slice branch has no counterpart: a process's ranks
+    share one device."""
     if local_size is not None:
         if local_size < 1 or size % local_size != 0:
             raise ValueError(f"size {size} not divisible by local_size {local_size}")
@@ -81,6 +98,8 @@ def _machine_grid(size: int, local_size: Optional[int]) -> Tuple[int, int]:
             if size % k != 0:
                 raise ValueError(f"BLUEFOG_SIMULATE_SLICES={k} does not divide {size} ranks")
             return k, size // k
+    if nprocs > 1:
+        return nprocs, size // nprocs
     return 1, size
 
 
@@ -108,12 +127,16 @@ class BlueFogContext:
     """Global framework state for ``size`` virtual ranks on ``device``."""
 
     def __init__(self, size: int, device: torch.device,
-                 topology: Optional[DiGraph] = None, local_size: Optional[int] = None):
+                 topology: Optional[DiGraph] = None, local_size: Optional[int] = None,
+                 layout: Optional[ProcessLayout] = None):
         if size < 1:
             raise ValueError(f"size must be >= 1, got {size}")
         self.config = Config.from_env()
         self.size = int(size)
-        self.machine_size_, self.local_size_ = _machine_grid(self.size, local_size)
+        self.layout = layout or ProcessLayout(1, 0)
+        self.rows = self.layout.block(self.size)  # ranks this process holds
+        self.machine_size_, self.local_size_ = _machine_grid(self.size, local_size,
+                                                             self.layout.nprocs)
         self.device = device
         self._plan_cache: Dict[Tuple, CommPlan] = {}
         self._lock = threading.Lock()
@@ -177,22 +200,47 @@ class BlueFogContext:
 _context: Optional[BlueFogContext] = None
 
 
-def init(topology: Optional[DiGraph] = None, *, size: int,
-         local_size: Optional[int] = None, device=None) -> None:
-    """Initialize ``size`` virtual ranks on ``device`` (default: the card;
-    raises if there is none).  Default topology: ``ExponentialTwoGraph``.
+def init(topology: Optional[DiGraph] = None, *, size: Optional[int] = None,
+         local_size: Optional[int] = None, device=None,
+         distributed: Optional[bool] = None) -> None:
+    """Initialize ``size`` ranks on ``device`` (default: the card; raises if
+    there is none).  Default topology: ``ExponentialTwoGraph``.
+
+    ``size`` defaults to ``BFTPU_SIMULATE`` (``bftpu-torch-run --simulate
+    N``), which also makes the default device the CPU: the caller asked
+    for N ranks there.
+
+    ``distributed`` (default: whether the launcher's coordinator env,
+    ``BFTPU_COORDINATOR_ADDRESS``, is set) joins the gloo process group of
+    the launched processes; ``size`` is then the global rank count and
+    this process holds ranks ``rank() ... rank() + size // nprocs - 1``.
+    A failed rendezvous raises.
 
     ``local_size`` sets the ranks a machine for the hierarchical ops; by
-    default ``BLUEFOG_SIMULATE_SLICES=k`` makes k machines, and without it
-    all ranks form one machine (see :func:`_machine_grid`).  With more than
-    one machine the machine topology defaults to
+    default ``BLUEFOG_SIMULATE_SLICES=k`` makes k machines, else each
+    process is one (see :func:`_machine_grid`).  With more than one
+    machine the machine topology defaults to
     ``ExponentialTwoGraph(machine_size)``."""
     global _context
-    _context = BlueFogContext(size, resolve_device(device), topology, local_size)
+    sim = os.environ.get("BFTPU_SIMULATE")
+    if size is None:
+        if not sim:
+            raise ValueError("init() needs size= (or BFTPU_SIMULATE, as "
+                             "bftpu-torch-run --simulate N exports it)")
+        size = int(sim)
+        if device is None:
+            device = "cpu"
+    if distributed is None:
+        distributed = _distributed.coordinator_from_env() is not None
+    dev = resolve_device(device)
+    layout = _distributed.init_process_group() if distributed else None
+    _context = BlueFogContext(size, dev, topology, local_size, layout)
 
 
 def shutdown() -> None:
-    """Free every window and release the context."""
+    """Free every window and release the context (the process group stays
+    up, as the reference's ``jax.distributed`` does, so a later ``init``
+    rejoins it)."""
     global _context
     if _context is not None:
         _context.windows.clear()
@@ -217,9 +265,84 @@ def size() -> int:
 
 
 def rank() -> int:
-    """Always 0: one process holds every rank and ops act on all of them."""
-    context()
-    return 0
+    """The first rank this process holds: 0 in one process, which holds
+    every rank and whose ops act on all of them; with several processes,
+    the first of its contiguous block (``machine_rank() * local_size()``
+    under the default grid)."""
+    ctx = context()
+    return ctx.layout.first(ctx.size)
+
+
+def local_ranks() -> List[int]:
+    """The global ranks this process holds, in order (one contiguous
+    block)."""
+    ctx = context()
+    r0 = ctx.layout.first(ctx.size)
+    return list(range(r0, r0 + ctx.rows))
+
+
+def process_layout() -> Optional[ProcessLayout]:
+    """The process layout when several processes share the ranks; None in
+    one process or before :func:`init`."""
+    ctx = _context
+    if ctx is None or ctx.layout.nprocs == 1:
+        return None
+    return ctx.layout
+
+
+def _tree_map(fn, x):
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return fn(x)
+
+
+def to_rank_major_global(x):
+    """A tree of rank-major arrays as this process's rows on the context's
+    device.  Each leaf is either the full ``[size, ...]`` (the same in
+    every process, e.g. replicated parameters) or this process's block
+    ``[len(local_ranks()), ...]`` (e.g. its data shard); a full leaf keeps
+    the block.  A leaf that requires grad comes back as a fresh leaf that
+    requires grad.  In one process the leaves are moved to the device."""
+    ctx = context()
+    r0, b = ctx.layout.first(ctx.size), ctx.rows
+
+    def leaf(a):
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+        if ctx.layout.nprocs == 1:
+            return t.to(ctx.device)
+        if t.dim() == 0 or t.shape[0] not in (ctx.size, b):
+            raise ValueError(
+                f"rank-major leaf has leading dim {tuple(t.shape[:1])}; expected "
+                f"size={ctx.size} (full, the same in every process) or {b} (this "
+                f"process's rank rows {local_ranks()})")
+        if t.shape[0] == ctx.size and ctx.size != b:
+            grad = t.requires_grad
+            t = t.detach()[r0:r0 + b].to(ctx.device, copy=True)
+            return t.requires_grad_(grad)
+        return t.to(ctx.device)
+
+    return _tree_map(leaf, x)
+
+
+def local_slice(x):
+    """This process's rank rows of a tree of rank-major tensors, on the
+    host: the read-side inverse of :func:`to_rank_major_global`.  A leaf
+    that holds every rank ``[size, ...]`` gives this process's block; a
+    leaf of this process's rows, or a replicated value, is returned as it
+    is (never duplicated).  In one process every leaf is the full value."""
+    ctx = context()
+    r0, b = ctx.layout.first(ctx.size), ctx.rows
+
+    def leaf(a):
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+        t = t.detach()
+        if ctx.layout.nprocs > 1 and t.dim() and t.shape[0] == ctx.size != b:
+            t = t[r0:r0 + b]
+        return t.cpu()
+
+    return _tree_map(leaf, x)
 
 
 def local_size() -> int:

@@ -20,7 +20,15 @@ re-sharding in place of the ring; ``--attention flash`` runs the flash
 kernels a hop, ``dense`` the plain f32 ring (no kernel), as the
 reference's flag does.
 
+Under ``bftpu-torch-run -np P`` the data-parallel path runs over P
+processes (``init`` joins their gloo group): each trains its block of
+``size // P`` ranks, the gossip moves the rows that cross a process
+boundary, and the process's JSON line gives every rank's losses (gathered
+over the group) and, a step, the bytes that crossed and the host staging
+and transfer time (``cross_process``).
+
 Run (one H100):  python -m bluefog_tpu_torch.examples.llama_pretrain --preset small
+                 bftpu-torch-run -np 2 -- python -m bluefog_tpu_torch.examples.llama_pretrain --preset small
                  python -m bluefog_tpu_torch.examples.llama_pretrain --preset 1b --kv-heads 2 --batch 2
                  python -m bluefog_tpu_torch.examples.llama_pretrain --preset small --seq 8192 --batch 2 --seq-parallel [--striped | --ulysses]
 Run (CPU):       python -m bluefog_tpu_torch.examples.llama_pretrain --preset tiny --device cpu
@@ -41,6 +49,8 @@ import torch
 
 import bluefog_tpu_torch as bf
 from bluefog_tpu_torch import topology_util
+from bluefog_tpu_torch.core import basics
+from bluefog_tpu_torch.core import distributed as _dist
 from bluefog_tpu_torch.kernels import make_flash_attention_fn
 from bluefog_tpu_torch.models.transformer import LlamaLM
 from bluefog_tpu_torch.optim import Adafactor, CommunicationType, TraceSGD
@@ -263,11 +273,14 @@ def run(args: argparse.Namespace,
     try:
         dev = bf.device()
         n = bf.size()
+        lay = basics.process_layout()
         model = build_model(args, cfg, layers, head_chunks,
                             make_flash_attention_fn() if args.attention == "flash" else None)
         # the model stays on the host: the step calls it on the rank-major
         # leaves' slices, so its own weights need no copy on the card
         params = replicate_for_mesh({k: v.to(dev) for k, v in model.named_parameters()}, n)
+        if lay is not None:  # this process's block of ranks
+            params = basics.to_rank_major_global(params)
         n_params = sum(v[0].numel() for v in params.values())
         opt = make_optimizer(optimizer, model, params, lr)
         apply_fn, loss_fn = make_lm_loss_fns(model)
@@ -279,11 +292,30 @@ def run(args: argparse.Namespace,
         around = setup(params, opt) if setup is not None else None
         rng = np.random.default_rng(args.seed)
         toks = make_streams(rng, cfg["vocab"], n * B * args.steps, T)
-        data = torch.from_numpy(toks).view(args.steps, n, B, T).to(dev)
+        data = torch.from_numpy(toks).view(args.steps, n, B, T)
+        crossed = []  # a step: what crossed processes, the losses' gather excluded
+
+        def step(s):
+            before = _dist.transfer_stats()
+            losses = step_fn(data[s], data[s])[0]
+            if lay is None:
+                return losses
+            after = _dist.transfer_stats()
+            crossed.append({k: after[k] - before[k] for k in
+                            ("bytes_sent", "bytes_received", "messages", "staging_s",
+                             "wire_s")})
+            return _dist.all_gather_rows(losses)  # every rank's, in rank order
+
+        if lay is not None:
+            r0 = lay.first(n)
+            data = data[:, r0:r0 + n // lay.nprocs]
+        data = data.to(dev)
+        fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
+        before = {k: fa.launches[k] + fa.launches_f32[k] for k in fa.launches}
         with around if around is not None else contextlib.nullcontext():
-            timed = _timed_steps(lambda s: step_fn(data[s], data[s])[0], args.steps,
-                                 dev, args.profile)
-        with torch.no_grad():
+            timed = _timed_steps(step, args.steps, dev, args.profile)
+        launched = {k: fa.launches[k] + fa.launches_f32[k] - before[k] for k in before}
+        with torch.no_grad():  # over this process's ranks
             spread = max(float(v.float().std(dim=0).max()) for v in params.values())
         out = {
             "preset": args.preset, "layers": layers, "ranks": n, "batch": B,
@@ -296,8 +328,13 @@ def run(args: argparse.Namespace,
             "losses": timed.pop("losses"),
             "step_ms": timed.pop("step_ms"),
             "tokens_per_s": n * B * T / (timed.pop("steady_ms") / 1e3),
-            "consensus_spread": spread, "device": str(dev), **timed,
+            "consensus_spread": spread, "device": str(dev),
+            "flash_launches": launched, **timed,
         }
+        if lay is not None:
+            out.update(processes=lay.nprocs, process=lay.pid,
+                       ranks_held=basics.local_ranks(), cross_process=crossed,
+                       spread_over="this process's ranks")
         return out
     finally:
         bf.shutdown()

@@ -15,18 +15,29 @@ counterparts of ``ops_spmd``'s; the rest is the eager veneer of
 ``hierarchical_neighbor_allreduce``, ``allgather``, ``barrier``, and a
 ``_nonblocking`` form of every collective returning a :class:`Handle`.
 Each eager op runs inside a :func:`~bluefog_tpu_torch.timeline.timeline_context`.
+
+With several processes (``init(distributed=True)``) every function takes
+this process's rows ``[size // nprocs, ...]`` and returns its rows of the
+result: a shift class gathers its in-process sources by ``index_select``
+and the others by :func:`bluefog_tpu_torch.core.distributed.exchange`
+(only the rows that cross a process boundary move); the global
+collectives reduce each process's partial result over the process group.
+A tensor that holds every rank ``[size, ...]`` is computed in the process
+as before.  Transfers are complete when a function returns, so a
+nonblocking handle completes only after them.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from bluefog_tpu_torch import topology_util
 from bluefog_tpu_torch.core import basics
+from bluefog_tpu_torch.core import distributed as _dist
 from bluefog_tpu_torch.core.plan import CommPlan, plan_from_neighbor_lists
 from bluefog_tpu_torch.timeline import timeline_context
 
@@ -168,6 +179,37 @@ def _handle(value) -> Handle:
     return Handle(value, device=basics.context().device)
 
 
+#: the layout of a tensor that holds every rank: one process's block
+_WHOLE = _dist.ProcessLayout(1, 0)
+
+
+def _rows_layout(a: torch.Tensor, n: int) -> _dist.ProcessLayout:
+    """How ``a``'s rows lie over an axis of ``n`` ranks: ``_WHOLE`` when it
+    holds all ``n`` (one process, or a tensor every process holds whole),
+    the process layout when it holds this process's block of them."""
+    lay = basics.process_layout()
+    rows = a.shape[0] if a.dim() else 0
+    if rows == n:
+        return _WHOLE
+    if lay is not None and n % lay.nprocs == 0 and rows == n // lay.nprocs:
+        return lay
+    extra = "" if lay is None else f" or this process's {n // lay.nprocs}"
+    raise ValueError(f"rank axis has {rows} entries, plan size is {n}{extra}")
+
+
+def _gather(a: torch.Tensor, src: Tuple[int, ...], lay: _dist.ProcessLayout) -> torch.Tensor:
+    """Row ``d`` of the result is global row ``src[d]`` of ``a``, for each of
+    the rows ``a`` holds (:func:`~bluefog_tpu_torch.core.distributed.exchange`)."""
+    return _dist.exchange(a, _dist.schedule(src, lay.nprocs, lay.pid))
+
+
+def _eager_rows(x):
+    """An eager op's input as this process's rows on the context's device
+    (:func:`~bluefog_tpu_torch.core.basics.to_rank_major_global`); in one
+    process the input as it is."""
+    return x if basics.process_layout() is None else basics.to_rank_major_global(x)
+
+
 # --------------------------------------------------------------------------
 # Global collectives
 # --------------------------------------------------------------------------
@@ -178,16 +220,21 @@ def allreduce(x, average: bool = True, name: Optional[str] = None):
     result.  The mean of an integer tensor is float32; the sum keeps the
     tensor's dtype."""
     del name
+    lay = basics.process_layout()
 
     def red(a):
-        if average:
+        if lay is not None and _rows_layout(a, basics.context().size).nprocs > 1:
+            part = a.to(_weight_dtype(a) if average else a.dtype).sum(0, keepdim=True)
+            r = _dist.all_reduce_sum(part)
+            r = r / basics.context().size if average else r
+        elif average:
             r = a.to(_weight_dtype(a)).mean(0, keepdim=True)
         else:
             r = a.sum(0, keepdim=True, dtype=a.dtype)
         return r.expand_as(a).clone()
 
     with timeline_context("allreduce"):
-        return tree_map(red, x)
+        return tree_map(red, _eager_rows(x))
 
 
 def allreduce_nonblocking(x, average: bool = True, name: Optional[str] = None) -> Handle:
@@ -197,8 +244,19 @@ def allreduce_nonblocking(x, average: bool = True, name: Optional[str] = None) -
 def broadcast(x, root_rank: int = 0, name: Optional[str] = None):
     """Every rank gets ``root_rank``'s value."""
     del name
+
+    def bcast(a):
+        lay = basics.process_layout()
+        n = a.shape[0] if lay is None else basics.context().size
+        if lay is None or _rows_layout(a, n).nprocs == 1:
+            return a[root_rank].expand_as(a).clone()
+        b = a.shape[0]
+        owner = root_rank // b
+        row = a[root_rank - lay.first(n)] if owner == lay.pid else torch.empty_like(a[0])
+        return _dist.broadcast_from(row.contiguous(), owner).expand_as(a).clone()
+
     with timeline_context("broadcast"):
-        return tree_map(lambda a: a[root_rank].expand_as(a).clone(), x)
+        return tree_map(bcast, _eager_rows(x))
 
 
 def broadcast_nonblocking(x, root_rank: int = 0, name: Optional[str] = None) -> Handle:
@@ -209,13 +267,16 @@ def allgather(x, name: Optional[str] = None):
     """Every rank gets the concatenation, along its per-rank axis 0, of all
     ranks' tensors: ``[size, n0, ...]`` in, ``[size, size * n0, ...]`` out."""
     del name
+    lay = basics.process_layout()
 
     def gather(a):
-        flat = a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
+        full = (a if lay is None or _rows_layout(a, basics.context().size).nprocs == 1
+                else _dist.all_gather_rows(a))
+        flat = full.reshape((full.shape[0] * full.shape[1],) + full.shape[2:])
         return flat.unsqueeze(0).expand((a.shape[0],) + flat.shape).contiguous()
 
     with timeline_context("allgather"):
-        return tree_map(gather, x)
+        return tree_map(gather, _eager_rows(x))
 
 
 def allgather_nonblocking(x, name: Optional[str] = None) -> Handle:
@@ -223,10 +284,13 @@ def allgather_nonblocking(x, name: Optional[str] = None) -> Handle:
 
 
 def barrier() -> None:
-    """Block until all work issued on the context's device is done."""
+    """Block until all work issued on the context's device is done and,
+    with several processes, until every process has reached the barrier."""
     dev = basics.context().device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    if basics.process_layout() is not None:
+        _dist.barrier()
 
 
 # --------------------------------------------------------------------------
@@ -236,12 +300,11 @@ def barrier() -> None:
 
 @functools.lru_cache(maxsize=64)
 def _plan_tensors(plan: CommPlan, self_weight, dtype, device):
-    """(self weights [N], [(src index [N], recv weights [N]) per class]) on
+    """(self weights [N], [(sources, recv weights [N]) per class]) on
     ``device`` — built once per plan, dtype and device."""
     sw = plan.self_weights if self_weight is None else [self_weight] * plan.size
     classes = tuple(
-        (torch.tensor(cls.sources(), dtype=torch.long, device=device),
-         torch.tensor(cls.recv_weights, dtype=dtype, device=device))
+        (cls.sources(), torch.tensor(cls.recv_weights, dtype=dtype, device=device))
         for cls in plan.classes)
     return torch.tensor(sw, dtype=dtype, device=device), classes
 
@@ -258,17 +321,17 @@ def neighbor_allreduce_plan(x, plan: CommPlan, *, self_weight: Optional[float] =
     shift class is one gather per dtype group; the result is the same
     either way."""
     def nar(a):
-        if a.shape[0] != plan.size:
-            raise ValueError(f"rank axis has {a.shape[0]} entries, plan size is {plan.size}")
+        lay = _rows_layout(a, plan.size)
         wdt = average_dtype or _weight_dtype(a)
         sw, classes = _plan_tensors(plan, None if self_weight is None
                                     else float(self_weight), wdt, a.device)
-        bshape = (plan.size,) + (1,) * (a.dim() - 1)
-        acc = a.to(wdt) * sw.view(bshape)
+        bshape = (a.shape[0],) + (1,) * (a.dim() - 1)
+        rows = slice(lay.first(plan.size), lay.first(plan.size) + a.shape[0])
+        acc = a.to(wdt) * sw[rows].view(bshape)
         # gather in the NARROWER of storage/average dtype
         wire = a if a.element_size() <= torch.finfo(wdt).bits // 8 else a.to(wdt)
         for src, w in classes:
-            acc.addcmul_(w.view(bshape), wire.index_select(0, src).to(wdt))
+            acc.addcmul_(w[rows].view(bshape), _gather(wire, src, lay).to(wdt))
         return acc
 
     leaves, spec = tree_flatten(x)
@@ -279,7 +342,8 @@ def neighbor_allreduce_plan(x, plan: CommPlan, *, self_weight: Optional[float] =
         groups.setdefault(leaf.dtype, []).append(i)
     out = [None] * len(leaves)
     for idxs in groups.values():
-        mixed = nar(torch.cat([leaves[i].reshape(plan.size, -1) for i in idxs], dim=1))
+        mixed = nar(torch.cat([leaves[i].reshape(leaves[i].shape[0], -1) for i in idxs],
+                              dim=1))
         off = 0
         for i in idxs:
             n = leaves[i][0].numel()
@@ -289,16 +353,18 @@ def neighbor_allreduce_plan(x, plan: CommPlan, *, self_weight: Optional[float] =
 
 
 @functools.lru_cache(maxsize=64)
-def _gather_tensors(plan: CommPlan, device):
-    """(receiving ranks, their slots, their sources) over every class of
-    ``plan``, as index tensors on ``device``."""
-    dst, slot, src = [], [], []
+def _gather_tensors(plan: CommPlan, lay: _dist.ProcessLayout, device):
+    """Per class of ``plan``: (its sources, the receiving rows of ``lay``'s
+    block, their slots), the rows and slots as index tensors on ``device``."""
+    r0, b = lay.first(plan.size), lay.block(plan.size)
+    out = []
     for cls in plan.classes:
-        for s, d in cls.perm:
-            dst.append(d)
-            slot.append(cls.slot_index[d])
-            src.append(s)
-    return tuple(torch.tensor(v, dtype=torch.long, device=device) for v in (dst, slot, src))
+        dst = [d for _, d in cls.perm if r0 <= d < r0 + b]
+        out.append((cls.sources(),
+                    torch.tensor([d - r0 for d in dst], dtype=torch.long, device=device),
+                    torch.tensor([cls.slot_index[d] for d in dst], dtype=torch.long,
+                                 device=device)))
+    return tuple(out)
 
 
 def neighbor_allgather_plan(x, plan: CommPlan):
@@ -309,12 +375,10 @@ def neighbor_allgather_plan(x, plan: CommPlan):
     maxd = plan.max_in_degree
 
     def nag(a):
-        if a.shape[0] != plan.size:
-            raise ValueError(f"rank axis has {a.shape[0]} entries, plan size is {plan.size}")
-        out = a.new_zeros((plan.size, maxd) + a.shape[1:])
-        if maxd:
-            dst, slot, src = _gather_tensors(plan, a.device)
-            out[dst, slot] = a.index_select(0, src)
+        lay = _rows_layout(a, plan.size)
+        out = a.new_zeros((a.shape[0], maxd) + a.shape[1:])
+        for src, dst, slot in _gather_tensors(plan, lay, a.device):
+            out[dst, slot] = _gather(a, src, lay)[dst]
         return out
 
     return tree_map(nag, x)
@@ -330,8 +394,12 @@ def hierarchical_neighbor_allreduce_plan(x, machine_plan: CommPlan, *,
     ``ops_spmd.hierarchical_neighbor_allreduce``).  The output is in the
     weight dtype (float32 for integers)."""
     m = machine_plan.size
+    lay = basics.process_layout()
+    n = basics.context().size if lay is not None else None
 
     def hnar(a):
+        if lay is not None and a.shape[0] != n:
+            return _hnar_rows(a, machine_plan, self_weight, lay, n)
         if a.shape[0] % m:
             raise ValueError(f"rank axis has {a.shape[0]} entries, not a multiple of "
                              f"{m} machines")
@@ -343,6 +411,29 @@ def hierarchical_neighbor_allreduce_plan(x, machine_plan: CommPlan, *,
     return tree_map(hnar, x)
 
 
+def _hnar_rows(a, machine_plan: CommPlan, self_weight, lay, n: int):
+    """``hierarchical_neighbor_allreduce_plan`` on this process's rows ``a
+    [n // nprocs, ...]``.  Where every machine lies inside one process the
+    machine means are taken in the process and the machine rows cross by
+    :func:`neighbor_allreduce_plan`; where a machine spans processes, each
+    process's per-machine partial sums are summed over the group and every
+    process mixes all machine rows."""
+    m = machine_plan.size
+    if n % m:
+        raise ValueError(f"{n} ranks are not a multiple of {m} machines")
+    local, b, r0 = n // m, a.shape[0], lay.first(n)
+    wdt = _weight_dtype(a)
+    if b % local == 0:
+        avg = a.to(wdt).reshape((b // local, local) + a.shape[1:]).mean(1)
+        mixed = neighbor_allreduce_plan(avg, machine_plan, self_weight=self_weight)
+        return mixed.unsqueeze(1).expand((b // local, local) + mixed.shape[1:]).reshape(a.shape)
+    mine = torch.arange(r0, r0 + b, device=a.device) // local
+    part = a.new_zeros((m,) + a.shape[1:], dtype=wdt).index_add_(0, mine, a.to(wdt))
+    avg = _dist.all_reduce_sum(part) / local
+    mixed = neighbor_allreduce_plan(avg, machine_plan, self_weight=self_weight)
+    return mixed.index_select(0, mine)
+
+
 @functools.lru_cache(maxsize=64)
 def _pairwise_tensors(send_to, size, self_weight, peer_weight, dtype, device):
     src = list(range(size))
@@ -352,8 +443,7 @@ def _pairwise_tensors(send_to, size, self_weight, peer_weight, dtype, device):
             raise ValueError(f"rank {d} receives twice in {send_to}")
         src[d], mask[d] = s, 1.0
     keep = [self_weight + (1.0 - m) * peer_weight for m in mask]
-    return (torch.tensor(src, dtype=torch.long, device=device),
-            torch.tensor(keep, dtype=dtype, device=device),
+    return (tuple(src), torch.tensor(keep, dtype=dtype, device=device),
             torch.tensor([m * peer_weight for m in mask], dtype=dtype, device=device))
 
 
@@ -368,14 +458,14 @@ def pairwise_gossip(x, send_to, size: Optional[int] = None, *, self_weight: floa
 
     def g(a):
         n = a.shape[0] if size is None else size
-        if a.shape[0] != n:
-            raise ValueError(f"rank axis has {a.shape[0]} entries, size is {n}")
+        lay = _rows_layout(a, n)
         wdt = _weight_dtype(a)
         src, keep, peer = _pairwise_tensors(pairs, n, float(self_weight),
                                             float(peer_weight), wdt, a.device)
-        bshape = (n,) + (1,) * (a.dim() - 1)
-        out = a.to(wdt) * keep.view(bshape)
-        return out.addcmul_(peer.view(bshape), a.index_select(0, src).to(wdt))
+        bshape = (a.shape[0],) + (1,) * (a.dim() - 1)
+        rows = slice(lay.first(n), lay.first(n) + a.shape[0])
+        out = a.to(wdt) * keep[rows].view(bshape)
+        return out.addcmul_(peer[rows].view(bshape), _gather(a, src, lay).to(wdt))
 
     return tree_map(g, x)
 
@@ -463,7 +553,7 @@ def neighbor_allreduce(x, self_weight=None, src_weights: WeightsArg = None,
                 plan = ctx.plan_for(ctx.topology, self_weight=sw)
         else:
             plan = _dynamic_plan(ctx.size, self_weight, src_weights, dst_weights)
-        return neighbor_allreduce_plan(x, plan)
+        return neighbor_allreduce_plan(_eager_rows(x), plan)
 
 
 def neighbor_allreduce_nonblocking(x, self_weight=None, src_weights: WeightsArg = None,
@@ -497,7 +587,7 @@ def neighbor_allgather(x, src_ranks: RanksArg = None, dst_ranks: RanksArg = None
         return a
 
     with timeline_context("neighbor_allgather"):
-        return tree_map(finish, neighbor_allgather_plan(x, plan))
+        return tree_map(finish, neighbor_allgather_plan(_eager_rows(x), plan))
 
 
 def neighbor_allgather_nonblocking(x, src_ranks: RanksArg = None, dst_ranks: RanksArg = None,
@@ -518,7 +608,7 @@ def hierarchical_neighbor_allreduce(x, self_weight: Optional[float] = None,
             "no machine topology; call set_machine_topology() (machine_size="
             f"{ctx.machine_size_})")
     with timeline_context("hierarchical_neighbor_allreduce"):
-        return hierarchical_neighbor_allreduce_plan(x, ctx.machine_plan,
+        return hierarchical_neighbor_allreduce_plan(_eager_rows(x), ctx.machine_plan,
                                                     self_weight=self_weight)
 
 

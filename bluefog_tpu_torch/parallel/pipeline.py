@@ -12,12 +12,15 @@ layers to what it holds (one ``torch.func.vmap`` of ``stage_fn`` over the
 stage axis, the fill and drain bubbles included, as the reference's
 devices compute them), the last stage banks microbatch m at tick ``m + pp
 - 1``, and the stream shifts one stage along (stage 0 receiving zeros,
-as a ``ppermute`` without a source gives).  The banked outputs are the
-result, replicated: every caller sees the last stage's.
+as a ``ppermute`` without a source gives): a ``cat`` that moves every row
+to the next stage, which the collective inventory files as the
+reference's collective-permute.  The banked outputs are the result,
+replicated as in the reference: the last stage's, by a masked sum over
+the stage axis (its psum) through the ``g`` operator.
 
 Autograd differentiates the schedule end to end, and the gradients are
-the sequential model's: the result is the last stage's outputs once, so
-nothing is scaled by pp (the reference needs its ``g`` operator for that).
+the sequential model's: ``g`` is the identity backward, so nothing is
+scaled by pp.
 Wrap ``stage_fn`` in ``torch.utils.checkpoint`` for rematerialised long
 pipelines.
 """
@@ -29,6 +32,7 @@ from typing import Any, Callable
 import torch
 
 from bluefog_tpu_torch.ops import tree_flatten, tree_unflatten
+from bluefog_tpu_torch.parallel.tensor_parallel import reduce_from_tp_region
 
 __all__ = ["pipeline_apply", "stack_stage_params", "PP_AXIS"]
 
@@ -67,7 +71,12 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor], stage_
         state = torch.cat([inject.unsqueeze(0), state[1:]])
         state = stages(stage_params, state)
         if t >= n - 1:  # the last stage banks microbatch t - (n - 1)
-            outs.append(state[n - 1])
+            outs.append(state)
         # stream every in-flight activation one stage forward
         state = torch.cat([torch.zeros_like(state[:1]), state[:-1]])
-    return torch.stack(outs).reshape((total,) + x.shape[1:])
+    # replicate the last stage's outputs to every stage: the reference's
+    # masked psum, a g operator (identity backward)
+    banked = torch.stack(outs, 1)  # [pp, num_micro, mb, ...]
+    last = torch.arange(n, device=x.device).view((n,) + (1,) * (banked.dim() - 1)) == n - 1
+    banked = reduce_from_tp_region(torch.where(last, banked, torch.zeros_like(banked)))
+    return banked.reshape((total,) + x.shape[1:])

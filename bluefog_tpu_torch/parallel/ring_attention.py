@@ -141,14 +141,6 @@ def _check_striped(striped, causal, tq, tk):
             f"block fallback")
 
 
-def _ranks(x: torch.Tensor, start: int, count: int, n: int) -> torch.Tensor:
-    """Ranks ``start, start+1, ... (mod n)``, ``count`` of them, of ``x [n, ...]``."""
-    start %= n
-    if start + count <= n:
-        return x[start:start + count]
-    return torch.cat([x[start:], x[:start + count - n]])
-
-
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_size: int, *,
                    causal: bool = True, striped: bool = False) -> torch.Tensor:
     """Exact blockwise attention across ``axis_size`` sequence shards, in
@@ -297,12 +289,12 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis
 
     o = lse = None  # [n, B, H, Tq, D] and [n, B, H, Tq], f32
     for step in range(n):
+        # the hop: rank idx now holds the key block of rank idx - step
+        ks, vs = (torch.roll(x, step, 0) if step else x for x in (k4, v4))
         pieces_o, pieces_lse = [], []
         for hop in hop_launches(step, n, tq, tk, causal=causal, striped=striped):
             r, c = hop.ranks, len(hop.ranks)
-            # ranks r hold the key blocks of ranks r - step
-            qkv = (q4[r.start:r.stop], _ranks(k4, r.start - step, c, n),
-                   _ranks(v4, r.start - step, c, n))
+            qkv = (q4[r.start:r.stop], ks[r.start:r.stop], vs[r.start:r.stop])
             o_s, lse_s = flash_attention_with_lse(
                 *(x.reshape(c * b, *x.shape[2:]) for x in qkv),
                 q_start=hop.q_start, k_start=hop.k_start, causal=hop.causal,

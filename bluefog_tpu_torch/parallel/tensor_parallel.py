@@ -66,7 +66,9 @@ class _CopyToTp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, tp):
-        return x.unsqueeze(0).expand((tp,) + x.shape)
+        # a new leading axis by expand alone: one view a shard, which the
+        # collective inventory does not take for a gather of a rank axis
+        return x.expand((tp,) + x.shape)
 
     @staticmethod
     def backward(ctx, g):
@@ -84,7 +86,7 @@ class _ReduceFromTp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.unsqueeze(0).expand((ctx.tp,) + g.shape)
+        return g.expand((ctx.tp,) + g.shape)
 
 
 def copy_to_tp_region(x: torch.Tensor, tp: int) -> torch.Tensor:

@@ -22,10 +22,13 @@ What the reference spells as collectives is arithmetic on the leading
 axes:
 
 - ``all_gather`` over ``bf_local``: a machine's ``[local, shard]`` rows
-  read as its padded vector;
-- ``psum_scatter / local``: the mean of the machine's local gradients, the
-  elementwise rule then updating each ``[shard]`` row of the grid alone
-  (one call over the machine's rows, since the rule is elementwise);
+  read as its padded vector, one view a local rank (an ``expand``, which
+  copies nothing);
+- ``psum_scatter / local``: each local rank's whole gradient, viewed as
+  ``[local, shard]`` blocks, added into one ``[local, shard]``
+  accumulator (block s to rank s), then the mean; the elementwise rule
+  then updates each ``[shard]`` row of the grid alone (one call over the
+  machine's rows, since the rule is elementwise);
 - ``neighbor_allreduce`` over ``bf_machines``:
   :func:`bluefog_tpu_torch.ops.neighbor_allreduce_plan` on the machine
   axis (dim 0), shard by shard or leaf by leaf.
@@ -269,12 +272,16 @@ def make_zero_gossip_train_step(
         master, opt = state["master"], state["opt"]
         losses = []
         for m in range(machines):
+            # all_gather over bf_local: every rank reads the machine's shards
+            # as the whole vector (a view, nothing is copied)
+            full = master[m].detach().reshape(-1).unsqueeze(0).expand(local, -1)
             g = torch.zeros_like(master[m])  # [local, shard] f32
             for r in range(local):
-                vec = master[m].reshape(-1).detach().requires_grad_()
+                vec = full[r].requires_grad_()
                 loss = loss_of(unpack_params(vec, layout, compute_dtype), batch[m, r],
                                labels[m, r])
                 (grad,) = torch.autograd.grad(loss, vec)
+                # psum_scatter: block s of rank r's gradient goes to rank s
                 g += grad.view_as(g)
                 losses.append(loss.detach().float())
             g /= local

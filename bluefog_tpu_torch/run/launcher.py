@@ -13,15 +13,24 @@ socket), ``--serve-replicas K`` adds inference replicas
 fleet publishes, and at exit the job's shm segments are reclaimed and its
 telemetry and traces merged.
 
-The reference's jax.distributed mode (``-np`` without ``--islands``,
-``--coordinator``, ``--process-id``) and its ``--simulate`` CPU mesh wait
-for the ``torch.distributed`` backend: asking for any of them is an
-error that says so.  ``--monitor`` spawns the passive fleet monitor
+Without ``--islands`` it is the reference's multi-process launcher on the
+``torch.distributed`` backend (:mod:`bluefog_tpu_torch.core.distributed`,
+gloo): ``-np N`` (or ``-H``) spawns N processes, locally or over ssh, with
+``BFTPU_COORDINATOR_ADDRESS`` / ``BFTPU_NUM_PROCESSES`` /
+``BFTPU_PROCESS_ID`` set, so ``init(distributed=None)`` joins their
+group, retrying once on a fresh port when every child fails at once;
+``--coordinator`` / ``--process-id`` export the same for one process and
+exec it; ``--simulate N`` exports ``BFTPU_SIMULATE=N``: ``init()`` then
+runs N ranks in one process on the CPU.  ``--monitor`` spawns the passive fleet monitor
 (``python -m bluefog_tpu_torch.monitor --daemon``) beside the islands and
 ``--lab-probe`` turns on each rank's convergence probe.  Only this
 package's environment is forwarded (no ``JAX_*`` / ``XLA_*`` / ``TPU_*``).
 
 Usage:
+  bftpu-torch-run -np 2 python train.py             # 2 processes, gloo group
+  bftpu-torch-run -H a:1,b:1 python train.py        # one process a host (ssh)
+  bftpu-torch-run --coordinator h:1234 -np 2 --process-id 1 python train.py
+  bftpu-torch-run --simulate 8 python train.py      # 8 ranks on the CPU
   bftpu-torch-run --islands 4 python async_train.py  # N async islands
   bftpu-torch-run --islands 4 -H a:2,b:2 python async_train.py
                                                # islands across machines
@@ -54,6 +63,12 @@ import tempfile
 import threading
 import time
 
+from bluefog_tpu_torch.core.distributed import (
+    ENV_COORDINATOR,
+    ENV_NUM_PROCESSES,
+    ENV_PROCESS_ID,
+)
+
 __all__ = ["main", "build_env", "parse_hosts", "ssh_command", "env_whitelist",
            "control_sock_path"]
 
@@ -62,9 +77,6 @@ __all__ = ["main", "build_env", "parse_hosts", "ssh_command", "env_whitelist",
 # config the same way).  The JAX package's launcher also forwards JAX_,
 # XLA_, LIBTPU_ and TPU_, which mean nothing to this package.
 _FORWARD_PREFIXES = ("BLUEFOG_", "BFTPU_", "PYTHONPATH")
-
-_A9 = ("the jax.distributed mode has no counterpart here yet: it waits for "
-       "the torch.distributed backend (ROADMAP A9); use --islands N")
 
 
 def build_env(args, base_env=None) -> dict:
@@ -78,6 +90,16 @@ def build_env(args, base_env=None) -> dict:
         # islands mode: straggler-aware gossip (resilience/adaptive.py);
         # plain env spelling BFTPU_ADAPTIVE=1 is forwarded anyway
         env["BFTPU_ADAPTIVE"] = "1"
+    if getattr(args, "simulate", 0):
+        # N ranks in one process on the CPU (core/basics.init reads it)
+        env["BFTPU_SIMULATE"] = str(args.simulate)
+    # the multi-process rendezvous, read by core/distributed.init_process_group
+    if getattr(args, "coordinator", None):
+        env[ENV_COORDINATOR] = args.coordinator
+    if getattr(args, "np", None) is not None:
+        env[ENV_NUM_PROCESSES] = str(args.np)
+    if getattr(args, "process_id", None) is not None:
+        env[ENV_PROCESS_ID] = str(args.process_id)
     if getattr(args, "lab_probe", False):
         # islands mode: per-rank convergence probe (lab/probe.py); plain
         # env spelling BFTPU_LAB_PROBE=1 is forwarded anyway
@@ -143,7 +165,7 @@ def ssh_command(host: str, cmd, env: dict, cwd: str,
     the working directory, and execs the user command.  ``pidfile`` records
     the remote shell's pid (kept by ``exec``) so teardown can kill the real
     remote process — killing the local ssh client alone would orphan it."""
-    pid = f"echo $$ > {shlex.quote(pidfile)}; " if pidfile else ""
+    pid = f"echo $$ > {_shell_path(pidfile)}; " if pidfile else ""
     inner = "{}cd {} && exec env {} {}".format(
         pid,
         shlex.quote(cwd),
@@ -152,6 +174,25 @@ def ssh_command(host: str, cmd, env: dict, cwd: str,
     )
     return ["ssh", "-o", "BatchMode=yes", "-o", "StrictHostKeyChecking=no",
             host, inner]
+
+
+# the remote shell's temporary directory: a pidfile under it is named
+# relative to the remote ${TMPDIR:-/tmp}, expanded there
+_REMOTE_TMP = "${TMPDIR:-/tmp}/"
+
+
+def _shell_path(path: str) -> str:
+    """``path`` as one word of a remote shell command, with a leading
+    :data:`_REMOTE_TMP` left for that shell to expand."""
+    if path.startswith(_REMOTE_TMP):
+        return '"${TMPDIR:-/tmp}"/' + shlex.quote(path[len(_REMOTE_TMP):])
+    return shlex.quote(path)
+
+
+def _run_tag() -> str:
+    """This launch's name for its remote pidfiles: the launcher's pid and
+    the second it started."""
+    return f"bftpu-torch-run-{os.getpid()}-{int(time.time())}"
 
 
 class _Rank:
@@ -176,7 +217,7 @@ def _spawn_rank(host: str, cmd, child_env: dict, tag: str, r: int) -> _Rank:
     if _is_local_host(host):
         proc = subprocess.Popen(cmd, env=child_env, start_new_session=True)
         return _Rank(proc, host)
-    pidfile = f"/tmp/{tag}-r{r}.pid"
+    pidfile = f"{_REMOTE_TMP}{tag}-r{r}.pid"
     full = ssh_command(host, cmd, env_whitelist(child_env), os.getcwd(),
                        pidfile=pidfile)
     return _Rank(subprocess.Popen(full, start_new_session=True), host, pidfile)
@@ -210,7 +251,7 @@ def _kill_remote(ranks, sig="TERM"):
     teardown — the local ssh client's death does not reach them)."""
     for rk in ranks:
         if rk.remote and rk.proc.poll() is None:
-            pf = shlex.quote(rk.pidfile)
+            pf = _shell_path(rk.pidfile)
             _ssh_best_effort(
                 rk.host,
                 f"test -f {pf} && kill -{sig} $(cat {pf}); rm -f {pf}",
@@ -294,7 +335,7 @@ def _supervise(ranks, timeout: float) -> int:
                 by_host.setdefault(rk.host, []).append(rk.pidfile)
         for host, pfs in sorted(by_host.items()):
             _ssh_best_effort(
-                host, "rm -f " + " ".join(shlex.quote(p) for p in pfs))
+                host, "rm -f " + " ".join(_shell_path(p) for p in pfs))
     return code
 
 
@@ -606,8 +647,9 @@ def main(argv=None) -> int:
         "-np",
         type=int,
         default=None,
-        help="total number of processes; only the jax.distributed mode "
-        "reads it, which waits for ROADMAP A9 (use --islands N)",
+        help="total number of processes of the torch.distributed (gloo) group "
+        "(exported as BFTPU_NUM_PROCESSES); with no --process-id the launcher "
+        "spawns them",
     )
     parser.add_argument(
         "-H", "--hosts",
@@ -621,11 +663,13 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--coordinator",
         default=None,
-        help="jax.distributed coordinator (waits for ROADMAP A9)",
+        help="rendezvous HOST:PORT of the process group (exported as "
+        "BFTPU_COORDINATOR_ADDRESS)",
     )
     parser.add_argument(
         "--process-id", type=int, default=None,
-        help="jax.distributed process index (waits for ROADMAP A9)"
+        help="this process's index in the group (exported as BFTPU_PROCESS_ID); "
+        "with it the launcher execs the command instead of spawning"
     )
     parser.add_argument(
         "--timeout",
@@ -639,9 +683,8 @@ def main(argv=None) -> int:
         type=int,
         default=0,
         metavar="N",
-        help="the JAX package's virtual CPU mesh (waits for ROADMAP A9; "
-        "this package runs N rank-major ranks in one process with "
-        "init(size=N))",
+        help="run N ranks in one process on the CPU (exported as "
+        "BFTPU_SIMULATE: init() then defaults to size=N, device='cpu')",
     )
     parser.add_argument(
         "--islands",
@@ -746,10 +789,6 @@ def main(argv=None) -> int:
     if not args.command:
         parser.error("no command given; usage: bftpu-torch-run [options] "
                      "python train.py")
-    if args.simulate:
-        parser.error(f"--simulate: {_A9}")
-    if (args.coordinator or args.process_id is not None) and not args.islands:
-        parser.error(f"--coordinator / --process-id: {_A9}")
     cmd = args.command
     if cmd and cmd[0] == "--":
         cmd = cmd[1:]
@@ -760,10 +799,10 @@ def main(argv=None) -> int:
         if args.islands:
             if args.islands != total:
                 parser.error(f"--islands {args.islands} but -H lists {total} slots")
-        elif args.np is not None and args.np != total:
+        elif args.np is None:
+            args.np = total
+        elif args.np != total:
             parser.error(f"-np {args.np} but -H lists {total} slots")
-        else:
-            parser.error(f"-H without --islands: {_A9}")
 
     if args.serve_replicas and not args.islands:
         parser.error("--serve-replicas requires --islands (the snapshot "
@@ -774,8 +813,6 @@ def main(argv=None) -> int:
     if args.serve_remote and not args.serve_replicas:
         parser.error("--serve-remote requires --serve-replicas (it "
                      "selects how those replicas attach)")
-    if not args.islands:
-        parser.error(f"no --islands N given: {_A9}")
     env = build_env(args)
     if args.islands:
         return _run_islands(cmd, env, args.islands, args.job, hosts,
@@ -783,6 +820,16 @@ def main(argv=None) -> int:
                             serve_replicas=args.serve_replicas,
                             serve_remote=args.serve_remote,
                             serve_report=args.serve_report)
+    if args.np is not None and args.np > 1 and args.process_id is None:
+        # `-np N` with no process id: this launcher spawns the N processes
+        # of the group (the reference's `bfrun -np N` execs mpirun [U])
+        return _run_multiprocess(cmd, env, args.np, args.coordinator, hosts,
+                                 args.timeout)
+    try:
+        os.execvpe(cmd[0], cmd, env)
+    except FileNotFoundError:
+        print(f"bftpu-run: command not found: {cmd[0]}", file=sys.stderr)
+        return 127
 
 
 def _rank_hosts(hosts, nprocs: int) -> list:
@@ -793,6 +840,35 @@ def _rank_hosts(hosts, nprocs: int) -> list:
     for host, slots in hosts:
         out.extend([host] * slots)
     return out
+
+
+def _run_multiprocess(cmd, env, nprocs: int, coordinator, hosts,
+                      timeout: float) -> int:
+    """Spawn the ``nprocs`` processes of one gloo group: locally, or with
+    ``-H`` on their hosts (ssh for remote ones).  When every child fails
+    within 20 s of a launch on a port this launcher picked (the signature of
+    a rendezvous port that was not free), it retries once on a fresh one."""
+    by_rank = _rank_hosts(hosts, nprocs)
+    tag = _run_tag()
+    code = 1
+    for attempt in (0, 1):
+        coord = coordinator or f"{_head_address(by_rank)}:{_pick_port()}"
+        t0 = time.monotonic()
+        ranks = []
+        for r in range(nprocs):
+            child_env = dict(env)
+            child_env[ENV_COORDINATOR] = coord
+            child_env[ENV_NUM_PROCESSES] = str(nprocs)
+            child_env[ENV_PROCESS_ID] = str(r)
+            ranks.append(_spawn_rank(by_rank[r], cmd, child_env, tag, r))
+        code = _supervise(ranks, timeout)
+        if (code not in (0, 124) and coordinator is None and attempt == 0
+                and time.monotonic() - t0 < 20.0):
+            print("bftpu-run: launch failed fast; retrying with a fresh "
+                  "rendezvous port", file=sys.stderr)
+            continue
+        return code
+    return code
 
 
 def _cleanup_island_segments(job: str, by_rank) -> None:
@@ -891,7 +967,7 @@ def _run_islands(cmd, env, nranks: int, job, hosts, timeout: float,
     job = job or f"bfrun{os.getpid()}"
     by_rank = _rank_hosts(hosts, nranks)
     multi_host = hosts is not None and len(set(by_rank)) > 1
-    tag = f"bfrun-{os.getpid()}-{int(time.time())}"
+    tag = _run_tag()
     code = 1
 
     def spawn_joiner() -> _Rank:

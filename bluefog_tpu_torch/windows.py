@@ -17,6 +17,12 @@ slots locally.  Here every buffer is a rank-major tensor on one device:
   every receiver has one distinct source, so the writes never collide).
 - ``win_update`` is the local weighted combine.
 
+With several processes (``init(distributed=True)``) every window holds
+this process's rows of each buffer; the ops take and return its rows
+(a tree's leaves too), and a class's deposit moves the senders' scaled
+rows by :func:`bluefog_tpu_torch.core.distributed.exchange`, so only the
+rows that cross a process boundary leave the process.
+
 As in the JAX package, the realized schedule is the synchronous one
 (staleness 0), so ``win_mutex`` is a no-op.  With associated p on
 (``turn_on_win_ops_with_associated_p``) a scalar p rides along with every
@@ -141,9 +147,9 @@ class _Window:
     def __init__(self, name: str, tensor: torch.Tensor, plan: CommPlan, zero_init: bool):
         self.name = name
         self.plan = plan
-        self.shape = tuple(tensor.shape)  # rank-major [size, ...]
+        self.shape = tuple(tensor.shape)  # rank-major: this process's rows
         self.dtype = tensor.dtype
-        n, dev = plan.size, tensor.device
+        n, dev = tensor.shape[0], tensor.device
         maxd = max(plan.max_in_degree, 1)
         self.self_tensor = tensor
         if zero_init:
@@ -212,40 +218,42 @@ def _dev(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return _on_device(a.tobytes(), a.shape, a.dtype.str, device)
 
 
-def _routes(plan: CommPlan, scales: np.ndarray, active: np.ndarray, device):
-    """Per class that delivers anything: (receivers, their slots, their
-    sources, the sources' send scales [f32]) as device tensors."""
-    out = []
-    for c, cls in enumerate(plan.classes):
-        dst = np.nonzero(np.asarray(cls.recv_mask, bool) & (active[c] > 0))[0]
-        if dst.size == 0:
-            continue
-        src = np.asarray(cls.sources(), np.int64)[dst]
-        slot = np.asarray(cls.slot_index, np.int64)[dst]
-        out.append((_dev(dst.astype(np.int64), device), _dev(slot, device),
-                    _dev(src, device), _dev(scales[c, src].astype(np.float32), device)))
-    return out
-
-
 def _exchange_body(plan: CommPlan, accumulate: bool, with_p: bool, x, mail, ver,
                    p_self, p_mail, scales: np.ndarray, active: np.ndarray):
-    """Deposit the scaled rows of ``x`` into the receivers' slots, in place
-    on ``mail``, ``ver`` and ``p_mail``, which it returns.  Per class: the
-    senders' rows are gathered, scaled in the window's weight dtype and
-    rounded to the window dtype before they cross; each receiving rank d
+    """Deposit the scaled rows of ``x`` (all ranks, or this process's block)
+    into the receivers' slots, in place on ``mail``, ``ver`` and
+    ``p_mail``, which it returns.  Per class: each sender's row is scaled
+    by its send scale in the window's weight dtype and rounded to the
+    window dtype, the rows move by the class's schedule (every
+    non-receiving row reads itself, so it stays); each receiving rank d
     where ``recv_mask[d]`` and ``active[c, d]`` writes (or adds) its row into
     slot ``cls.slot_index[d]`` and bumps that slot's version; with
     associated p, ``p_self * scale`` moves the same way."""
+    n, b = plan.size, x.shape[0]
+    lay = ops._rows_layout(x, n)
+    r0 = lay.first(n)
     wdt = ops._weight_dtype(x)
     bshape = (-1,) + (1,) * (x.dim() - 1)
-    for dst, slot, src, scale in _routes(plan, scales, active, x.device):
-        payload = (x.index_select(0, src).to(wdt) * scale.to(wdt).view(bshape)).to(x.dtype)
+    for c, cls in enumerate(plan.classes):
+        recv = np.asarray(cls.recv_mask, bool) & (active[c] > 0)
+        if not recv.any():
+            continue
+        src = tuple(np.where(recv, np.asarray(cls.sources(), np.int64), np.arange(n)).tolist())
+        scale = _dev(scales[c, r0:r0 + b].astype(np.float32), x.device)
+        got = ops._gather((x.to(wdt) * scale.to(wdt).view(bshape)).to(x.dtype), src, lay)
+        p_got = ops._gather(p_self * scale, src, lay) if with_p else None
+        dst = np.nonzero(recv[r0:r0 + b])[0]
+        if dst.size == 0:
+            continue
+        slot = _dev(np.asarray(cls.slot_index, np.int64)[r0 + dst], x.device)
+        dst = _dev(dst.astype(np.int64), x.device)
+        payload = got[dst]
         if accumulate:
             payload = mail[dst, slot] + payload
         mail[dst, slot] = payload
         ver[dst, slot] = ver[dst, slot] + 1
         if with_p:
-            p_recvd = p_self.index_select(0, src) * scale
+            p_recvd = p_got[dst]
             if accumulate:
                 p_recvd = p_mail[dst, slot] + p_recvd
             p_mail[dst, slot] = p_recvd
@@ -276,7 +284,11 @@ class _FusionMeta:
 
 
 def _as_tensor(x) -> torch.Tensor:
+    """``x`` on the context's device; with several processes, this
+    process's rows of it (:func:`basics.to_rank_major_global`)."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if basics.process_layout() is not None:
+        return basics.to_rank_major_global(t)
     return t.to(_ctx().device)
 
 
@@ -297,7 +309,7 @@ def _fusion_split(tensor):
     leaves, spec = ops.tree_flatten(tensor)
     if not leaves:
         raise ValueError("win_create: empty pytree")
-    n = _ctx().size
+    n = _ctx().rows
     leaves = [_as_tensor(l) for l in leaves]
     dts = {l.dtype for l in leaves}
     if len(dts) > 1:
@@ -381,8 +393,8 @@ def win_create(tensor, name: str, zero_init: bool = False) -> bool:
     note_win_op("win_create", name)
     ctx = _ctx()
     meta, t = _fusion_split(tensor)
-    if t.dim() == 0 or t.shape[0] != ctx.size:
-        raise ValueError(f"win_create expects rank-major tensor with leading dim {ctx.size}")
+    if t.dim() == 0 or t.shape[0] != ctx.rows:
+        raise ValueError(f"win_create expects rank-major tensor with leading dim {ctx.rows}")
     if name in ctx.windows:
         return False
     ctx.windows[name] = _Window(name, t, ctx.plan, zero_init)
@@ -556,6 +568,8 @@ def _combine(self_tensor, mail, p_self, p_mail, wmat, swvec, *, wdt, with_p):
 def _apply_update(win: _Window, x, self_weight, neighbor_weights, reset: bool):
     ctx = _ctx()
     wmat, swvec = _update_weights(win, self_weight, neighbor_weights)
+    r0 = ctx.layout.first(ctx.size)
+    wmat, swvec = wmat[r0:r0 + x.shape[0]], swvec[r0:r0 + x.shape[0]]
     with_p = ctx.win_associated_p_enabled
     combined, p_self = _combine(x, win.mail, win.p_self, win.p_mail,
                                 _dev(wmat, x.device), _dev(swvec, x.device),
@@ -632,11 +646,12 @@ def win_mutex(name: str, for_self: bool = False, ranks: Optional[List[int]] = No
 
 
 def get_win_version(name: str) -> List[Dict[int, int]]:
-    """Per rank ``{in_neighbor: deposit count}``."""
+    """Per rank ``{in_neighbor: deposit count}`` (this process's ranks)."""
     win = _win(name)
     ver = win.versions.cpu().numpy()
-    return [{s: int(ver[d, k]) for k, s in enumerate(win.plan.in_neighbors[d])}
-            for d in range(win.plan.size)]
+    ranks = basics.local_ranks()
+    return [{s: int(ver[i, k]) for k, s in enumerate(win.plan.in_neighbors[d])}
+            for i, d in enumerate(ranks)]
 
 
 def win_associated_p(name: str) -> torch.Tensor:

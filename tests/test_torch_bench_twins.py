@@ -166,6 +166,16 @@ def test_a_twin_process_exits_non_zero_without_a_card():
     assert proc.returncode != 0 and proc.stdout == "" and "no CUDA device" in proc.stderr
 
 
+def test_parallel_costs_needs_the_card(capsys):
+    """``benchmarks/parallel_costs.py`` measures on the card only."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from bluefog_tpu_torch.benchmarks import parallel_costs
+
+    assert parallel_costs.main(["--only", "ring"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_llama_pretrain_takes_adafactor():
     from bluefog_tpu_torch.examples import llama_pretrain
 

@@ -5,13 +5,14 @@
 ``build_env``, ``parse_hosts``, ``ssh_command`` and the env whitelist are
 held to the reference's for the same arguments, apart from the JAX-only
 env (``JAX_*`` / ``XLA_*`` / ``TPU_*``), which the port neither sets nor
-forwards.  The reference's jax.distributed cases (``-np`` / ``-H``
-without ``--islands``, ``--simulate``) become the port's errors naming
-ROADMAP A9; their islands counterparts run here: ``-H localhost:2`` with
-the port's async example and ``--timeout`` over hung islands.  The
-reference's fake-ssh case is left out: an islands rank on a second host
-advertises that host's name to its TCP peers, and the shim's made-up
-host name would have to be resolved.  ``--serve-replicas`` drives
+forwards; the reference's jax.distributed rendezvous env
+(``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+and ``--simulate``'s CPU mesh) is the port's ``BFTPU_`` spelling of it.
+The reference's jax.distributed launches (``-np`` / ``-H`` without
+``--islands``, with its fake-ssh remote) run in
+``tests/test_torch_multihost.py``; their islands counterparts run here:
+``-H localhost:2`` with the port's async example and ``--timeout`` over
+hung islands.  ``--serve-replicas`` drives
 ``examples/serve_islands`` end to end on the CPU, and so do ``--monitor
 --lab-probe``; ``--attach JOB monitor`` reads a monitor store as the
 reference's attach does.
@@ -66,6 +67,24 @@ def _port_view(env: dict) -> dict:
     return {k: v for k, v in env.items() if not k.startswith(_JAX_ONLY)}
 
 
+# the reference's rendezvous env -> the port's spelling of it
+_RENDEZVOUS = {"JAX_COORDINATOR_ADDRESS": "BFTPU_COORDINATOR_ADDRESS",
+               "JAX_NUM_PROCESSES": "BFTPU_NUM_PROCESSES",
+               "JAX_PROCESS_ID": "BFTPU_PROCESS_ID"}
+
+
+def _port_spelling(env: dict, base: dict, simulate: int = 0) -> dict:
+    """The reference's child env as the port spells it: its JAX-only keys
+    dropped, the rendezvous it added under the port's names, and
+    ``--simulate N``'s CPU mesh as ``BFTPU_SIMULATE=N``."""
+    out = _port_view(env)
+    out.update({_RENDEZVOUS[k]: v for k, v in env.items()
+                if k in _RENDEZVOUS and k not in base})
+    if simulate:
+        out["BFTPU_SIMULATE"] = str(simulate)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the helpers, held to the reference's
 # ---------------------------------------------------------------------------
@@ -101,9 +120,28 @@ def test_build_env_matches_reference_apart_from_jax_env(kw):
     base = {"PATH": "/bin", "BFTPU_X": "1", "XLA_FLAGS": "--keep"}
     got = build_env(_args(**kw), base_env=base)
     want = ref.build_env(_args(**kw), base_env=base)
-    assert _port_view(got) == _port_view(want)
+    assert _port_view(got) == _port_spelling(want, base, kw.get("simulate", 0))
     # the port adds no JAX env of its own (it only carries what was there)
     assert {k for k in got if k.startswith(_JAX_ONLY)} <= set(base)
+
+
+def test_build_env_simulate():
+    """Twin of ``test_launcher_timeline.py::test_build_env_simulate``: the
+    reference points XLA at N host devices; the port asks ``init()`` for N
+    ranks on the CPU."""
+    env = build_env(_args(simulate=8), base_env={})
+    assert env["BFTPU_SIMULATE"] == "8"
+    assert not any(k.startswith(_JAX_ONLY) for k in env)
+
+
+def test_build_env_multihost():
+    """Twin of ``test_launcher_timeline.py::test_build_env_multihost``."""
+    env = build_env(_args(np=4, coordinator="h:1234", process_id=2),
+                    base_env={"PATH": "/bin"})
+    assert env["BFTPU_COORDINATOR_ADDRESS"] == "h:1234"
+    assert env["BFTPU_NUM_PROCESSES"] == "4"
+    assert env["BFTPU_PROCESS_ID"] == "2"
+    assert env["PATH"] == "/bin"
 
 
 def test_build_env_flags():
@@ -207,15 +245,50 @@ def test_main_no_command_errors(capsys):
 @pytest.mark.parametrize("argv,needle", [
     (["-np", "3", "-H", "localhost:2", "--", "true"], "-H lists 2 slots"),
     (["--islands", "3", "-H", "localhost:2", "--", "true"], "lists 2 slots"),
-    (["-np", "2", "--", "true"], "A9"),
-    (["-H", "localhost:2", "--", "true"], "A9"),
-    (["--simulate", "8", "--", "true"], "A9"),
     (["--serve-replicas", "1", "--", "true"], "requires --islands"),
 ])
 def test_parser_errors(argv, needle):
     proc = _run(argv, timeout=60)
     assert proc.returncode == 2, proc.stderr
     assert needle in proc.stderr
+
+
+_PRINT_ENV = ("import os; print(' '.join(os.environ.get(k, '-') for k in "
+              "('BFTPU_COORDINATOR_ADDRESS', 'BFTPU_NUM_PROCESSES', 'BFTPU_PROCESS_ID', "
+              "'BFTPU_SIMULATE')))")
+
+
+def test_np_spawns_each_process_with_the_rendezvous():
+    """``-np 2`` (once refused, naming the backend it waited for) spawns two
+    processes of one group: one coordinator, ids 0 and 1."""
+    proc = _run(["-np", "2", "--timeout", "100", "--", sys.executable, "-c", _PRINT_ENV])
+    assert proc.returncode == 0, proc.stderr
+    lines = sorted(proc.stdout.split("\n")[:-1])
+    assert len(lines) == 2
+    coords = {l.split()[0] for l in lines}
+    assert len(coords) == 1 and coords.pop().count(":") == 1
+    assert [l.split()[1:3] for l in lines] == [["2", "0"], ["2", "1"]]
+
+
+def test_hosts_alone_spawns_one_process_a_slot():
+    """``-H localhost:2`` without ``--islands`` (once refused) is ``-np 2``
+    on that host."""
+    proc = _run(["-H", "localhost:2", "--timeout", "100", "--", sys.executable, "-c",
+                 _PRINT_ENV])
+    assert proc.returncode == 0, proc.stderr
+    assert sorted(l.split()[2] for l in proc.stdout.split("\n")[:-1]) == ["0", "1"]
+
+
+def test_simulate_and_explicit_process_id_exec_the_command():
+    """``--simulate 8`` (once refused) and ``--coordinator`` /
+    ``--process-id`` export their env and exec the command itself."""
+    proc = _run(["--simulate", "8", "--", sys.executable, "-c", _PRINT_ENV], timeout=100)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["-", "-", "-", "8"]
+    proc = _run(["--coordinator", "h:1", "-np", "2", "--process-id", "1", "--",
+                 sys.executable, "-c", _PRINT_ENV], timeout=100)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["h:1", "2", "1", "-"]
 
 
 def test_monitor_and_lab_probe_islands_run_is_clean(tmp_path):
