@@ -31,8 +31,11 @@ converge to the exact average.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import itertools
 import os
+import signal
+import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -2931,6 +2934,9 @@ class DistributedWinPutOptimizer:
 
 
 def _spawn_worker(fn, r, nranks, job, args, q, tolerant=False):
+    # spawn() signals SIGUSR1 before it gives up on a rank that never
+    # reported: every thread's stack goes to stderr, so a hang shows where
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     try:
         init(r, nranks, job)
         out = fn(r, nranks, *args)
@@ -2960,6 +2966,20 @@ def _spawn_worker(fn, r, nranks, job, args, q, tolerant=False):
     else:
         barrier()
     shutdown(unlink=(r == 0))
+
+
+def _dump_stacks(procs, reported) -> None:
+    """Have each live rank that has not reported print its threads' stacks
+    to stderr (``faulthandler`` on SIGUSR1, armed by ``_spawn_worker``)."""
+    waiting = [(r, p) for r, p in enumerate(procs) if r not in reported and p.is_alive()]
+    for r, p in waiting:
+        print(f"island spawn: rank {r} (pid {p.pid}) never reported; its stacks:",
+              file=sys.stderr, flush=True)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(p.pid, signal.SIGUSR1)
+        time.sleep(0.5)  # one rank's dump before the next rank's
+    if waiting:
+        time.sleep(1.0)  # the dumps are written by the ranks themselves
 
 
 # distinguishes concurrent spawn() calls from one parent: pid alone is not
@@ -3027,6 +3047,7 @@ def spawn(fn, nranks: int, job: Optional[str] = None, timeout: float = 120.0,
                 continue
             if not allow_failures:
                 failures.append("timeout waiting for island results")
+                _dump_stacks(procs, results)
             break
         if ok:
             results[r] = out

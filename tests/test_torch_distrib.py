@@ -453,7 +453,7 @@ def _sub_worker(addr, replica_id, extra_env, q, stop_ev):
     while not stop_ev.is_set() and time.monotonic() < deadline:
         try:
             if rep.poll_swap():
-                crc = zlib.crc32(rep._current[3].tobytes()) & 0xFFFFFFFF
+                crc = zlib.crc32(rep._current[3].cpu().numpy().tobytes()) & 0xFFFFFFFF
                 q.put(("swap", replica_id, rep.version, src.reparents,
                        crc, src.slot))
         except (SnapshotUnavailable, OSError):

@@ -431,6 +431,21 @@ def _worker_dies(rank, size):
     return True
 
 
+def _worker_hangs(rank, size):
+    if rank == 1:
+        time.sleep(600)  # never reports
+    return True
+
+
+def test_spawn_timeout_dumps_the_stacks_of_ranks_that_never_reported(capfd):
+    """A rank that never reports is asked for its stacks before the spawn
+    gives up: they show where it hung."""
+    with pytest.raises(RuntimeError, match="timeout waiting for island results"):
+        islands.spawn(_worker_hangs, 2, timeout=30.0)
+    err = capfd.readouterr().err
+    assert "_worker_hangs" in err and "Thread" in err, err[-2000:]
+
+
 def test_spawn_surfaces_child_failure_and_death():
     with pytest.raises(RuntimeError, match="intentional"):
         islands.spawn(_worker_boom, 2, timeout=120.0)
