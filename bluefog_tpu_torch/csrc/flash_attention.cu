@@ -5,20 +5,21 @@
 //   dkv_kernel  <- _bwd_dkv_kernel  (:490, launched by _flash_bwd_pallas :686)
 //   dq_kernel   <- _bwd_dq_kernel   (:575, launched by _flash_bwd_pallas :708)
 //
-// Contract (same as the TPU kernels): q, k, v, o, dO are [BH, T, D] bf16,
-// contiguous; lse and corr are [BH, Tq] f32.  Causal masking uses global
+// Contract (same as the TPU kernels): q, k, v, o, dO are [BH, T, D] of one
+// type T, bf16 or f16, contiguous, D = 64, 128 or 256; lse and corr are
+// [BH, Tq] f32.  Causal masking uses global
 // positions (q_start + row, k_start + col; visible iff kpos <= qpos), so one
 // kernel serves plain attention and every ring-attention hop.  Rows with no
 // visible key give o = 0 and lse = -1e30.  Accumulation is f32; rounding
-// points match the TPU kernels: p is rounded to bf16 before p.V and p^T.dO,
-// dS is rounded to bf16 before dS.K and dS^T.Q, and the softmax scale
-// multiplies the dK and dQ accumulators once at the end.  lse is the
-// natural-log log-sum-exp.
+// points match the TPU kernels: p is rounded to T before p.V and p^T.dO
+// (the reference's p.astype(v.dtype)), dS is rounded to T before dS.K and
+// dS^T.Q (ds.astype(q.dtype)), and the softmax scale multiplies the dK and
+// dQ accumulators once at the end.  lse is the natural-log log-sum-exp.
 //
 // What bounds these kernels on the H100: at the main path's shapes (D = 64,
 // T = 2048) attention does ~64 flops per byte of q/k/v per key tile, so the
-// work is tensor-core bound (989 TFLOP/s bf16), and the causal mask leaves
-// blocks of very unequal length.
+// work is tensor-core bound (989 TFLOP/s bf16 and f16), and the causal mask
+// leaves blocks of very unequal length.
 //
 // All three kernels are built for Hopper (sm90_tile.cuh):
 //   * Products on wgmma.  A block is one producer warpgroup and two consumer
@@ -59,6 +60,22 @@
 //   the diagonal or past the end) skips its products but still releases
 //   the stage.
 //
+// D = 256 keeps that block where shared memory and registers allow: a block
+// gets 227 KB of shared memory, and a warpgroup's 64 x 256 f32 accumulator
+// is 128 registers a thread of the 240 a consumer holds.
+//   * Forward: the 64 KB Q tile and a ring of two 64 KB K/V stages.  A
+//     warpgroup runs its tiles in turn (S, softmax, P.V) while the producer
+//     fills the other stage: the overlap above would hold both stages.
+//   * dQ: the Q and dO tiles (128 KB) leave room for one K/V stage, so
+//     loads and products take turns.
+//   * dK/dV (kDkvSplit): two accumulators of 128 registers do not fit
+//     a warpgroup, so a block owns 64 keys and warpgroup w owns columns
+//     [128 w, 128 w + 128) of their dK and dV.  Both warpgroups compute the
+//     block's S^T and dP^T over the whole head dim (the score products
+//     twice, where sharing P and dS through shared memory would put a
+//     barrier between the warpgroups each tile); a ring of two Q/dO stages.
+// These are first versions, right before fast; PERF.md has their times.
+//
 // Every launcher runs on the caller's stream, allocates nothing and returns
 // 0, cudaGetLastError(), the error of the attribute call before it, or a
 // tensor-map encode failure (sm90_tile.cuh: kNoEncoder, kEncodeFailed + r).
@@ -77,30 +94,38 @@ constexpr float kMaskThresh = -0.5e30f;
 // Ring depths: a forward or dQ warpgroup holds two stages (the score
 // products' tile and the one before it, whose V or K its register product
 // still reads), a dK/dV warpgroup one.  Block shape and depths are the
-// fastest measured (benchmarks/flash_variants.py; PERF.md).
+// fastest measured (benchmarks/flash_variants.py; PERF.md).  D = 256 has
+// room for two forward stages and one dQ stage (above).
 constexpr int kFwdStages = 4;
 constexpr int kDqStages = 4;
 constexpr int kDkvStages = 2;
+constexpr int kFwdStages256 = 2, kDqStages256 = 1;
+template <int D>
+constexpr int kFwdRing = D == 256 ? kFwdStages256 : kFwdStages;
+template <int D>
+constexpr int kDqRing = D == 256 ? kDqStages256 : kDqStages;
 constexpr int kConsumers = 2;                  // consumer warpgroups a block
 constexpr int kBlockRows = 64 * kConsumers;    // rows a block owns
 constexpr int kSm90Threads = 128 * (kConsumers + 1);
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24*128 + 240*256 <= 64K
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// Store one warpgroup's 64 x D f32 accumulator (times `mul` per row half)
-// as bf16; row_g is this thread's first row, rows past `rows` are dropped.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 2], int row_g,
-                                          int rows, float mul0, float mul1, int t) {
+// Store one warpgroup's 64 x N f32 accumulator (times `mul` per row half)
+// as T into rows `ld` elements apart; row_g is this thread's first row,
+// rows past `rows` are dropped.
+template <int N, typename T>
+__device__ __forceinline__ void store_acc(T* out, const float (&acc)[N / 2], int row_g,
+                                          int rows, float mul0, float mul1, int t,
+                                          int ld = N) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_g + 8 * r;
     if (row >= rows) continue;
     const float mul = r ? mul1 : mul0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + 8 * j + 2 * t) =
-          pack_bf16(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * ld + 8 * j + 2 * t) =
+          pack2<T>(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
 }
 
@@ -111,29 +136,31 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 2], 
 
 template <int D>
 struct FwdSmem {
+  static constexpr int kStages = kFwdRing<D>;
   static constexpr int kQ = kBlockRows * D * 2;  // the block's Q tile, bytes
   static constexpr int kKV = kTile * D * 2;      // one K or V tile of a stage
   static constexpr size_t kBytes =
-      1024 + kQ + kFwdStages * 2 * kKV + (1 + 2 * kFwdStages) * 8;
+      1024 + kQ + kStages * 2 * kKV + (1 + 2 * kStages) * 8;
 };
 
 // S (64 x 64) = this warpgroup's Q rows . the staged K tile^T, issued; dQ
 // issues dP = its dO rows . the staged V tile^T through it too.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(sc, desc_k_major(q_addr, kBlockRows, kk), desc_k_major(k_addr, kTile, kk),
-                 kk);
+    wgmma_ss_n64<T>(sc, desc_k_major(q_addr, kBlockRows, kk), desc_k_major(k_addr, kTile, kk),
+                    kk);
 }
 
-// O += P (registers, bf16) . the staged V tile, issued; dQ issues dQ +=
+// O += P (registers, T) . the staged V tile, issued; dQ issues dQ +=
 // dS . the staged K tile through it too.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[4][4],
                                          uint32_t v_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, pa[kk], desc_mn_major(v_addr, kTile, kk));
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<D, T>(acc, pa[kk], desc_mn_major(v_addr, kTile, kk));
 }
 
 // One key tile of the online softmax.  sc holds raw scores; m is the
@@ -180,19 +207,20 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&alpha)[2
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+           const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
            float* __restrict__ lse, int tq, int tk, int q_start, int k_start, float scale,
            int causal) {
   using L = FwdSmem<D>;
+  constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align_1024(smem_raw);
   unsigned char* skv = sq + L::kQ;  // stage s: K at s * 2 kKV, V kKV after it
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + kFwdStages * 2 * L::kKV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + kStages * 2 * L::kKV);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kFwdStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // longest first
@@ -202,7 +230,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
     }
@@ -217,8 +245,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
       mbar_arrive_expect_tx(q_full, L::kQ);
       tma_load_rows<D>(sq, &tm_q, kBlockRows, q0, bh, q_full);
       for (int it = 0; it < n_kv; ++it) {
-        const int s = it % kFwdStages;
-        mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
         unsigned char* sk = skv + s * 2 * L::kKV;
         tma_load_rows<D>(sk, &tm_k, kTile, it * kTile, bh, &full[s]);
@@ -243,13 +271,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   if (causal && rows_in)
     n_own = min(n_kv, q_last_w >= k_start ? (q_last_w - k_start) / kTile + 1 : 0);
 
-  auto k_tile = [&](int it) { return smem_u32(skv + (it % kFwdStages) * 2 * L::kKV); };
+  auto k_tile = [&](int it) { return smem_u32(skv + (it % kStages) * 2 * L::kKV); };
   auto wait_full = [&](int it) {
-    mbar_wait(&full[it % kFwdStages], (it / kFwdStages) & 1);
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
   };
   auto release = [&](int it) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[it % kFwdStages]);
+    if (lane == 0) mbar_arrive(&empty[it % kStages]);
   };
   auto softmax = [&](float (&sc)[32], float (&alpha)[2], float (&m)[2], float (&l)[2],
                      int k0) {
@@ -263,28 +291,53 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   zero(acc);
   mbar_wait(q_full, 0);
 
-  // Software pipeline inside the warpgroup: S of key tile it runs on the
-  // tensor cores while the softmax of tile it - 1 is done, and P.V of tile
-  // it - 1 while the softmax of tile it is done.
-  if (n_own > 0) {
+  if constexpr (D == 256) {
+    // Tiles in turn: S, the softmax, P.V; the producer fills the other
+    // stage meanwhile.
+    float sc[32], alpha[2];
+    uint32_t pa[4][4];
+    for (int it = 0; it < n_own; ++it) {
+      wait_full(it);
+      zero(sc);
+      wgmma_fence();
+      issue_qk<T, D>(sc, q_addr, k_tile(it));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(sc, alpha, m, l, it * kTile);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(pa[kk], sc, kk);
+      wgmma_fence();
+      issue_pv<T, D>(acc, pa, k_tile(it) + L::kKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(it);
+    }
+  } else if (n_own > 0) {
+    // Software pipeline inside the warpgroup: S of key tile it runs on the
+    // tensor cores while the softmax of tile it - 1 is done, and P.V of
+    // tile it - 1 while the softmax of tile it is done.
     float sc[32], alpha[2];
     uint32_t pa[4][4];
     wait_full(0);
     zero(sc);
     wgmma_fence();
-    issue_qk<D>(sc, q_addr, k_tile(0));
+    issue_qk<T, D>(sc, q_addr, k_tile(0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     softmax(sc, alpha, m, l, 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], sc, kk);
+    for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(pa[kk], sc, kk);
     for (int it = 1; it < n_own; ++it) {
       wait_full(it);
       wgmma_fence();
-      issue_qk<D>(sc, q_addr, k_tile(it));
+      issue_qk<T, D>(sc, q_addr, k_tile(it));
       wgmma_commit();
-      issue_pv<D>(acc, pa, k_tile(it - 1) + L::kKV);
+      issue_pv<T, D>(acc, pa, k_tile(it - 1) + L::kKV);
       wgmma_commit();
       fence_regs(sc);
       fence_regs(acc);
@@ -299,10 +352,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], sc, kk);
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(pa[kk], sc, kk);
     }
     wgmma_fence();
-    issue_pv<D>(acc, pa, k_tile(n_own - 1) + L::kKV);
+    issue_pv<T, D>(acc, pa, k_tile(n_own - 1) + L::kKV);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -332,26 +385,149 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 // ---------------------------------------------------------------------------
 // dK/dV: one block per (bh, 128-key tile), the first tiles first; the
 // producer streams query tiles from the diagonal.  Each consumer warpgroup
-// owns 64 keys, so no two write the same dK/dV row.
+// owns 64 keys, so no two write the same dK/dV row.  (D = 256: a block of
+// 64 keys whose warpgroups own half the columns each, kDkvSplit below.)
 // ---------------------------------------------------------------------------
+
+// The first query tile of a dK/dV block whose keys start at k0: the first
+// that reaches one of its keys.
+__device__ __forceinline__ int first_query_tile(int k0, int tq, int q_start, int k_start,
+                                                int causal) {
+  if (!causal) return 0;
+  const int first = k_start + k0 - q_start;
+  const int n_qt = (tq + kTile - 1) / kTile;
+  return first <= 0 ? 0 : (first > tq - 1 ? n_qt : first / kTile);
+}
+
+// The producer warp of a dK/dV block: the block's `keys` rows of K and V
+// once, then from query tile it0 on, a stage a tile: Q and dO by TMA, and
+// lse (in log2 units) and corr stored by the warp's lanes.
+template <int D, int kStages>
+__device__ __forceinline__ void dkv_produce(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* lse, const float* corr, unsigned char* sk,
+    unsigned char* sv, unsigned char* sqg, float* stats, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, int keys, int k0, int bh, int it0, int n_it, int tq) {
+  constexpr int kQ = kTile * D * 2;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * keys * D * 2);
+    tma_load_rows<D>(sk, tm_k, keys, k0, bh, kv_full);
+    tma_load_rows<D>(sv, tm_v, keys, k0, bh, kv_full);
+  }
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* corr_bh = corr + (size_t)bh * tq;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages, q0 = (it0 + it) * kTile;
+    mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+    float* st = stats + s * 2 * kTile;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h, row = q0 + r;
+      st[r] = row < tq ? lse_bh[row] * kLog2e : 0.f;
+      st[kTile + r] = row < tq ? corr_bh[row] : 0.f;
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], 2 * kQ);
+      unsigned char* sq = sqg + s * 2 * kQ;
+      tma_load_rows<D>(sq, tm_q, kTile, q0, bh, &full[s]);
+      tma_load_rows<D>(sq + kQ, tm_do, kTile, q0, bh, &full[s]);
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// S^T and dP^T (64 keys x 64 queries) of one staged query tile, issued and
+// waited for: the keys' rows of K and V (K-major tiles of `key_rows` rows a
+// box) against the stage's Q and dO.
+template <typename T, int D>
+__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32], uint32_t k_addr,
+                                           uint32_t v_addr, int key_rows, uint32_t q_addr,
+                                           uint32_t g_addr) {
+  zero(st);
+  zero(dpt);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64<T>(st, desc_k_major(k_addr, key_rows, kk), desc_k_major(q_addr, kTile, kk),
+                    kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64<T>(dpt, desc_k_major(v_addr, key_rows, kk), desc_k_major(g_addr, kTile, kk),
+                    kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+}
+
+// P^T and dS^T (unscaled) in place of S^T and dP^T, packed as the register
+// A operands pa and da: p = 2^(s scale log2 e - lse log2 e), 0 where
+// masked, dS = p (dP + corr).  `need_mask`: some pair of the tile is not
+// visible (past the diagonal, or queries past tq).
+template <typename T>
+__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
+                                          uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
+                                          const float* st_lse, const float* st_corr,
+                                          float scale_log2, bool need_mask, int q0, int tq,
+                                          int causal, int q_start, int kpos0, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = 8 * j + 2 * t;
+    const float2 lv = *reinterpret_cast<const float2*>(st_lse + qc);
+    const float2 cv = *reinterpret_cast<const float2*>(st_corr + qc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1, h = i & 1, idx = 4 * j + i;
+      float p = ex2(fmaf(st[idx], scale_log2, -(h ? lv.y : lv.x)));
+      if (need_mask) {
+        const int qrow = q0 + qc + h;
+        const bool ok = qrow < tq && (!causal || kpos0 + 8 * r <= q_start + qrow);
+        p = ok ? p : 0.f;
+      }
+      st[idx] = p;
+      dpt[idx] = p * (dpt[idx] + (h ? cv.y : cv.x));  // dS^T, unscaled
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    acc_to_a<T>(pa[kk], st, kk);
+    acc_to_a<T>(da[kk], dpt, kk);
+  }
+}
+
+// dK/dV's division of a block: below D = 256 a block owns 128 keys and
+// consumer warpgroup w owns keys [64 w, 64 w + 64) and every column; at
+// D = 256 (two accumulators of 128 registers do not fit a warpgroup) a
+// block owns 64 keys and warpgroup w owns columns [128 w, 128 w + 128) of
+// their dK and dV, both computing the block's S^T and dP^T.
+template <int D>
+constexpr bool kDkvSplit = D == 256;
+template <int D>
+constexpr int kDkvKeys = kDkvSplit<D> ? 64 : kBlockRows;  // keys a block owns
+template <int D>
+constexpr int kDkvCols = kDkvSplit<D> ? D / kConsumers : D;  // columns a warpgroup owns
 
 template <int D>
 struct DkvSmem {
-  static constexpr int kKV = kBlockRows * D * 2;  // the block's K or V tile
-  static constexpr int kQ = kTile * D * 2;        // one Q or dO tile of a stage
-  static constexpr int kStats = 2 * kTile * 4;    // lse (log2 units), corr
+  static constexpr int kKV = kDkvKeys<D> * D * 2;  // the block's K or V tile
+  static constexpr int kQ = kTile * D * 2;         // one Q or dO tile of a stage
+  static constexpr int kStats = 2 * kTile * 4;     // lse (log2 units), corr
   static constexpr size_t kBytes =
       1024 + 2 * kKV + kDkvStages * (2 * kQ + kStats) + (1 + 2 * kDkvStages) * 8;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
            const float* __restrict__ lse, const float* __restrict__ corr,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, int tq, int tk, int q_start,
+           T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int q_start,
            int k_start, float scale, int causal) {
   using L = DkvSmem<D>;
+  constexpr bool kSplit = kDkvSplit<D>;
+  constexpr int kKeys = kDkvKeys<D>, kCols = kDkvCols<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = align_1024(smem_raw);
   unsigned char* sv = sk + L::kKV;
@@ -362,14 +538,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   uint64_t* empty = full + kDkvStages;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockRows;  // longest first
-  const int n_qt = (tq + kTile - 1) / kTile;
-  int it0 = 0;  // first query tile that reaches a key of this block
-  if (causal) {
-    const int first = k_start + k0 - q_start;
-    it0 = first <= 0 ? 0 : (first > tq - 1 ? n_qt : first / kTile);
-  }
-  const int n_it = n_qt - it0;
+  const int k0 = blockIdx.y * kKeys;  // longest first
+  const int it0 = first_query_tile(k0, tq, q_start, k_start, causal);
+  const int n_it = (tq + kTile - 1) / kTile - it0;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -384,48 +555,26 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   const int wg = threadIdx.x / 128;
   if (wg == 0) {  // producer: warp 0
     regs_release<kProducerRegs>();
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
-      tma_load_rows<D>(sk, &tm_k, kBlockRows, k0, bh, kv_full);
-      tma_load_rows<D>(sv, &tm_v, kBlockRows, k0, bh, kv_full);
-    }
-    const float* lse_bh = lse + (size_t)bh * tq;
-    const float* corr_bh = corr + (size_t)bh * tq;
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it % kDkvStages, q0 = (it0 + it) * kTile;
-      mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);
-      float* st = stats + s * 2 * kTile;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = lane + 32 * h, row = q0 + r;
-        st[r] = row < tq ? lse_bh[row] * kLog2e : 0.f;
-        st[kTile + r] = row < tq ? corr_bh[row] : 0.f;
-      }
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], 2 * L::kQ);
-        unsigned char* sq = sqg + s * 2 * L::kQ;
-        tma_load_rows<D>(sq, &tm_q, kTile, q0, bh, &full[s]);
-        tma_load_rows<D>(sq + L::kQ, &tm_do, kTile, q0, bh, &full[s]);
-      } else {
-        mbar_arrive(&full[s]);
-      }
-    }
+    if (threadIdx.x < 32)
+      dkv_produce<D, kDkvStages>(&tm_q, &tm_k, &tm_v, &tm_do, lse, corr, sk, sv, sqg, stats,
+                                 kv_full, full, empty, kKeys, k0, bh, it0, n_it, tq);
     return;
   }
 
   regs_claim<kConsumerRegs>();
-  const int w = wg - 1;  // keys [64 w, 64 w + 64) of the block
+  const int w = wg - 1;  // its 64 keys, or its kCols columns (kDkvSplit)
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0w = k0 + 64 * w;
+  const int k0w = kSplit ? k0 : k0 + 64 * w;
   const bool keys_in = k0w < tk;
   const int kpos0 = k_start + k0w + warp * 16 + g;  // key row g; g+8 is +8
   const float scale_log2 = scale * kLog2e;
-  const uint32_t k_addr = smem_u32(sk) + w * 64 * 128, v_addr = smem_u32(sv) + w * 64 * 128;
+  const uint32_t key_off = kSplit ? 0 : w * 64 * 128;
+  const uint32_t k_addr = smem_u32(sk) + key_off, v_addr = smem_u32(sv) + key_off;
+  // this warpgroup's columns of a staged tile: its 64-column boxes
+  const uint32_t col_off = kSplit ? w * (kCols / 64) * kTile * 128 : 0;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kCols / 2], dv_acc[kCols / 2];
   zero(dk_acc);
   zero(dv_acc);
   mbar_wait(kv_full, 0);
@@ -437,59 +586,22 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
     if (keys_in && !(causal && q_start + min(q0 + kTile, tq) - 1 < k_start + k0w)) {
       const uint32_t q_addr = smem_u32(sqg + s * 2 * L::kQ), g_addr = q_addr + L::kQ;
       const float* st_lse = stats + s * 2 * kTile;
-      const float* st_corr = st_lse + kTile;
-      float st[32], dpt[32];  // S^T and dP^T: this warpgroup's keys x 64 queries
-      zero(st);
-      zero(dpt);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(st, desc_k_major(k_addr, kBlockRows, kk), desc_k_major(q_addr, kTile, kk),
-                     kk);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(dpt, desc_k_major(v_addr, kBlockRows, kk),
-                     desc_k_major(g_addr, kTile, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-
+      float st[32], dpt[32];  // S^T and dP^T: this warpgroup's 64 keys x 64 queries
+      dkv_scores<T, D>(st, dpt, k_addr, v_addr, kKeys, q_addr, g_addr);
       // every pair visible: all 64 keys at or before the first query, and
       // all 64 queries before tq
       const bool need_mask =
           (causal && k_start + k0w + 63 > q_start + q0) || q0 + kTile > tq;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int qc = 8 * j + 2 * t;
-        const float2 lv = *reinterpret_cast<const float2*>(st_lse + qc);
-        const float2 cv = *reinterpret_cast<const float2*>(st_corr + qc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1, h = i & 1, idx = 4 * j + i;
-          float p = ex2(fmaf(st[idx], scale_log2, -(h ? lv.y : lv.x)));
-          if (need_mask) {
-            const int qrow = q0 + qc + h;
-            const bool ok = qrow < tq && (!causal || kpos0 + 8 * r <= q_start + qrow);
-            p = ok ? p : 0.f;
-          }
-          st[idx] = p;
-          dpt[idx] = p * (dpt[idx] + (h ? cv.y : cv.x));  // dS^T, unscaled
-        }
-      }
       uint32_t pa[4][4], da[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc_to_a(pa[kk], st, kk);
-        acc_to_a(da[kk], dpt, kk);
-      }
+      dkv_grads<T>(st, dpt, pa, da, st_lse, st_lse + kTile, scale_log2, need_mask, q0, tq,
+                   causal, q_start, kpos0, t);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // dV += P^T . dO
-        wgmma_rs<D>(dv_acc, pa[kk], desc_mn_major(g_addr, kTile, kk));
+        wgmma_rs<kCols, T>(dv_acc, pa[kk], desc_mn_major(g_addr + col_off, kTile, kk));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // dK += dS^T . Q
-        wgmma_rs<D>(dk_acc, da[kk], desc_mn_major(q_addr, kTile, kk));
+        wgmma_rs<kCols, T>(dk_acc, da[kk], desc_mn_major(q_addr + col_off, kTile, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -501,8 +613,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 
   if (!keys_in) return;
   const int row_g = k0w + warp * 16 + g;
-  store_acc<D>(dk + (size_t)bh * tk * D, dk_acc, row_g, tk, scale, scale, t);
-  store_acc<D>(dv + (size_t)bh * tk * D, dv_acc, row_g, tk, 1.f, 1.f, t);
+  const size_t off = (size_t)bh * tk * D + (kSplit ? w * kCols : 0);
+  store_acc<kCols>(dk + off, dk_acc, row_g, tk, scale, scale, t, D);
+  store_acc<kCols>(dv + off, dv_acc, row_g, tk, 1.f, 1.f, t, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,27 +632,29 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 
 template <int D>
 struct DqSmem {
+  static constexpr int kStages = kDqRing<D>;
   static constexpr int kQ = kBlockRows * D * 2;  // the block's Q or dO tile, bytes
   static constexpr int kKV = kTile * D * 2;      // one K or V tile of a stage
   static constexpr size_t kBytes =
-      1024 + 2 * kQ + kDqStages * 2 * kKV + (1 + 2 * kDqStages) * 8;
+      1024 + 2 * kQ + kStages * 2 * kKV + (1 + 2 * kStages) * 8;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
           const float* __restrict__ lse, const float* __restrict__ corr,
-          bf16* __restrict__ dq, int tq, int tk, int q_start, int k_start, float scale,
+          T* __restrict__ dq, int tq, int tk, int q_start, int k_start, float scale,
           int causal) {
   using L = DqSmem<D>;
+  constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align_1024(smem_raw);
   unsigned char* sg = sq + L::kQ;   // the block's dO tile
   unsigned char* skv = sg + L::kQ;  // stage s: K at s * 2 kKV, V kKV after it
-  uint64_t* qg_full = reinterpret_cast<uint64_t*>(skv + kDqStages * 2 * L::kKV);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(skv + kStages * 2 * L::kKV);
   uint64_t* full = qg_full + 1;
-  uint64_t* empty = full + kDqStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // longest first
@@ -549,7 +664,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 
   if (threadIdx.x == 0) {
     mbar_init(qg_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers * 4);  // one arrival a consumer warp
     }
@@ -565,8 +680,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       tma_load_rows<D>(sq, &tm_q, kBlockRows, q0, bh, qg_full);
       tma_load_rows<D>(sg, &tm_do, kBlockRows, q0, bh, qg_full);
       for (int it = 0; it < n_kv; ++it) {
-        const int s = it % kDqStages;
-        mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
         unsigned char* sk = skv + s * 2 * L::kKV;
         tma_load_rows<D>(sk, &tm_k, kTile, it * kTile, bh, &full[s]);
@@ -601,17 +716,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     corr_r[r] = row < tq ? corr[(size_t)bh * tq + row] : 0.f;
   }
 
-  auto k_tile = [&](int it) { return smem_u32(skv + (it % kDqStages) * 2 * L::kKV); };
+  auto k_tile = [&](int it) { return smem_u32(skv + (it % kStages) * 2 * L::kKV); };
   auto wait_full = [&](int it) {
-    mbar_wait(&full[it % kDqStages], (it / kDqStages) & 1);
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
   };
   auto release = [&](int it) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[it % kDqStages]);
+    if (lane == 0) mbar_arrive(&empty[it % kStages]);
   };
   auto issue_scores = [&](float (&sc)[32], float (&dp)[32], int it) {
-    issue_qk<D>(sc, q_addr, k_tile(it));           // S = Q.K^T
-    issue_qk<D>(dp, g_addr, k_tile(it) + L::kKV);  // dP = dO.V^T
+    issue_qk<T, D>(sc, q_addr, k_tile(it));           // S = Q.K^T
+    issue_qk<T, D>(dp, g_addr, k_tile(it) + L::kKV);  // dP = dO.V^T
   };
   // dS (unscaled) of key tile k0 in place of S: p = 2^(s scale log2 e - lse
   // log2 e), set to 0 where masked before it multiplies anything (a row
@@ -637,10 +752,35 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   zero(acc);
   mbar_wait(qg_full, 0);
 
-  // Software pipeline inside the warpgroup: S and dP of key tile it run on
-  // the tensor cores while dS of tile it - 1 is packed and dS.K of it is
-  // issued, and dS.K of tile it - 1 while dS of tile it is computed.
-  if (n_own > 0) {
+  if constexpr (D == 256) {
+    // One stage: S and dP, dS, dS.K of each tile in turn, then the
+    // producer refills the stage.
+    float sc[32], dp[32];
+    uint32_t da[4][4];
+    for (int it = 0; it < n_own; ++it) {
+      wait_full(it);
+      zero(sc);
+      zero(dp);
+      wgmma_fence();
+      issue_scores(sc, dp, it);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      grad_scores(sc, dp, it * kTile);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(da[kk], sc, kk);
+      wgmma_fence();
+      issue_pv<T, D>(acc, da, k_tile(it));  // dQ += dS . K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(it);
+    }
+  } else if (n_own > 0) {
+    // Software pipeline inside the warpgroup: S and dP of key tile it run
+    // on the tensor cores while dS of tile it - 1 is packed and dS.K of it
+    // is issued, and dS.K of tile it - 1 while dS of tile it is computed.
     float sc[32], dp[32];
     uint32_t da[4][4];
     wait_full(0);
@@ -654,13 +794,13 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     fence_regs(dp);
     grad_scores(sc, dp, 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], sc, kk);
+    for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(da[kk], sc, kk);
     for (int it = 1; it < n_own; ++it) {
       wait_full(it);
       wgmma_fence();
       issue_scores(sc, dp, it);
       wgmma_commit();
-      issue_pv<D>(acc, da, k_tile(it - 1));  // dQ += dS . K of tile it - 1
+      issue_pv<T, D>(acc, da, k_tile(it - 1));  // dQ += dS . K of tile it - 1
       wgmma_commit();
       fence_regs(sc);
       fence_regs(dp);
@@ -675,10 +815,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       fence_regs(sc);  // da of tile it - 1 is rewritten only once dS.K is done
       release(it - 1);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], sc, kk);
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(da[kk], sc, kk);
     }
     wgmma_fence();
-    issue_pv<D>(acc, da, k_tile(n_own - 1));
+    issue_pv<T, D>(acc, da, k_tile(n_own - 1));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -699,56 +839,57 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int bh, int tq, int tk, int q_start, int k_start, float scale,
                int causal, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode_rows_map(&tm_q, q, bh, tq, D, kBlockRows);
-  if (!err) err = encode_rows_map(&tm_k, k, bh, tk, D, kTile);
-  if (!err) err = encode_rows_map(&tm_v, v, bh, tk, D, kTile);
-  if (!err) err = prepare(fwd_kernel<D>, FwdSmem<D>::kBytes);
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, D, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, D, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, D, kTile);
+  if (!err) err = prepare(fwd_kernel<T, D>, FwdSmem<D>::kBytes);
   if (err) return err;
   dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
-  fwd_kernel<D><<<grid, kSm90Threads, FwdSmem<D>::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, (bf16*)o, (float*)lse, tq, tk, q_start, k_start, scale, causal);
+  fwd_kernel<T, D><<<grid, kSm90Threads, FwdSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, (T*)o, (float*)lse, tq, tk, q_start, k_start, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* corr, void* dk, void* dv, int bh,
                int tq, int tk, int q_start, int k_start, float scale,
                int causal, cudaStream_t stream) {
+  constexpr int keys = kDkvKeys<D>;  // a block's keys
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = encode_rows_map(&tm_q, q, bh, tq, D, kTile);
-  if (!err) err = encode_rows_map(&tm_do, dout, bh, tq, D, kTile);
-  if (!err) err = encode_rows_map(&tm_k, k, bh, tk, D, kBlockRows);
-  if (!err) err = encode_rows_map(&tm_v, v, bh, tk, D, kBlockRows);
-  if (!err) err = prepare(dkv_kernel<D>, DkvSmem<D>::kBytes);
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, D, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_do, dout, bh, tq, D, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, D, keys);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, D, keys);
+  if (!err) err = prepare(dkv_kernel<T, D>, DkvSmem<D>::kBytes);
   if (err) return err;
-  dim3 grid(bh, (tk + kBlockRows - 1) / kBlockRows);
-  dkv_kernel<D><<<grid, kSm90Threads, DkvSmem<D>::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (bf16*)dk,
-      (bf16*)dv, tq, tk, q_start, k_start, scale, causal);
+  dim3 grid(bh, (tk + keys - 1) / keys);
+  dkv_kernel<T, D><<<grid, kSm90Threads, DkvSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (T*)dk, (T*)dv, tq,
+      tk, q_start, k_start, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* corr, void* dq, int bh, int tq,
               int tk, int q_start, int k_start, float scale, int causal,
               cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = encode_rows_map(&tm_q, q, bh, tq, D, kBlockRows);
-  if (!err) err = encode_rows_map(&tm_do, dout, bh, tq, D, kBlockRows);
-  if (!err) err = encode_rows_map(&tm_k, k, bh, tk, D, kTile);
-  if (!err) err = encode_rows_map(&tm_v, v, bh, tk, D, kTile);
-  if (!err) err = prepare(dq_kernel<D>, DqSmem<D>::kBytes);
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, D, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_do, dout, bh, tq, D, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, D, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, D, kTile);
+  if (!err) err = prepare(dq_kernel<T, D>, DqSmem<D>::kBytes);
   if (err) return err;
   dim3 grid(bh, (tq + kBlockRows - 1) / kBlockRows);
-  dq_kernel<D><<<grid, kSm90Threads, DqSmem<D>::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (bf16*)dq, tq, tk,
+  dq_kernel<T, D><<<grid, kSm90Threads, DqSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (T*)dq, tq, tk,
       q_start, k_start, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -772,11 +913,68 @@ int occupancy(Kernel kernel, size_t smem, int threads, int* out) {
                                                             threads, smem);
 }
 
-template <int D>
+template <typename T, int D>
 int flash_occupancy(int which, int* out) {
-  if (which == 0) return occupancy(fwd_kernel<D>, FwdSmem<D>::kBytes, kSm90Threads, out);
-  if (which == 1) return occupancy(dkv_kernel<D>, DkvSmem<D>::kBytes, kSm90Threads, out);
-  if (which == 2) return occupancy(dq_kernel<D>, DqSmem<D>::kBytes, kSm90Threads, out);
+  if (which == 0) return occupancy(fwd_kernel<T, D>, FwdSmem<D>::kBytes, kSm90Threads, out);
+  if (which == 1) return occupancy(dkv_kernel<T, D>, DkvSmem<D>::kBytes, kSm90Threads, out);
+  if (which == 2) return occupancy(dq_kernel<T, D>, DqSmem<D>::kBytes, kSm90Threads, out);
+  return kBadHeadDim;
+}
+
+// The C entry points of one element type: d selects the instance.
+template <typename T>
+int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq,
+              int tk, int d, int q_start, int k_start, float scale, int causal,
+              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64)
+    return launch_fwd<T, 64>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+  if (d == 128)
+    return launch_fwd<T, 128>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+  if (d == 256)
+    return launch_fwd<T, 256>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+  return kBadHeadDim;
+}
+
+template <typename T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* corr, void* dk, void* dv, int bh, int tq, int tk, int d,
+              int q_start, int k_start, float scale, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64)
+    return launch_dkv<T, 64>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
+                             scale, causal, s);
+  if (d == 128)
+    return launch_dkv<T, 128>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
+                              scale, causal, s);
+  if (d == 256)
+    return launch_dkv<T, 256>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
+                              scale, causal, s);
+  return kBadHeadDim;
+}
+
+template <typename T>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* corr, void* dq, int bh, int tq, int tk, int d, int q_start,
+             int k_start, float scale, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64)
+    return launch_dq<T, 64>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start, scale,
+                            causal, s);
+  if (d == 128)
+    return launch_dq<T, 128>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
+                             scale, causal, s);
+  if (d == 256)
+    return launch_dq<T, 256>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
+                             scale, causal, s);
+  return kBadHeadDim;
+}
+
+template <typename T>
+int occupancy_entry(int which, int d, int* out) {
+  if (d == 64) return flash_occupancy<T, 64>(which, out);
+  if (d == 128) return flash_occupancy<T, 128>(which, out);
+  if (d == 256) return flash_occupancy<T, 256>(which, out);
   return kBadHeadDim;
 }
 
@@ -784,15 +982,21 @@ int flash_occupancy(int which, int* out) {
 
 extern "C" {
 
+// bf16: bf_flash_*; f16: bf_flash_f16_*.  The arguments of each pair are
+// the same.
+
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int tq, int tk, int d, int q_start,
                  int k_start, float scale, int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
-  if (d == 128)
-    return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
-  return kBadHeadDim;
+  return fwd_entry<bf16>(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
+                         stream);
+}
+
+int bf_flash_f16_fwd(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int bh, int tq, int tk, int d, int q_start,
+                     int k_start, float scale, int causal, void* stream) {
+  return fwd_entry<f16>(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
+                        stream);
 }
 
 int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -800,35 +1004,42 @@ int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      void* dk, void* dv, int bh, int tq, int tk, int d,
                      int q_start, int k_start, float scale, int causal,
                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk,
-                          q_start, k_start, scale, causal, s);
-  if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk,
-                           q_start, k_start, scale, causal, s);
-  return kBadHeadDim;
+  return dkv_entry<bf16>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start, k_start,
+                         scale, causal, stream);
+}
+
+int bf_flash_f16_bwd_dkv(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* corr,
+                         void* dk, void* dv, int bh, int tq, int tk, int d,
+                         int q_start, int k_start, float scale, int causal,
+                         void* stream) {
+  return dkv_entry<f16>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start, k_start,
+                        scale, causal, stream);
 }
 
 int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* corr,
                     void* dq, int bh, int tq, int tk, int d, int q_start,
                     int k_start, float scale, int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start,
-                         k_start, scale, causal, s);
-  if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start,
-                          k_start, scale, causal, s);
-  return kBadHeadDim;
+  return dq_entry<bf16>(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start, scale,
+                        causal, stream);
+}
+
+int bf_flash_f16_bwd_dq(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* corr,
+                        void* dq, int bh, int tq, int tk, int d, int q_start,
+                        int k_start, float scale, int causal, void* stream) {
+  return dq_entry<f16>(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start, scale,
+                       causal, stream);
 }
 
 // which: 0 forward, 1 dK/dV, 2 dQ; out as occupancy() above (4 ints).
 int bf_flash_occupancy(int which, int d, int* out) {
-  if (d == 64) return flash_occupancy<64>(which, out);
-  if (d == 128) return flash_occupancy<128>(which, out);
-  return kBadHeadDim;
+  return occupancy_entry<bf16>(which, d, out);
+}
+
+int bf_flash_f16_occupancy(int which, int d, int* out) {
+  return occupancy_entry<f16>(which, d, out);
 }
 
 }  // extern "C"

@@ -6,14 +6,21 @@
 // microkernels (attention_components.cu: qk_kernel, pv_kernel) run the same
 // wgmma products on the same shared-memory layout.
 //
-// Shared-memory tiles: TMA writes a box of R rows x 64 bf16 columns (128
-// bytes a row) with the 128-byte swizzle, so 16-byte chunk c of row r lands
-// at r * 128 + ((c ^ (r % 8)) * 16), from a 1024-byte-aligned base.  A head
+// Element types: bf16 and f16 (the products are wgmma .f32.bf16.bf16 or
+// .f32.f16.f16, the tensor maps BFLOAT16 or FLOAT16; `T` below, bf16 where
+// a caller names none), both two bytes, so every layout below holds for
+// both.
+//
+// Shared-memory tiles: TMA writes a box of R rows x 64 columns (128 bytes a
+// row) with the 128-byte swizzle, so 16-byte chunk c of row r lands at
+// r * 128 + ((c ^ (r % 8)) * 16), from a 1024-byte-aligned base.  A head
 // dim of 128 is two such boxes side by side (columns 0-63, then 64-127),
-// R * 128 bytes apart.  wgmma reads the same layout through a descriptor:
+// R * 128 bytes apart, and 256 four.  wgmma reads the same layout through
+// a descriptor:
 //   K-major (the contracted dim is the row's 64 columns: Q.K^T, dO.V^T,
 //   K.Q^T, V.dO^T): start + 32 bytes per 16-column step, 8-row groups 1024
-//   bytes apart (SBO); steps 4-7 of D = 128 start in the second box.
+//   bytes apart (SBO); steps 4-7 of D = 128 start in the second box, and
+//   so on for D = 256.
 //   MN-major (the contracted dim runs down the rows: P.V, dS.K, P^T.dO,
 //   dS^T.Q): start + 2048 bytes per 16-row step, 8-row groups 1024 bytes
 //   apart (SBO), 64-column boxes R * 128 bytes apart (LBO), and the
@@ -22,10 +29,29 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
 namespace {
+
+typedef __half f16;
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values rounded to T and packed, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, f16>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -150,15 +176,15 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
   for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
-// Columns 16kk..16kk+15 of a 64-row wgmma accumulator, rounded to bf16 and
+// Columns 16kk..16kk+15 of a 64-row wgmma accumulator, rounded to T and
 // laid out as the register A operand of the next product (thread by thread,
 // the accumulator's n-tiles 2kk and 2kk+1 are the A fragment).
-template <int N>
+template <typename T = bf16, int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 template <int kRegs>
@@ -170,58 +196,75 @@ __device__ __forceinline__ void regs_claim() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
+// The accumulator operands of a 64 x 64 and a 64 x 128 product.
+#define BF_ACC32_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define BF_ACC32(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define BF_ACC64_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define BF_ACC64(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),\
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),\
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),\
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// Each product's asm is written once, as a macro over the wgmma type
+// suffix; BF_WGMMA_TYPED(T, ASM) expands ASM with T's.
+#define BF_WGMMA_TYPED(T, ASM) \
+  if constexpr (std::is_same_v<T, f16>) ASM(".f16.f16"); else ASM(".bf16.bf16")
+
 // D (64 x 64, f32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major.
+#define BF_WGMMA_SS_N64(TYPES)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                     \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32" TYPES " " BF_ACC32_REGS \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                 \
+               : BF_ACC32(d)                                                     \
+               : "l"(da), "l"(db), "r"(accumulate))
+template <typename T = bf16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  BF_WGMMA_TYPED(T, BF_WGMMA_SS_N64);
 }
 
 // D (64 x N, f32) += A (64 x 16, registers) . B (16 x N, smem, MN-major),
-// N = the head dim.
-template <int D>
+// N = the head dim.  N = 256 is two N = 128 products, the second on the
+// descriptor moved two 64-column boxes on (its LBO apart each).
+#define BF_WGMMA_RS_N64(TYPES)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                     \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32" TYPES " " BF_ACC32_REGS \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                   \
+               : BF_ACC32(d)                                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define BF_WGMMA_RS_N128(TYPES)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                      \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32" TYPES " " BF_ACC64_REGS \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                    \
+               : BF_ACC64(d)                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <int D, typename T = bf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         uint64_t db) {
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  if constexpr (D == 256) {
+    const uint64_t lbo = ((db >> 16) & 0x3FFF) << 4;
+    wgmma_rs<128, T>(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs<128, T>(*reinterpret_cast<float(*)[64]>(&d[64]), a, db + ((2 * lbo) >> 4));
+  } else if constexpr (D == 64) {
+    BF_WGMMA_TYPED(T, BF_WGMMA_RS_N64);
+  } else {
+    BF_WGMMA_TYPED(T, BF_WGMMA_RS_N128);
+  }
 }
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+#undef BF_WGMMA_SS_N64
+#undef BF_WGMMA_RS_N64
+#undef BF_WGMMA_RS_N128
+#undef BF_WGMMA_TYPED
 
 // ---- host: tensor maps --------------------------------------------------------
 
@@ -252,9 +295,11 @@ inline EncodeTiledFn encode_tiled_fn() {
 constexpr int kNoEncoder = -2;         // the driver has no cuTensorMapEncodeTiled
 constexpr int kEncodeFailed = 10000;   // + the CUresult of a refused encode
 
-// A 3-D map of a contiguous [bh, t, d] bf16 tensor read in boxes of `rows`
-// rows x 64 columns with the 128-byte swizzle.  Rows at or past t of a
-// head read as zeros, never the next head's rows.  0 or an error code.
+// A 3-D map of a contiguous [bh, t, d] T tensor (bf16 or f16) read in
+// boxes of `rows` rows x 64 columns with the 128-byte swizzle.  Rows at or
+// past t of a head read as zeros, never the next head's rows.  0 or an
+// error code.
+template <typename T>
 inline int encode_rows_map(CUtensorMap* map, const void* ptr, int bh, int t, int d,
                            int rows) {
   EncodeTiledFn fn = encode_tiled_fn();
@@ -263,7 +308,9 @@ inline int encode_rows_map(CUtensorMap* map, const void* ptr, int bh, int t, int
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  const CUtensorMapDataType type = std::is_same_v<T, f16> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

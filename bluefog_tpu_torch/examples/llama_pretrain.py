@@ -1,7 +1,9 @@
 """Llama-style decentralized pretraining on the rank-major backend.
 
 Counterpart of ``examples/jax_llama_pretrain.py`` with the presets of
-``benchmarks/llama.py``: ``size`` virtual ranks each train a Llama decoder
+``benchmarks/llama.py``, or with ``--hidden`` the reference example's own
+model (``LlamaLM(vocab --vocab, hidden H, layers, heads 4, dff 3H)``; head
+dim H / 4, 256 at ``--hidden 1024``): ``size`` virtual ranks each train a Llama decoder
 on a private token stream, and parameters mix by ``neighbor_allreduce``
 on the exponential-2 graph after every optimizer step (ATC; AdamW, or
 the preset's optimizer).  Attention runs through the hand-written
@@ -30,8 +32,10 @@ and transfer time (``cross_process``).
 Run (one H100):  python -m bluefog_tpu_torch.examples.llama_pretrain --preset small
                  bftpu-torch-run -np 2 -- python -m bluefog_tpu_torch.examples.llama_pretrain --preset small
                  python -m bluefog_tpu_torch.examples.llama_pretrain --preset 1b --kv-heads 2 --batch 2
+                 python -m bluefog_tpu_torch.examples.llama_pretrain --hidden 1024 --vocab 32000 --layers 12 --batch 2
                  python -m bluefog_tpu_torch.examples.llama_pretrain --preset small --seq 8192 --batch 2 --seq-parallel [--striped | --ulysses]
 Run (CPU):       python -m bluefog_tpu_torch.examples.llama_pretrain --preset tiny --device cpu
+                 python -m bluefog_tpu_torch.examples.llama_pretrain --preset tiny --hidden 256 --vocab 64 --device cpu
                  python -m bluefog_tpu_torch.examples.llama_pretrain --preset tiny --device cpu --seq-parallel --striped
 """
 
@@ -89,6 +93,10 @@ OPTIMIZERS = {
                                                      trace_dtype=torch.bfloat16),
     "adafactor": lambda leaves, lr, shapes: Adafactor(leaves, lr=lr, shapes=shapes),
 }
+# the reference example's model (examples/jax_llama_pretrain.py): --hidden H
+# gives LlamaLM(hidden H, heads 4, dff 3H)
+REF_HEADS = 4
+REF_DFF_MULT = 3
 DP_LR = 3e-4  # benchmarks/llama.py
 SP_LR = 3e-3  # examples/jax_llama_pretrain.py's --lr, its seq-parallel Adam
 
@@ -141,6 +149,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="chunked LM loss: sequence chunks of the head (-1 = "
                     "preset, 0/1 = full logits)")
     ap.add_argument("--layers", type=int, default=0, help="decoder layers (0 = preset)")
+    ap.add_argument("--hidden", type=int, default=0,
+                    help="the reference example's model in place of the preset's widths: "
+                    f"hidden H, {REF_HEADS} heads, dff {REF_DFF_MULT}H (0 = the preset's)")
+    ap.add_argument("--vocab", type=int, default=0, help="vocabulary (0 = the preset's)")
     ap.add_argument("--lr", type=float, default=None,
                     help=f"learning rate (default {DP_LR}, or {SP_LR} under --seq-parallel)")
     ap.add_argument("--seq-parallel", action="store_true",
@@ -157,6 +169,21 @@ def _parser() -> argparse.ArgumentParser:
                     help="trace the last step with torch.profiler and report "
                     "device time by kernel")
     return ap
+
+
+def model_config(args: argparse.Namespace) -> Dict:
+    """The preset's configuration, with ``--hidden`` the reference example's
+    widths (``LlamaLM(hidden H, heads 4, dff 3H)``) and ``--vocab`` its
+    vocabulary in place of the preset's."""
+    cfg = dict(PRESETS[args.preset])
+    if args.hidden:
+        if args.hidden % REF_HEADS:
+            raise ValueError(f"--hidden {args.hidden} is not divisible by the reference "
+                             f"model's {REF_HEADS} heads")
+        cfg.update(hidden=args.hidden, heads=REF_HEADS, dff=REF_DFF_MULT * args.hidden)
+    if args.vocab:
+        cfg["vocab"] = args.vocab
+    return cfg
 
 
 def _check_flags(args: argparse.Namespace, cfg: Dict) -> None:
@@ -225,6 +252,12 @@ def _timed_steps(step: Callable[[int], torch.Tensor], steps: int, dev: torch.dev
     return out
 
 
+def _flash_launches(fa) -> Dict[str, int]:
+    """Each flash kernel's launches so far, over its bf16, f16 and f32
+    instances."""
+    return {k: fa.launches[k] + fa.launches_f16[k] + fa.launches_f32[k] for k in fa.launches}
+
+
 def make_optimizer(name: str, model: LlamaLM, params: Dict[str, torch.Tensor],
                    lr: float) -> torch.optim.Optimizer:
     """Base optimizer ``name`` of :data:`OPTIMIZERS` over the rank-major
@@ -258,7 +291,7 @@ def run(args: argparse.Namespace,
     context manager that ``setup`` returns is entered around the steps
     alone (e.g. a ``CollectiveInventory`` that records their rank-axis
     ops)."""
-    cfg = dict(PRESETS[args.preset])
+    cfg = model_config(args)
     _check_flags(args, cfg)
     if args.seq_parallel:
         return _run_seq_parallel(args, cfg, setup)
@@ -311,16 +344,17 @@ def run(args: argparse.Namespace,
             data = data[:, r0:r0 + n // lay.nprocs]
         data = data.to(dev)
         fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
-        before = {k: fa.launches[k] + fa.launches_f32[k] for k in fa.launches}
+        before = _flash_launches(fa)
         with around if around is not None else contextlib.nullcontext():
             timed = _timed_steps(step, args.steps, dev, args.profile)
-        launched = {k: fa.launches[k] + fa.launches_f32[k] - before[k] for k in before}
+        launched = {k: n - before[k] for k, n in _flash_launches(fa).items()}
         with torch.no_grad():  # over this process's ranks
             spread = max(float(v.float().std(dim=0).max()) for v in params.values())
         out = {
             "preset": args.preset, "layers": layers, "ranks": n, "batch": B,
             "seq": T, "params_per_rank": n_params, "hidden": cfg["hidden"],
             "heads": cfg["heads"], "kv_heads": args.kv_heads or cfg["heads"],
+            "head_dim": cfg["hidden"] // cfg["heads"], "vocab": cfg["vocab"],
             "remat": cfg.get("remat", False), "remat_policy": args.remat_policy,
             "scan_layers": cfg.get("scan_layers", False), "optimizer": optimizer, "lr": lr,
             "head_chunks": head_chunks, "leaves": len(params),
@@ -405,13 +439,12 @@ def _run_seq_parallel(args: argparse.Namespace, cfg: Dict,
         per_step = []
 
         def step(s):
-            before = {k: fa.launches[k] + fa.launches_f32[k] for k in fa.launches}
+            before = _flash_launches(fa)
             opt.zero_grad(set_to_none=True)
             loss = seq_parallel_loss(model(data[s], positions), data[s], n, args.striped)
             loss.backward()
             opt.step()
-            per_step.append({k: fa.launches[k] + fa.launches_f32[k] - before[k]
-                             for k in before})
+            per_step.append({k: n - before[k] for k, n in _flash_launches(fa).items()})
             return loss.detach()
 
         timed = _timed_steps(step, args.steps, dev, args.profile)

@@ -104,6 +104,7 @@ __all__ = [
     "join",
     "admit_pending",
     "adaptive_step",
+    "adaptive_leave",
     "adaptive_policy",
     "demoted_ranks",
     "OrphanedError",
@@ -1365,6 +1366,39 @@ def adaptive_step():
                 _switch_epoch(ctx, rec)
                 return dict(rec)
     return None
+
+
+def adaptive_leave() -> int:
+    """Leave the adaptive control loop: call on EVERY member once it has
+    made its last :func:`adaptive_step`, before its teardown barrier
+    (:func:`spawn`'s workers do).  No-op unless ``BFTPU_ADAPTIVE`` is on.
+
+    Members finish their rounds at different times.  A reweight that a
+    member still stepping commits after another has left would pair the
+    switch's old-epoch barrier with the leaver's teardown barrier: the
+    leaver shuts down, and the switchers wait in the new epoch's barrier
+    for it forever.  So the leaver marks itself leaving on the membership
+    board, after which no member can commit a reweight
+    (:meth:`~bluefog_tpu_torch.resilience.join.MembershipBoard.mark_leaving`),
+    and switches through the reweight epochs committed before its mark,
+    which its peers switch through too, so every member meets the
+    teardown barrier in the same epoch.  Returns the epochs switched
+    through."""
+    ctx = _ctx()
+    if ctx.adaptive is None or ctx.orphaned:
+        return 0
+    board = _join.MembershipBoard(ctx.base_job)
+    if board.read() is None:
+        return 0  # not elastic (read-only shm dir): nothing was committed
+    last = board.mark_leaving(ctx.global_rank)
+    switched = 0
+    while ctx.epoch < last:
+        rec = board.epoch_record(ctx.epoch + 1)
+        if rec is None or not rec.get("reweight"):
+            break  # a join grant: admit_pending's business
+        _switch_epoch(ctx, rec)
+        switched += 1
+    return switched
 
 
 # ---------------------------------------------------------------------------
@@ -2964,6 +2998,7 @@ def _spawn_worker(fn, r, nranks, job, args, q, tolerant=False):
         except TimeoutError:
             pass
     else:
+        adaptive_leave()  # the teardown barrier meets no reweight switch
         barrier()
     shutdown(unlink=(r == 0))
 

@@ -1,9 +1,10 @@
 """Flash attention: hand-written CUDA kernels for Hopper, with plain versions.
 
 Counterpart of ``bluefog_tpu/kernels/flash_attention.py``.  The TPU package
-has three Pallas kernels, which serve bf16 and f32 inputs; each has two CUDA
-C++ instances here, built by :mod:`._build`: a bf16 one
-(``csrc/flash_attention.cu``) and an f32 one (``csrc/flash_attention_f32.cu``):
+has three Pallas kernels, which serve any float dtype; each has CUDA C++
+instances here, built by :mod:`._build`: bf16 and f16 ones
+(``csrc/flash_attention.cu``, one template for both) and an f32 one
+(``csrc/flash_attention_f32.cu``):
 
 =============  =======================================  ===================
 wrapper        replaces                                 plain version
@@ -13,10 +14,12 @@ wrapper        replaces                                 plain version
 ``flash_dq``   ``_bwd_dq_kernel`` (:575)                ``flash_dq_plain``
 =============  =======================================  ===================
 
-The bf16 kernels are built for Hopper (``wgmma`` products, TMA-fed tile
-rings, 128-row blocks of two consumer warpgroups, launched longest chain
-first); :func:`launch_order` says which 64 x 64 tiles each block of a
-launch computes, in the order the card is handed the blocks.  The three
+The bf16 and f16 kernels are built for Hopper (``wgmma`` products, TMA-fed
+tile rings, 128-row blocks of two consumer warpgroups, launched longest
+chain first; dK/dV at D = 256 in 64-key blocks); :func:`launch_order` says
+which 64 x 64 tiles each block of a launch computes, in the order the card
+is handed the blocks.  f16 rounds p and dS to f16, as the reference rounds
+them to the input dtype.  The three
 f32 kernels run f32-accurate products on the tensor cores: every operand
 is split into a TF32 part and the rest (:func:`split_tf32` is the split in
 plain torch, for the tests), and a.b is three TF32 products (small.big +
@@ -26,11 +29,12 @@ kernel rounds p or dS to a narrower type, as the reference does not for
 f32 inputs.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
-f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16 or
-all f32), shape and contiguity, launches the kernel of that dtype on the
-current stream and adds one to its count in :data:`launches` (bf16) or
-:data:`launches_f32` (f32).  The kernels are built for D = 64 and 128; a
-head dim up to 128 runs zero-padded to the next of those
+f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16,
+all f16 or all f32), shape and contiguity, launches the kernel of that
+dtype on the current stream and adds one to its count in :data:`launches`
+(bf16), :data:`launches_f16` (f16) or :data:`launches_f32` (f32).  The bf16
+and f16 kernels are built for D = 64, 128 and 256, the f32 ones for 64 and
+128; a head dim up to the largest runs zero-padded to the next of those
 (:func:`pad_head_dim`), and a larger one raises.  On a CPU tensor it runs
 its plain version, the blockwise recompute of the JAX package's XLA routes
 (``_blockwise_fwd_xla`` :411 and ``_blockwise_bwd`` :729, split into dK/dV
@@ -82,6 +86,7 @@ __all__ = [
     "key_blocks",
     "fit_block",
     "launches",
+    "launches_f16",
     "launches_f32",
     "reset_launches",
     "occupancy",
@@ -93,20 +98,22 @@ __all__ = [
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
-_HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+_HEAD_DIMS = (64, 128, 256)  # the head dims the bf16 and f16 kernels are built for
+_HEAD_DIMS_F32 = (64, 128)  # ... and the f32 kernels
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 _KERNEL_IMPLS = ("auto", "pallas", "cuda")  # the kernel route's names
 _MAX_UNROLL = 64  # the blockwise route's triangular branch unrolls at most this many blocks
 
-# Kernel launches per wrapper since the last reset_launches(), of the bf16
-# kernels and of the f32 kernels.  Only a launch of a CUDA kernel counts; a
+# Kernel launches per wrapper since the last reset_launches(), of the bf16,
+# the f16 and the f32 kernels.  Only a launch of a CUDA kernel counts; a
 # plain-version call does not.
 launches: Dict[str, int] = {"fwd": 0, "dkv": 0, "dq": 0}
+launches_f16: Dict[str, int] = {"fwd": 0, "dkv": 0, "dq": 0}
 launches_f32: Dict[str, int] = {"fwd": 0, "dkv": 0, "dq": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_f32):
+    for counts in (launches, launches_f16, launches_f32):
         for name in counts:
             counts[name] = 0
 
@@ -350,20 +357,24 @@ def _lib_f32():
 
 def bind(lib: ctypes.CDLL, prefix: str = "bf_flash") -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/flash_attention.cu``
-    (``prefix`` "bf_flash") or ``csrc/flash_attention_f32.cu``
-    ("bf_flash_f32"): ``<prefix>_fwd``, ``_bwd_dkv`` and ``_bwd_dq``, and
-    the bf16 library's ``bf_flash_occupancy``."""
-    fns = [getattr(lib, f"{prefix}_{name}") for name in ("fwd", "bwd_dkv", "bwd_dq")]
-    for fn, n_ptr in zip(fns, (5, 8, 7)):
-        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _I, _P]
-        fn.restype = ctypes.c_int
-    if prefix == "bf_flash":
-        lib.bf_flash_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
-        lib.bf_flash_occupancy.restype = ctypes.c_int
+    (``prefix`` "bf_flash": the bf16 and the ``bf_flash_f16_*`` f16 entry
+    points) or ``csrc/flash_attention_f32.cu`` ("bf_flash_f32"):
+    ``<prefix>_fwd``, ``_bwd_dkv`` and ``_bwd_dq``, and the first library's
+    ``bf_flash_occupancy`` and ``bf_flash_f16_occupancy``."""
+    prefixes = (prefix, "bf_flash_f16") if prefix == "bf_flash" else (prefix,)
+    for pre in prefixes:
+        fns = [getattr(lib, f"{pre}_{name}") for name in ("fwd", "bwd_dkv", "bwd_dq")]
+        for fn, n_ptr in zip(fns, (5, 8, 7)):
+            fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _I, _P]
+            fn.restype = ctypes.c_int
+        if prefix == "bf_flash":
+            occ = getattr(lib, f"{pre}_occupancy")
+            occ.argtypes = [_I, _I, ctypes.POINTER(_I)]
+            occ.restype = ctypes.c_int
     return lib
 
 
-_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' input types
+_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernels' input types
 
 
 def _kernel(dtype, name: str):
@@ -371,6 +382,8 @@ def _kernel(dtype, name: str):
     "bwd_dq") for inputs of ``dtype``."""
     if dtype == torch.bfloat16:
         return getattr(_lib(), f"bf_flash_{name}"), launches
+    if dtype == torch.float16:
+        return getattr(_lib(), f"bf_flash_f16_{name}"), launches_f16
     return getattr(_lib_f32(), f"bf_flash_f32_{name}"), launches_f32
 
 
@@ -390,6 +403,10 @@ def _check(name, q, k, v, extra=(), f32=()):
     if d > _HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS[-1]}, the largest "
                          f"the kernels take")
+    if q.dtype == torch.float32 and d > _HEAD_DIMS_F32[-1]:
+        raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS_F32[-1]}, the largest "
+                         f"the f32 kernels (csrc/flash_attention_f32.cu) take; the bf16 "
+                         f"and f16 kernels take up to {_HEAD_DIMS[-1]}")
     if tq < 1 or tk < 1 or bh < 1 or d < 1:
         raise ValueError(f"{name}: empty input {tuple(q.shape)} / {tuple(k.shape)}")
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
@@ -401,7 +418,8 @@ def _check(name, q, k, v, extra=(), f32=()):
         raise ValueError(f"{name}: lse/corr must be [{bh}, {tq}]")
     dev = q.device
     if q.dtype not in _DTYPES:
-        raise ValueError(f"{name}: the CUDA kernels take bf16 or float32, got {q.dtype}")
+        raise ValueError(f"{name}: the CUDA kernels take bf16, float16 or float32, got "
+                         f"{q.dtype}")
     for x in (k, v, *extra):
         if x.dtype != q.dtype:
             raise ValueError(f"{name}: q, k, v and dO must share one dtype, got "
@@ -432,7 +450,8 @@ def _raise_on(name, err):
 
 def pad_head_dim(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` with every ``[BH, T, D]`` argument zero-padded
-    in D to the next head dim the kernels are built for, and every
+    in D to the next head dim the kernels are built for (64, 128 or 256;
+    the wrappers raise before an f32 D above 128 gets here), and every
     ``[BH, T, D]`` result cut back to D.  Exact: the scale is an argument
     (the caller's, from the unpadded D), zero columns add nothing to
     q.k or dO.v, lse and corr do not depend on D, and the padded columns
@@ -539,15 +558,17 @@ def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
 _KERNEL_IDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 
-def occupancy(kernel: str, d: int) -> Dict[str, int]:
-    """How the card holds one flash kernel (``"fwd"``, ``"dkv"`` or
-    ``"dq"``) at head dim ``d``, as its launcher launches it:
+def occupancy(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """How the card holds one bf16 or f16 (``dtype``) flash kernel
+    (``"fwd"``, ``"dkv"`` or ``"dq"``) at head dim ``d``, as its launcher
+    launches it:
     ``blocks_per_sm`` (resident blocks per SM), ``smem`` (dynamic shared
     memory bytes per block), ``regs`` (registers per thread, as compiled;
     the Hopper kernels move registers from their producer to their
     consumers at run time) and ``threads`` (per block).  Needs the card."""
     out = (_I * 4)()
-    err = _lib().bf_flash_occupancy(_KERNEL_IDS[kernel], int(d), out)
+    fn = _lib().bf_flash_f16_occupancy if dtype == torch.float16 else _lib().bf_flash_occupancy
+    err = fn(_KERNEL_IDS[kernel], int(d), out)
     _raise_on(f"occupancy({kernel}, {d})", err)
     return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2], "threads": out[3]}
 
@@ -565,7 +586,9 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
     from the last), dK/dV's (head, key tile of 128 rows from the first), so
     the longest chains of every head come first.  A warpgroup's 64 rows
     skip the tiles they see nothing of, so every tile with a visible pair
-    is computed once."""
+    is computed once.  This is the launch at head dims 64 and 128; at 256
+    a dK/dV block owns 64 keys (its two warpgroups split the head dim
+    instead)."""
     n_q, n_k = -(-tq // _BLOCK), -(-tk // _BLOCK)
 
     def visible(qi, kj):

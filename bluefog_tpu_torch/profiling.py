@@ -301,8 +301,8 @@ def device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
     and the device's idle share on the trace's own timeline.
 
     ``flash_ms_launches`` sums each flash kernel over its head dims and its
-    bf16 and f32 instances (a step runs one of the two; its dtype says
-    which).  ``gemm_ms_launches`` sums the GEMM kernels by name: ``ffma``
+    bf16, f16 and f32 instances (a step runs one dtype; it says which).
+    ``gemm_ms_launches`` sums the GEMM kernels by name: ``ffma``
     those on the f32 FFMA route (``sgemm``, ``ffma``), ``other`` the rest
     (the tensor-core GEMMs)."""
     rows = []

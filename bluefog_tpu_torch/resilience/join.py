@@ -359,7 +359,8 @@ class MembershipBoard:
         committed and get that record back (the caller checks its
         ``reweight`` flag — a raced JOIN grant wins the epoch and the
         demote retries next tick).  Returns the committed-or-existing
-        record.
+        record, or None once a member has marked itself leaving
+        (:meth:`mark_leaving`).
         """
         with self._locked():
             doc = self.read()
@@ -370,6 +371,8 @@ class MembershipBoard:
             for rec in doc["epochs"]:
                 if int(rec["epoch"]) == new_epoch:
                     return rec  # first observer (or a join) won the epoch
+            if doc.get("leaving"):
+                return None  # a member has left its rounds: see mark_leaving
             rec = {
                 "epoch": new_epoch,
                 "members": [int(m) for m in members],
@@ -390,3 +393,20 @@ class MembershipBoard:
             self._publish(doc)
         self._publish_epoch_word(new_epoch)
         return rec
+
+    def mark_leaving(self, member: int) -> int:
+        """Record that global rank ``member`` has left its round loop and
+        return the board's epoch at that moment.  From then on
+        :meth:`commit_reweight` refuses: a reweight switch needs every
+        member at its barriers, and a member that left would meet them
+        with its teardown barrier instead.  The reweight epochs committed
+        before the mark are the ones the leaver still switches through
+        (``islands.adaptive_leave``)."""
+        with self._locked():
+            doc = self.read()
+            if doc is None:
+                raise RuntimeError(f"membership board vanished for "
+                                   f"{self.job!r}")
+            doc["leaving"] = sorted(set(doc.get("leaving", ())) | {int(member)})
+            self._publish(doc)
+            return int(doc["epoch"])

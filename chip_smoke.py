@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
                nvcc builds of csrc/flash_attention.cu,
                csrc/flash_attention_f32.cu and csrc/attention_components.cu
                (with the headers sm90_tile.cuh and mma_tile.cuh), side by
-               side (seconds, ptxas); the three flash kernels, built for Hopper, must hold
+               side (seconds, ptxas); every instance of the three flash
+               kernels (bf16 and f16, D = 64, 128 and 256), built for Hopper, must hold
                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
-               in their SASS where cuobjdump is found, the qk and pv
+               in its SASS where cuobjdump is found, the qk and pv
                microkernels HGMMA (with their body) and no HMMA at both
                head dims, and the chain microkernels MUFU.EX2 (with their
                body) and no HMMA; each chain's loop must issue per element
@@ -55,6 +56,27 @@ Phases, each printing one JSON line:
                (12 layers, hidden 768), 4 virtual ranks, per-rank batch
                2 x 2048, AdamW under ATC gossip on ExponentialTwoGraph(4),
                3 steps; the launch counts must be 12 x 4 x 3 per kernel.
+4b. kernel_times_d256 -- the flash kernels above D = 128 and in f16: bf16
+               at the hidden route's [32, 2048, 256] (4 ranks x batch 2 x
+               4 heads), f16 there, at the main path's [24, 2048, 64] and
+               at the 1b roofline shape [112, 2048, 128], causal; each
+               kernel against its plain version (bf16 by the bf16 rule,
+               f16 by the f16 rule), then eager and CUDA-graph ms beside
+               the bound, the plain version, scaled_dot_product_attention
+               forward and forward + backward, and the occupancy; four
+               more cases at D = 256 in both dtypes (a ring hop,
+               non-causal, a ragged length, D = 192 zero-padded).
+4c. hidden_route -- the reference example's own model through
+               examples/llama_pretrain --hidden 1024 --vocab 32000
+               --layers 12 --seq 2048 --batch 2 --size 4 --attention flash
+               --dtype bf16 (heads 4, dff 3072: D = 256), STEPS ATC steps:
+               finite losses, each bf16 kernel launched layers x ranks x
+               steps, no f16 or f32 launch.  Then one forward and backward
+               of LlamaLM in f16 at the small preset's widths (D = 64),
+               batch 2 x 2048, on the f16 kernels (12 launches each, no
+               bf16 one): finite loss and gradients, the loss within
+               LOSS_ABS of the same weights in f32 with dense
+               attention.
 5. components -- each roofline microkernel instance (qk and pv at D 64 and
                128; the softmax chain, the backward chain with and without
                cast_p) at reps 1, 2 and 3 against its plain version, with
@@ -223,7 +245,9 @@ Phases, each printing one JSON line:
                on the card.
 26. recovery -- benchmarks/recovery with rank 0 on cuda:0: recovery_ms
                (every survivor heals, to heal_topology's mixing matrix),
-               join_ms, partition_merge_ms, straggler_p99_ms.
+               join_ms, partition_merge_ms, straggler_p99_ms (adaptive on,
+               30 steps) below its adaptive-off contrast (10 steps,
+               STRAGGLER_STEPS).
 27. monitor_lab -- the fleet monitor, the convergence probe and the
                simulator.  (a) The launcher with --islands 2 --monitor
                --lab-probe --serve-replicas 1 runs examples/serve_islands
@@ -242,10 +266,31 @@ Phases, each printing one JSON line:
                journaled death and heal.  (c) The monitor's and the
                probe's overhead on the single-process 16 MB round with its
                window on the card, beside the 2% contract (not gated).
-               (d) The reference's 256-rank acceptance campaign twice: equal
-               digests and event logs, ok, a balanced ledger, and the
-               digest the JAX package's simulator gives (SIM_256_DIGEST).
-28. analysis_interactive -- the analysis plane and the interactive island
+               (d) The reference's 256-rank acceptance campaign twice, in
+               two host processes started beside the earlier phases
+               (start_host_jobs): equal digests (the sha256 of the event
+               log), ok, a balanced ledger, and the digest the JAX
+               package's simulator gives (SIM_256_DIGEST).
+28. distributed -- the multi-process backend (core/distributed.py, gloo,
+               every process on cuda:0, rows crossing through pinned host
+               buffers).  (a) python -m bluefog_tpu_torch.run.launcher -np 2
+               runs examples/multihost_worker --device cuda (the reference
+               worker's checks, 8 ranks as 2 x 4) and (b) the same launch
+               runs examples/multihost_slice_worker, side by side with (a):
+               both OK lines each.
+               (c) The main path across processes: examples/llama_pretrain
+               at the small preset's widths (vocab 32000, hidden 768, 12
+               layers, 12 heads, dff 2048), 4 ranks as 2 processes x 2, batch
+               2 x 2048, STEPS ATC steps from the main phase's seed, against
+               the same 4 ranks in one process (run beside (a) and (b);
+               its step ms are not a lone run's): every step's losses equal
+               bit for bit (the crossing rows are exact copies and the
+               classes combine in the same order), the bf16 flash kernels launched layers x
+               ranks x steps over the two processes; per-step ms of both
+               runs, the bytes that crossed processes and the staging and
+               transfer ms a step, each beside the card's name and power
+               limit.  Each launch has its own --timeout.
+29. analysis_interactive -- the analysis plane and the interactive island
                session.  (a) One step of examples/llama_pretrain at the
                small preset's widths (vocab 32000, hidden 768, 12 layers),
                4 ranks, batch 2 x 2048, ATC on ExponentialTwoGraph(4) (2
@@ -258,10 +303,11 @@ Phases, each printing one JSON line:
                window exchange 3).  (c) The epoch lint over a
                windows.record_win_ops trace of the reference test's
                sequence on a cuda window: clean.  (d) python -m
-               bluefog_tpu_torch.analysis --json (every family, the
-               collective one on the card) and --self-test, run beside
-               the other parts: both exit 0, more than 400 subjects, the
-               seconds of each family.  (e) IslandSession(2), rank 0's
+               bluefog_tpu_torch.analysis --json --device cpu (every
+               family; (b) runs the collective one on the card) and
+               --self-test, host processes started beside the earlier
+               phases (start_host_jobs): both exit 0, more than 400
+               subjects, the seconds of each family.  (e) IslandSession(2), rank 0's
                window on cuda:0: examples/interactive_islands' cells give
                the reference example's means [0.5, 0.5], a closure ships
                as source without cloudpickle, an error cell's traceback
@@ -271,28 +317,15 @@ Phases, each printing one JSON line:
                the pipeline forward + backward, the Switch MoE, the
                scan-stacked FSDP step, the dense and flash rings) on cuda
                under the inventory, at the reference's counts.
-29. distributed -- the multi-process backend (core/distributed.py, gloo,
-               every process on cuda:0, rows crossing through pinned host
-               buffers).  (a) python -m bluefog_tpu_torch.run.launcher -np 2
-               runs examples/multihost_worker --device cuda (the reference
-               worker's checks, 8 ranks as 2 x 4) and (b) the same launch
-               runs examples/multihost_slice_worker: both OK lines each.
-               (c) The main path across processes: examples/llama_pretrain
-               at the small preset's widths (vocab 32000, hidden 768, 12
-               layers, 12 heads, dff 2048), 4 ranks as 2 processes x 2, batch
-               2 x 2048, STEPS ATC steps from the main phase's seed, against
-               the same 4 ranks in one process: every step's losses equal
-               bit for bit (the crossing rows are exact copies and the
-               classes combine in the same order), the bf16 flash kernels launched layers x
-               ranks x steps over the two processes; per-step ms of both
-               runs, the bytes that crossed processes and the staging and
-               transfer ms a step, each beside the card's name and power
-               limit.  Each launch has its own --timeout.
 30. bench_headline -- (a) python -m bluefog_tpu_torch.bench, the twin of
                the root's bench.py, in its own process at the card's
-               defaults (ResNet-50 224², 1000 classes, 4 virtual ranks x
+               defaults, started after phase 1 and alone on the card until
+               its spmd bandwidth phase; its host phases (island
+               bandwidth, protocol ceiling, telemetry overhead) then run
+               beside phases 2 on, and the host jobs of phases 27 and 29
+               start when it exits (ResNet-50 224², 1000 classes, 4 virtual ranks x
                128, 20 steps a region, gossip / allreduce / bare forward +
-               backward in paired-slope passes, 2 at most, cut from the
+               backward in paired-slope passes, 1, cut from the
                reference's 10 for time), then the
                optional phases through their twins while BENCH_BUDGET_S
                lasts: exit 0, one line of strict JSON, the reference's
@@ -309,13 +342,15 @@ Phases, each printing one JSON line:
                within 1% of the same model's count on the CPU; the train
                step's count a image.
 Phases 8-12, 14, 18-27 and 30 run no kernel of the repo and add no row to the
-kernel table; the bf16 rows' launches sum the main, llama_1b, seq_parallel,
-zero_8b, bench_twins (its Llama runs), analysis_interactive and
-distributed paths, the f32 rows' the f32_path,
+kernel table; the bf16 rows' launches sum the main, hidden_route,
+llama_1b, seq_parallel, zero_8b, bench_twins (its Llama runs),
+analysis_interactive and distributed paths, the f16 rows' the
+hidden_route's f16 step, the f32 rows' the f32_path,
 seq_parallel and tensor_parallel paths.
 
-Then the kernel table, the nvidia-smi line, and the result line.  Any
-failed check raises, so the script exits non-zero and prints no result.
+Then each phase's wall seconds, the kernel table, the nvidia-smi line, and
+the result line.  Any failed check raises, so the script exits non-zero
+and prints no result.
 It needs one CUDA device and exits non-zero without one.
 """
 
@@ -386,6 +421,24 @@ TOLERANCE_F32 = "|err| <= 2^-14 (|ref| + rms(ref)) per element; lse |err| <= 2e-
 # thousands of elements, and where they part most it is the plain version
 # that is farther (benchmarks/flash_bf16_rounding.py): that case's element
 # gate is this one, its norm gate the bf16 rule's.
+# The f16 kernels against their plain versions:
+#   |got - ref| <= 2^-10 |ref| + 2^-6 rms(ref)   and   ||got - ref|| <= 3e-4 ||ref||.
+# 2^-10 |ref| is one f16 step of the value (both versions round their f32
+# sums to f16 once).  The rms term is the bf16 rule's: the versions part
+# where a p or dS lands on the other side of a rounding boundary (ex2.approx
+# against exp, and the kernels' f32 sums against cuBLAS's, move p by ~2^-21
+# of itself).  f16's boundaries lie 8x as close as bf16's, so such flips
+# come 8x as often at an eighth of the size, and their sum inside dV, dK or
+# dQ shrinks by only ~sqrt(8): at [32, 2048, 256] on an H100 the worst f16
+# element sat at half the bf16 rule's distance and 2.56x a rule with 2^-8
+# here.  The norm gate is what parts f16 from bf16 precision: the f16
+# kernels' norm errors stay under 8e-5 on an H100, while a kernel that
+# rounded p or dS to bf16 instead of f16 would err by ~2^-9/sqrt(3) ~ 1.1e-3
+# of the norm (tests/test_torch_flash_d256.py::test_f16_rule_fails_p_and_ds_rounded_to_bf16
+# holds both sides of the gate on the CPU).  lse as the bf16 rule.
+F16_ELEM_REL, F16_ELEM_RMS, F16_NORM_REL = 2.0 ** -10, 2.0 ** -6, 3e-4
+TOLERANCE_F16 = ("|err| <= 2^-10|ref| + 2^-6 rms(ref) per element, ||err|| <= 3e-4 ||ref||;"
+                 " lse |err| <= 1e-3 on visible rows")
 TRUTH_CASES = ("zero_8b",)
 TOLERANCE_TRUTH = ("|got - truth| - |ref - truth| <= tol(truth) per element, truth in float64, "
                    "tol the element rule's")
@@ -400,11 +453,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def compare(got, ref):
-    """(max abs error, worst error / element tolerance, ||err|| / ||ref||)."""
+def compare(got, ref, rel=ELEM_REL, rms=ELEM_RMS):
+    """(max abs error, worst error / element tolerance, ||err|| / ||ref||);
+    the element tolerance ``rel |ref| + rms rms(ref)``, the bf16 rule's
+    unless given."""
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
-    tol = ELEM_REL * ref.abs() + ELEM_RMS * ref.pow(2).mean().sqrt()
+    tol = rel * ref.abs() + rms * ref.pow(2).mean().sqrt()
     ratio = (err / tol).masked_fill(err == 0, 0.0)  # err > 0 at tol 0 is inf
     err_norm, ref_norm = err.norm().item(), ref.norm().item()
     norm_rel = err_norm / ref_norm if ref_norm else (0.0 if err_norm == 0 else math.inf)
@@ -474,15 +529,29 @@ def component_name(fname):
     return None
 
 
+FLASH_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+# every flash instance the library must hold: (kernel, element type, D)
+FLASH_INSTANCES = [(k, ty, d) for k in ("fwd_kernel", "dkv_kernel", "dq_kernel")
+                   for ty in ("bf16", "f16") for d in (64, 128, 256)]
+
+
+def flash_name(fname):
+    """A flash instance's name ("fwd_kernel<bf16, 256>") from its mangled
+    name, or None."""
+    m = re.search(r"(fwd|dkv|dq)_kernelI(13__nv_bfloat16|6__half)Li(\d+)E", fname)
+    if m:
+        return f"{m.group(1)}_kernel<{FLASH_TYPES[m.group(2)]}, {m.group(3)}>"
+    return None
+
+
 def sass_ops(_build):
-    """{kernel: {op: n for op in SASS_OPS}} from cuobjdump's SASS: the flash
-    library's kernels (both head dims together) and each microkernel
-    instance (component_name); None where cuobjdump is not found."""
+    """{kernel: {op: n for op in SASS_OPS}} from cuobjdump's SASS: each
+    flash instance (flash_name) and each microkernel instance
+    (component_name); None where cuobjdump is not found."""
     flash = _build.sass("flash_attention")
     if flash is None:
         return None
-    found = [(re.search(r"fwd_kernel|dkv_kernel|dq_kernel", f), b) for f, b in flash.items()]
-    named = [(m.group(0), b) for m, b in found if m]
+    named = [(flash_name(f), b) for f, b in flash.items() if flash_name(f)]
     named += [(component_name(f), b) for f, b in _build.sass("attention_components").items()
               if component_name(f)]
     counts = {}
@@ -541,10 +610,11 @@ def phase_device(torch, _build, fa, ac, roof):
                 else f"bwd_chain_kernel<cast_p={int(key[1])}, body>")
         check(pipes.get(name) == counts,
               f"device: {name} issues {pipes.get(name)} an element, the bound prices {counts}")
-    for kname in ("fwd_kernel", "dkv_kernel", "dq_kernel") if sass else ():
-        ops = sass.get(kname, {})
+    for kname, ty, d in FLASH_INSTANCES if sass else ():
+        name = f"{kname}<{ty}, {d}>"
+        ops = sass.get(name, {})
         check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
-              f"device: {kname} holds no wgmma, no TMA load, or mma.sync ({ops})")
+              f"device: {name} holds no wgmma, no TMA load, or mma.sync ({ops})")
     for name in ("qk", "pv") if sass else ():
         for d in (64, 128):
             body, dep = (sass.get(f"{name}_kernel<{d}, {b}>") for b in ("body", "dep"))
@@ -1150,6 +1220,234 @@ def phase_main(torch, fa):
         check(n == want, f"main: {kname} launched {n} times, expected {want}")
     emit({"phase": "main", **out, "launches": counts})
     return counts
+
+
+# phase kernel_times_d256: the timed cells, (dtype, bh, t, d), causal
+D256_SHAPE = (RANKS * BATCH * 4, 2048, 256)  # the hidden route's: 4 ranks x 2 x 4 heads
+D256_CELLS = {
+    "bf16_d256": ("bfloat16", *D256_SHAPE),
+    "f16_d64": ("float16", BATCH * 12, 2048, 64),  # the main path's shape
+    "f16_d128": ("float16", 8 * 14, 2048, 128),  # the 1b roofline shape (ROOFLINE_1B)
+    "f16_d256": ("float16", *D256_SHAPE),
+}
+# ... and the cases held to their plain versions only, in bf16 and f16:
+# (bh, tq, tk, d, q_start, k_start, causal)
+D256_CASES = {
+    "ring_hop": (4, 1024, 1024, 256, 1536, 1024, True),
+    "non_causal": (4, 1024, 1024, 256, 0, 0, False),
+    "ragged": (4, 1000, 1000, 256, 0, 0, True),
+    "d192": (4, 1024, 1024, 192, 0, 0, True),  # zero-padded to 256 by the wrappers
+}
+
+
+def _flash_counts(fa):
+    return {name: dict(counts) for name, counts in
+            (("bf16", fa.launches), ("f16", fa.launches_f16), ("f32", fa.launches_f32))}
+
+
+def _restore_counts(fa, saved):
+    for name, counts in (("bf16", fa.launches), ("f16", fa.launches_f16),
+                         ("f32", fa.launches_f32)):
+        counts.update(saved[name])
+
+
+def _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start, k_start, causal, gen):
+    """Every output of the three kernels against its plain version on one
+    seeded input: {kernel: (max abs error, element ratio, norm error)}, the
+    failures under the dtype's rule, the inputs, lse and corr for timing,
+    and {output: (kernel's, plain version's)}."""
+    rel, rms, norm = ((F16_ELEM_REL, F16_ELEM_RMS, F16_NORM_REL) if dtype == torch.float16
+                      else (ELEM_REL, ELEM_RMS, NORM_REL))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, g = (rnd(bh, tq, d).to(dtype) for _ in range(2))
+    k, v = (rnd(bh, tk, d).to(dtype) for _ in range(2))
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal)
+    o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_start, k_start, **kw)
+    corr = (rnd(bh, tq) - (o_ref.float() * g.float()).sum(-1)).contiguous()
+    dk, dv = fa.flash_dkv(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq = fa.flash_dq(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    outs = {"o": (o, o_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref), "dq": (dq, dq_ref)}
+    for kname, pairs in (("fwd", [("o", o, o_ref)]),
+                         ("dkv", [("dk", dk, dk_ref), ("dv", dv, dv_ref)]),
+                         ("dq", [("dq", dq, dq_ref)])):
+        worst = (0.0, 0.0, 0.0)
+        for what, got, ref in pairs:
+            check(torch.isfinite(got).all().item(), f"non-finite {what}")
+            err = compare(got, ref, rel, rms)
+            if err[1] > 1.0 or err[2] > norm:
+                failures.append(f"{what}: max error {err[0]}, {err[1]:.3g} x the element "
+                                f"tolerance, norm error {err[2]:.3g}")
+            worst = tuple(max(a, b) for a, b in zip(worst, err))
+        errs[kname] = worst
+    lse_err, lse_ratio = compare_lse(lse, lse_ref)
+    if lse_ratio > 1.0:
+        failures.append(f"lse: max error {lse_err} > {LSE_ABS}")
+    errs["lse"] = (lse_err, lse_ratio)
+    return errs, failures, (q, k, v, g, lse_ref, corr), outs
+
+
+def phase_kernels_d256(torch, fa):
+    """The flash kernels at D = 256 and in f16 (D256_CELLS, D256_CASES):
+    each held to its plain version, then timed.  For f16 at D = 256 each
+    output's and its plain version's largest distance from float64 are
+    recorded beside (not gated): the f16 rule's evidence.  Returns {cell: {kernel: row of the kernel table}}.
+    Launches made here are not a path's."""
+    from bluefog_tpu_torch.benchmarks.flash_bf16_rounding import truth
+    from bluefog_tpu_torch.profiling import graph_seconds
+
+    F = torch.nn.functional
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    saved = _flash_counts(fa)
+    failures = []
+    for name, (bh, tq, tk, d, q_start, k_start, causal) in D256_CASES.items():
+        for dtype in (torch.bfloat16, torch.float16):
+            errs, bad, _, _ = _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start,
+                                             k_start, causal, gen)
+            tag = f"{name} {str(dtype)[6:]}"
+            failures += [f"{tag} {b}" for b in bad]
+            emit({"phase": "kernel_case_d256", "case": name, "dtype": str(dtype)[6:],
+                  "shape": [bh, tq, tk, d], "q_start": q_start, "k_start": k_start,
+                  "causal": causal, **{f"{k}_max_abs_err_tol_ratio_norm": list(v)
+                                       for k, v in errs.items()}})
+    table = {}
+    for cell, (dname, bh, t, d) in D256_CELLS.items():
+        dtype = getattr(torch, dname)
+        errs, bad, (q, k, v, g, lse, corr), outs = _held_to_plain(torch, fa, dtype, bh, t, t,
+                                                                  d, 0, 0, True, gen)
+        failures += [f"{cell} {b}" for b in bad]
+        vs_truth = {}
+        if cell == "f16_d256":  # max |kernel - float64|, max |plain - float64|
+            exact = truth(q, k, v, g, lse, corr, 1.0 / math.sqrt(d))
+            vs_truth = {what: [(x.double() - exact[what]).abs().max().item() for x in pair]
+                        for what, pair in outs.items()}
+            del exact
+        del outs
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, 0, 0, **kw),
+                 "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, 0, 0, **kw),
+                 "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, 0, 0, **kw)}
+        plain = {"fwd": lambda: fa.flash_fwd_plain(q, k, v, 0, 0, **kw),
+                 "dkv": lambda: fa.flash_dkv_plain(q, k, v, g, lse, corr, 0, 0, **kw),
+                 "dq": lambda: fa.flash_dq_plain(q, k, v, g, lse, corr, 0, 0, **kw)}
+        ms = {kname: cuda_ms(fn) for kname, fn in calls.items()}
+        graph_ms = {kname: graph_seconds(fn, calls=20) * 1e3 for kname, fn in calls.items()}
+        plain_ms = {kname: cuda_ms(fn, iters=3, warmup=1) for kname, fn in plain.items()}
+        q4, k4, v4, g4 = (x.view(1, bh, t, d) for x in (q, k, v, g))
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g4)
+
+        sdpa_fb = cuda_ms(sdpa_fwd_bwd)
+        occ = {kname: fa.occupancy(kname, d, dtype) for kname in calls}
+        row = {"phase": "kernel_times_d256", "cell": cell, "dtype": dname,
+               "shape": [bh, t, d], "causal": True,
+               "tolerance": TOLERANCE_F16 if dtype == torch.float16 else TOLERANCE,
+               "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fb,
+               "fwd_dkv_dq_ms": ms["fwd"] + ms["dkv"] + ms["dq"],
+               "lse_max_abs_err": errs["lse"][0],
+               "kernel_and_plain_max_abs_err_vs_float64": vs_truth}
+        table[cell] = {}
+        for kname, (flops, nbytes) in bf16_work(bh, t, d).items():
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            err, ratio, norm_rel = errs[kname]
+            table[cell][kname] = {
+                "max_abs_err": max(err, errs["lse"][0]) if kname == "fwd" else err,
+                "ms": ms[kname], "graph_ms": graph_ms[kname], "plain_ms": plain_ms[kname],
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": sdpa_fwd if kname == "fwd" else None}
+            row[kname] = {**table[cell][kname], "tol_ratio": ratio, "norm_rel_err": norm_rel,
+                          "tflops": flops / (ms[kname] * 1e-3) / 1e12, "occupancy": occ[kname]}
+        emit(row)
+        del q, k, v, g, lse, corr, q4, k4, v4, g4, qg, kg, vg
+    _restore_counts(fa, saved)
+    emit({"phase": "kernel_times_d256_done", "phase_seconds": time.perf_counter() - t0})
+    check(not failures, "kernel_times_d256: " + "; ".join(failures))
+    return table
+
+
+HIDDEN_ROUTE = ["--hidden", "1024", "--vocab", "32000", "--layers", "12", "--seq", "2048",
+                "--batch", str(BATCH), "--size", str(RANKS), "--attention", "flash",
+                "--dtype", "bf16", "--steps", str(STEPS), "--device", "cuda"]
+
+
+def phase_hidden_route(torch, fa):
+    """The reference example's model at --hidden 1024 (D = 256) through
+    examples/llama_pretrain, then one f16 LlamaLM step at the small widths.
+    Returns the bf16 counts of the first and the f16 counts of the second,
+    each read with every count set to 0 just before."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+    from bluefog_tpu_torch.models.transformer import LlamaLM
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    fa.reset_launches()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(HIDDEN_ROUTE))
+    seen = _flash_counts(fa)
+    counts = seen["bf16"]
+    losses = [x for step in out["losses"] for x in step]
+    check(out["head_dim"] == 256 and out["heads"] == 4, f"hidden_route: {out['head_dim']}")
+    check(all(math.isfinite(x) for x in losses), f"hidden_route: non-finite loss {losses}")
+    want = out["layers"] * RANKS * STEPS
+    for kname, n in counts.items():
+        check(n == want, f"hidden_route: {kname} launched {n} times, expected {want}")
+    check(not any(seen["f16"].values()) and not any(seen["f32"].values()),
+          f"hidden_route: other kernels launched {seen}")
+    row = {"phase": "hidden_route", **out, "launches": counts}
+
+    # one f16 step at the small widths against the same weights in f32
+    cfg = llama_pretrain.PRESETS["small"]
+    widths = dict(vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=cfg["layers"],
+                  num_heads=cfg["heads"], dff=cfg["dff"], head_chunks=cfg["head_chunks"],
+                  device="cpu")
+    _free_device_cache(torch)
+    ids = torch.randint(0, cfg["vocab"], (BATCH, cfg["seq"]),
+                        generator=torch.Generator().manual_seed(3)).cuda()
+    m32 = LlamaLM(**widths, dtype=torch.float32, attention_fn=None,
+                  generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        loss32 = m32(ids, labels=ids).item()
+    del m32
+    m16 = LlamaLM(**widths, dtype=torch.float16, attention_fn=fa.make_flash_attention_fn(),
+                  generator=torch.Generator().manual_seed(1)).cuda()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t16 = time.perf_counter()
+    loss16 = m16(ids, labels=ids)
+    loss16.backward()
+    torch.cuda.synchronize()
+    step16_ms = (time.perf_counter() - t16) * 1e3
+    seen = _flash_counts(fa)
+    counts16 = seen["f16"]
+    grads_finite = all(torch.isfinite(p.grad).all().item() for p in m16.parameters())
+    loss16 = loss16.item()
+    del m16
+    row.update(f16_step={"loss": loss16, "loss_f32_dense": loss32,
+                         "loss_abs_err": abs(loss16 - loss32), "grads_finite": grads_finite,
+                         "ms": step16_ms, "launches": counts16,
+                         "tolerance": f"|loss - loss_f32| <= {LOSS_ABS}"},
+               phase_seconds=time.perf_counter() - t0)
+    emit(row)
+    check(math.isfinite(loss16) and grads_finite, f"hidden_route f16: loss {loss16}")
+    check(abs(loss16 - loss32) <= LOSS_ABS,
+          f"hidden_route f16: loss {loss16} vs f32 {loss32}")
+    for kname, n in counts16.items():
+        check(n == cfg["layers"], f"hidden_route f16: {kname} launched {n} times")
+    check(not any(seen["bf16"].values()) and not any(seen["f32"].values()),
+          f"hidden_route f16: other kernels launched {seen}")
+    return counts, counts16
 
 
 COMPONENT_BLOCKS = 3
@@ -3137,6 +3435,29 @@ def phase_launcher_serving(torch):
     check(distrib["delta_ratio_bf16"] < 0.6, f"launcher_serving: {distrib}")
 
 
+# the straggler's arms (benchmarks/recovery.measure_straggler): adaptive on
+# at the benchmark's 30 steps; the adaptive-off contrast, whose every step
+# past the 5 of warmup waits out the 600 ms nap (~40 s of the phase at 30
+# steps), cut to 10 for the script's time limit: its p99 then pools 3
+# ranks x 5 timed steps, and is the slowest of them
+STRAGGLER_STEPS = {"on": 30, "off": 10}
+
+
+def _straggler(recovery, nprocs=4, delay_s=0.6):
+    """measure_straggler's metric, each arm at its STRAGGLER_STEPS."""
+    p99 = {arm: recovery._run_straggler_once(nprocs, steps, delay_s, adaptive_on=arm == "on",
+                                             device="cuda")
+           for arm, steps in STRAGGLER_STEPS.items()}
+    return {"metric": f"healthy-rank synchronous gossip step p99 with one "
+                      f"{delay_s * 1000:.0f} ms straggler (exp2, {nprocs} procs, shm mailbox, "
+                      f"adaptive on)",
+            "value": round(p99["on"], 1), "unit": "ms",
+            "adaptive_off_p99_ms": round(p99["off"], 1),
+            "straggler_delay_ms": round(delay_s * 1000.0, 1),
+            "steps": STRAGGLER_STEPS["on"], "adaptive_off_steps": STRAGGLER_STEPS["off"],
+            "ranks_pooled": nprocs - 1}
+
+
 def phase_recovery(torch):
     """The resilience headlines with rank 0's window on the card."""
     from bluefog_tpu_torch.benchmarks import recovery
@@ -3146,7 +3467,7 @@ def phase_recovery(torch):
     rec = recovery.measure_recovery(device="cuda")
     join = recovery.measure_join(device="cuda")
     part = recovery.measure_partition(device="cuda")
-    strag = recovery.measure_straggler(device="cuda")
+    strag = _straggler(recovery)
     emit({"phase": "recovery", "recovery_ms": rec["value"], "join_ms": join["value"],
           "partition_merge_ms": part["value"], "straggler_p99_ms": strag["value"],
           "recovery": rec, "join": join, "partition": part, "straggler": strag,
@@ -3337,11 +3658,11 @@ def _monitored_kill_run(root, device="cuda"):
     return row
 
 
-def phase_monitor_lab(torch):
+def phase_monitor_lab(torch, host):
     """The fleet monitor, the convergence probe and the simulator on the
-    card's host, rank 0's windows on the card."""
+    card's host, rank 0's windows on the card; the simulator's two runs
+    are host jobs (start_host_jobs)."""
     from bluefog_tpu_torch.benchmarks import gossip_bandwidth
-    from bluefog_tpu_torch.sim import SimConfig, run_campaign
 
     t0 = time.perf_counter()
     _free_device_cache(torch)
@@ -3356,23 +3677,19 @@ def phase_monitor_lab(torch):
     for name, o in over.items():
         check(all(math.isfinite(o[k]) for k in ("value", "round_off_us", "round_on_us")),
               f"monitor_lab: {name} overhead {o}")
-    cfg = SimConfig(ranks=256, rounds=50, seed=7, quiesce_rounds=40)
-    runs, secs = [], []
-    for _ in range(2):
-        t = time.perf_counter()
-        runs.append(run_campaign(cfg))
-        secs.append(time.perf_counter() - t)
-    a, b = runs
+    a, b = (json.loads(host_job(host, name, f"monitor_lab: {name}")[0].strip().splitlines()[-1])
+            for name in ("sim_a", "sim_b"))
     emit({"phase": "monitor_lab", "sim_256": {
-              "seconds": secs, "digest": a.digest, "reference_digest": SIM_256_DIGEST,
-              "events": len(a.event_log), "ok": a.ok, "violations": len(a.violations),
-              "ledger_balanced": a.final["ledger"]["balanced"]},
+              "seconds": [a["seconds"], b["seconds"]], "digest": a["digest"],
+              "reference_digest": SIM_256_DIGEST, "events": a["events"], "ok": a["ok"],
+              "violations": a["n_violations"], "ledger_balanced": a["ledger_balanced"]},
           "phase_seconds": time.perf_counter() - t0})
-    check(a.digest == b.digest and a.event_log == b.event_log,
-          f"monitor_lab: the 256-rank campaign does not replay: {a.digest} {b.digest}")
-    check(a.ok and a.final["ledger"]["balanced"], f"monitor_lab: {a.violations[:3]}")
-    check(a.digest == SIM_256_DIGEST,
-          f"monitor_lab: digest {a.digest}, the reference simulator's is {SIM_256_DIGEST}")
+    # the digest hashes the canonical event log: equal digests, equal logs
+    check(a["digest"] == b["digest"] and a["events"] == b["events"],
+          f"monitor_lab: the 256-rank campaign does not replay: {a['digest']} {b['digest']}")
+    check(a["ok"] and a["ledger_balanced"], f"monitor_lab: {a['violations']}")
+    check(a["digest"] == SIM_256_DIGEST,
+          f"monitor_lab: digest {a['digest']}, the reference simulator's is {SIM_256_DIGEST}")
 
 
 # (e): the reference example's per-rank means at 2 ranks after 12 rounds
@@ -3423,18 +3740,21 @@ def _session_cells(sess, ex, closure_cell, probe_cell, error_cell):
     return row
 
 
-def _analysis_cli(root, args, out_dir, tag):
-    """Start ``python -m bluefog_tpu_torch.analysis ARGS`` with its output
-    in files; returns (process, stdout path, stderr path, start time)."""
+def _start_py(args, out_dir, tag, env=None):
+    """Start ``python ARGS`` from the checkout with its output in files;
+    returns (process, stdout path, stderr path, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(out_dir, f"{tag}.out")
     err = os.path.join(out_dir, f"{tag}.err")
     with open(out, "w") as fo, open(err, "w") as fe:
-        proc = subprocess.Popen([sys.executable, "-m", "bluefog_tpu_torch.analysis", *args],
-                                cwd=root, stdout=fo, stderr=fe)
+        proc = subprocess.Popen([sys.executable, *args], cwd=root, stdout=fo, stderr=fe,
+                                env=env)
     return proc, out, err, time.perf_counter()
 
 
 def _finish_cli(run, what, timeout):
+    """Wait for a run of _start_py; ``what`` names it in a failed check.
+    Returns (stdout, stderr, seconds since its start)."""
     proc, out, err, t0 = run
     try:
         rc = proc.wait(timeout=timeout)
@@ -3446,11 +3766,87 @@ def _finish_cli(run, what, timeout):
         stdout = f.read()
     with open(err) as f:
         stderr = f.read()
-    check(rc == 0, f"analysis_interactive: {what} exited {rc}: {stdout[-2000:]} {stderr[-2000:]}")
-    return stdout, time.perf_counter() - t0
+    check(rc == 0, f"{what} exited {rc}: {stdout[-2000:]} {stderr[-2000:]}")
+    return stdout, stderr, time.perf_counter() - t0
 
 
-def phase_analysis_interactive(torch, fa):
+def _kill(run):
+    if run[0].poll() is None:
+        run[0].kill()
+        run[0].wait()
+
+
+def sim_256_summary():
+    """One run of the reference's 256-rank acceptance campaign (phase
+    monitor_lab (d)), printed as one JSON line; run as a process of its own
+    (start_host_jobs).  The digest is the sha256 of the canonical event
+    log, so equal digests are equal event logs."""
+    from bluefog_tpu_torch.sim import SimConfig, run_campaign
+
+    t = time.perf_counter()
+    run = run_campaign(SimConfig(ranks=256, rounds=50, seed=7, quiesce_rounds=40))
+    print(json.dumps({"seconds": time.perf_counter() - t, "digest": run.digest,
+                      "events": len(run.event_log), "ok": run.ok,
+                      "violations": [str(v) for v in run.violations[:3]],
+                      "n_violations": len(run.violations),
+                      "ledger_balanced": run.final["ledger"]["balanced"]}))
+
+
+# the host-only checks that run beside the card's phases: name -> python args
+HOST_JOBS = {"self_test": ["-m", "bluefog_tpu_torch.analysis", "--self-test"],
+             "json": ["-m", "bluefog_tpu_torch.analysis", "--json", "--device", "cpu"],
+             "sim_a": ["-c", "import chip_smoke; chip_smoke.sim_256_summary()"],
+             "sim_b": ["-c", "import chip_smoke; chip_smoke.sim_256_summary()"]}
+HOST_JOB_TIMEOUT_S = 600
+
+
+def start_host_jobs(after=None):
+    """Start HOST_JOBS, which use no card, once the process ``after`` (the
+    bench, whose last phase times host processes) has exited, or at once
+    without one: from a
+    thread, so that they run beside the card's phases.  Phase
+    analysis_interactive reads python -m bluefog_tpu_torch.analysis
+    --self-test (the fixtures and the acceptance-size campaigns, ~110-140 s
+    of host time on the card's machine) and --json --device cpu; phase
+    monitor_lab the 256-rank campaign, run twice in processes of their own.
+    One intra-op thread each, to leave the host's cores to the phases."""
+    host = {"dir": tempfile.mkdtemp(prefix="bftpu_host_"), "runs": {},
+            "stop": threading.Event(), "lock": threading.Lock()}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def starter():
+        if after is not None:
+            after.wait()
+        with host["lock"]:
+            if not host["stop"].is_set():
+                for name, args in HOST_JOBS.items():
+                    host["runs"][name] = _start_py(args, host["dir"], name, env)
+
+    threading.Thread(target=starter, daemon=True).start()
+    return host
+
+
+def host_job(host, name, what):
+    """The output of host job ``name`` (start_host_jobs): (stdout, stderr,
+    seconds); a failed check if it exits non-zero."""
+    deadline = time.perf_counter() + HOST_JOB_TIMEOUT_S
+    while name not in host["runs"]:  # the bench may still be running
+        check(time.perf_counter() < deadline, f"{what} never started")
+        time.sleep(0.5)
+    return _finish_cli(host["runs"][name], what, timeout=HOST_JOB_TIMEOUT_S)
+
+
+def stop_host_jobs(host):
+    with host["lock"]:
+        host["stop"].set()
+        for run in host["runs"].values():
+            _kill(run)
+    shutil.rmtree(host["dir"], ignore_errors=True)
+
+
+def phase_analysis_interactive(torch, fa, host):
     """The analysis plane and the interactive island session on the card.
     (a) One step of examples/llama_pretrain at the small preset's widths
     under the collective inventory: the ATC gossip is exactly classes x
@@ -3458,30 +3854,18 @@ def phase_analysis_interactive(torch, fa):
     rank axis, and each bf16 flash kernel launches layers x ranks times.
     (b) The collective family's corpus on cuda at the reference's
     budgets.  (c) The epoch lint over a live window trace on cuda.
-    (d) python -m bluefog_tpu_torch.analysis --json (every family, the
-    collective one on the card) and --self-test, both started first and
-    run beside (a)-(c) and (e).  (e) An IslandSession(2) with rank 0's
-    window on cuda:0: the example's create / gossip / cleanup cells, a
-    closure shipped as source, and an error cell whose traceback must
-    reach here, its segments reclaimed.  The CLI processes are killed if
-    a check fails first."""
+    (d) python -m bluefog_tpu_torch.analysis --json --device cpu (every
+    family; (b) runs the collective one on the card) and --self-test,
+    host jobs started beside the earlier phases (start_host_jobs).  (e)
+    An IslandSession(2) with rank 0's window on cuda:0: the example's
+    create / gossip / cleanup cells, a closure shipped as source, and an
+    error cell whose traceback must reach here, its segments reclaimed."""
     t0 = time.perf_counter()
     _free_device_cache(torch)
-    root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = tempfile.mkdtemp(prefix="bftpu_analysis_")
-    cli_json = _analysis_cli(root, ["--json"], out_dir, "json")
-    cli_self = _analysis_cli(root, ["--self-test"], out_dir, "self_test")
-    try:
-        return _analysis_interactive_body(torch, fa, cli_json, cli_self, t0)
-    finally:
-        for run in (cli_json, cli_self):
-            if run[0].poll() is None:
-                run[0].kill()
-                run[0].wait()
-        shutil.rmtree(out_dir, ignore_errors=True)
+    return _analysis_interactive_body(torch, fa, host, t0)
 
 
-def _analysis_interactive_body(torch, fa, cli_json, cli_self, t0):
+def _analysis_interactive_body(torch, fa, host, t0):
     import importlib.util
 
     from bluefog_tpu_torch import analysis, topology_util, windows
@@ -3613,10 +3997,10 @@ def _analysis_interactive_body(torch, fa, cli_json, cli_self, t0):
     check(not row_e["segments_left"] and not sess._alive,
           f"analysis_interactive: segments left {row_e['segments_left']}")
 
-    # (d) the CLI runs started at the top
-    stdout, secs_json = _finish_cli(cli_json, "--json", timeout=600)
+    # (d) the CLI runs, host jobs
+    stdout, _, secs_json = host_job(host, "json", "analysis_interactive: --json")
     payload = json.loads(stdout)
-    selftest, secs_self = _finish_cli(cli_self, "--self-test", timeout=600)
+    selftest, _, secs_self = host_job(host, "self_test", "analysis_interactive: --self-test")
     row_d = {"json_ok": payload["ok"], "subjects_checked": payload["subjects_checked"],
              "family_seconds": payload["family_seconds"], "json_seconds": secs_json,
              "self_test_seconds": secs_self,
@@ -3665,12 +4049,21 @@ def phase_distributed(torch, smi):
     t0 = time.perf_counter()
     _free_device_cache(torch)
     card = smi.strip()
-    # (a), (b) the reference workers' twins
-    for mod, word in (("multihost_worker", "multihost"),
-                      ("multihost_slice_worker", "multislice")):
-        proc, secs = _launch(["-np", "2", "--", sys.executable, "-m",
-                              f"bluefog_tpu_torch.examples.{mod}", "--device", "cuda"],
-                             DIST_TIMEOUT_S)
+    # (a), (b) the reference workers' twins (checks, not timings) side by
+    # side with (c)'s one-process run
+    import concurrent.futures
+
+    lp = [sys.executable, "-m", "bluefog_tpu_torch.examples.llama_pretrain", "--preset",
+          "small", "--steps", str(STEPS), "--size", str(RANKS), "--batch", str(BATCH),
+          "--device", "cuda"]
+    workers = (("multihost_worker", "multihost"), ("multihost_slice_worker", "multislice"))
+    with concurrent.futures.ThreadPoolExecutor(len(workers) + 1) as pool:
+        one_run = pool.submit(_launch, ["--"] + lp, DIST_TIMEOUT_S)
+        launched = list(pool.map(lambda mod: _launch(
+            ["-np", "2", "--", sys.executable, "-m", f"bluefog_tpu_torch.examples.{mod}",
+             "--device", "cuda"], DIST_TIMEOUT_S), [mod for mod, _ in workers]))
+        one, secs_one = one_run.result()
+    for (mod, word), (proc, secs) in zip(workers, launched):
         oks = [f"{word} worker process {p} OK" in proc.stdout for p in range(2)]
         emit({"phase": "distributed", "worker": mod, "rc": proc.returncode, "ok_lines": oks,
               "seconds": secs, "card": card})
@@ -3679,19 +4072,17 @@ def phase_distributed(torch, smi):
               f"\nstderr:\n{proc.stderr[-3000:]}")
 
     # (c) the main path across processes against one process
-    lp = [sys.executable, "-m", "bluefog_tpu_torch.examples.llama_pretrain", "--preset",
-          "small", "--steps", str(STEPS), "--size", str(RANKS), "--batch", str(BATCH),
-          "--device", "cuda"]
+    check(one.returncode == 0, f"distributed: 1-process llama rc={one.returncode}\n"
+          f"stderr:\n{one.stderr[-3000:]}")
+    (ref,) = [d for d in _json_lines(one.stdout) if "losses" in d]
     two, secs_two = _launch(["-np", "2", "--"] + lp, DIST_TIMEOUT_S)
     check(two.returncode == 0, f"distributed: 2-process llama rc={two.returncode}\n"
           f"stdout:\n{two.stdout[-3000:]}\nstderr:\n{two.stderr[-3000:]}")
     procs = sorted((d for d in _json_lines(two.stdout) if "process" in d),
                    key=lambda d: d["process"])
-    one, secs_one = _launch(["--"] + lp, DIST_TIMEOUT_S)
-    check(one.returncode == 0, f"distributed: 1-process llama rc={one.returncode}\n"
-          f"stderr:\n{one.stderr[-3000:]}")
-    (ref,) = [d for d in _json_lines(one.stdout) if "losses" in d]
-    check([d["process"] for d in procs] == [0, 1], f"distributed: process lines {procs}")
+    check([d["process"] for d in procs] == [0, 1],
+          f"distributed: process lines {procs}\nstdout:\n{two.stdout[-6000:]}"
+          f"\nstderr:\n{two.stderr[-3000:]}")
     diff = max(abs(a - b) for d in procs for sa, sb in zip(d["losses"], ref["losses"])
                for a, b in zip(sa, sb))
     launches = {k: sum(d["flash_launches"][k] for d in procs) for k in ("fwd", "dkv", "dq")}
@@ -3708,10 +4099,12 @@ def phase_distributed(torch, smi):
               "flash_launches": d["flash_launches"],
               "max_memory_allocated": d.get("max_memory_allocated")})
     row = {"phase": "distributed", "card": card, "preset": ref["preset"], "layers": ref["layers"],
-           "ranks": RANKS, "processes": 2, "steps": STEPS, "batch": BATCH, "seq": ref["seq"],
+           "ranks": RANKS, "processes": 2, "steps": STEPS, "batch": BATCH,
+           "seq": ref["seq"],
            "losses_two_processes": procs[0]["losses"], "losses_one_process": ref["losses"],
            "max_abs_loss_diff": diff, "limit": 0.0,
            "step_ms_two_processes": procs[0]["step_ms"], "step_ms_one_process": ref["step_ms"],
+           "one_process_beside": "the worker twins (a), (b)",
            "launches": launches, "launches_expected": want,
            "launch_seconds": {"two_processes": secs_two, "one_process": secs_one},
            "phase_seconds": time.perf_counter() - t0}
@@ -3732,12 +4125,18 @@ def phase_distributed(torch, smi):
 # then ~690 s of optional phases, five overheads at best of 5 ~460 s of
 # it), more than this script's time limit leaves, and the script runs up
 # to ~1.3x slower on some hosts.  So the passes are cut from the
-# reference's 10 to 2 (~60 s), and the budget ends the optional phases
-# 100 s in: the win_put bandwidth, the headline's second metric, starts
+# reference's 10 to 1 (~40 s; 2 passes took the script past 1,200 s on a
+# slow host), and the budget ends the optional phases 100 s in.  One pass
+# gives robust_min one paired slope a metric: the headline is that pass's
+# value, with no second pass to take the lesser of.  The win_put
+# bandwidth, the headline's second metric, starts
 # even on a host 1.5x slower, and so do the phases that start before 100 s
-# (through the telemetry overhead, ~85 s, which ends past it); the rest are
-# skipped, reported on stderr and gated as such.
-BENCH_MAX_PASSES = 2
+# (through the telemetry overhead, ~85-120 s, which ends past it); the rest
+# are skipped, reported on stderr and gated as such.  The bench runs
+# first, alone on the card until its spmd bandwidth phase (~50-60 s); the
+# island bandwidth, the protocol ceiling and the telemetry overhead, host
+# processes only, then run beside the card's phases (not a lone run's).
+BENCH_MAX_PASSES = 1
 BENCH_BUDGET_S = 100
 #: the optional phases whose keys the gate requires whatever the budget did
 BENCH_REQUIRED = ("bw_spmd",)
@@ -3812,33 +4211,64 @@ def headline_problems(rec, stderr, ref_keys, max_passes, fail):
     return skipped
 
 
-def phase_bench_headline(torch, smi):
-    """(a) The headline twin, python -m bluefog_tpu_torch.bench, in its own
-    process at the card's defaults; (b) cost_summary on the card."""
-    t0 = time.perf_counter()
-    _free_device_cache(torch)
-    card = smi.strip()
+def start_bench_headline():
+    """(a) of phase bench_headline: python -m bluefog_tpu_torch.bench in
+    its own process at the card's defaults, started after phase device and
+    waited for by wait_bench_on_host.  Returns the run (_start_py) and its
+    output directory."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
                BENCH_MAX_PASSES=str(BENCH_MAX_PASSES), BENCH_BUDGET_S=str(BENCH_BUDGET_S))
     for k in ("BENCH_BATCH", "BENCH_STEPS", "BENCH_WARMUP", "BENCH_RANKS",
               "BENCH_STEPS_PER_CALL"):
         env.pop(k, None)
-    proc = subprocess.run([sys.executable, "-m", "bluefog_tpu_torch.bench"], env=env, cwd=root,
-                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    secs = time.perf_counter() - t0
+    out_dir = tempfile.mkdtemp(prefix="bftpu_bench_")
+    return _start_py(["-m", "bluefog_tpu_torch.bench"], out_dir, "bench", env), out_dir
+
+
+def wait_bench_on_host(bench):
+    """Block until the bench has no more work on the card: its stderr
+    reports the spmd bandwidth phase (run or skipped), after which only
+    host processes of its own run within its budget (the island
+    bandwidth, the protocol ceiling, the telemetry overhead); or it has
+    exited (a failed check at once if it failed)."""
+    (proc, _, err, _), _ = bench
+    deadline = time.perf_counter() + BENCH_TIMEOUT_S
+    while proc.poll() is None and time.perf_counter() < deadline:
+        with open(err) as f:
+            if re.search(r"^bench: spmd bandwidth phase", f.read(), re.MULTILINE):
+                return
+        time.sleep(0.5)
+    if proc.returncode:
+        with open(err) as f:
+            check(False, f"bench_headline: rc={proc.returncode}\n{f.read()[-3000:]}")
+
+
+def phase_bench_headline(torch, smi, bench):
+    """(a) The headline twin started by start_bench_headline: its output
+    and gates; (b) cost_summary on the card."""
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    card = smi.strip()
+    root = os.path.dirname(os.path.abspath(__file__))
+    run, out_dir = bench
+    try:
+        stdout, stderr, secs = _finish_cli(run, "bench_headline: python -m bluefog_tpu_torch.bench",
+                                           BENCH_TIMEOUT_S)
+    finally:
+        _kill(run)
+        shutil.rmtree(out_dir, ignore_errors=True)
     # the twins' own lines, then the headline
-    for line in proc.stderr.splitlines():
+    for line in stderr.splitlines():
         if line.startswith("{"):
             with contextlib.suppress(ValueError):
                 emit({"phase": "bench_headline", "twin": json.loads(line)})
                 continue
         print(f"bench stderr: {line}", flush=True)
-    check(proc.returncode == 0, f"bench_headline: rc={proc.returncode}\n{proc.stderr[-3000:]}")
-    lines = [line for line in proc.stdout.splitlines() if line.strip()]
-    check(len(lines) == 1, f"bench_headline: {len(lines)} stdout lines: {proc.stdout[-2000:]}")
+    lines = [line for line in stdout.splitlines() if line.strip()]
+    check(len(lines) == 1, f"bench_headline: {len(lines)} stdout lines: {stdout[-2000:]}")
     rec = _strict_json(lines[0])
-    skipped = headline_problems(rec, proc.stderr, reference_headline_keys(root),
+    skipped = headline_problems(rec, stderr, reference_headline_keys(root),
                                 BENCH_MAX_PASSES, check)
     emit({"phase": "bench_headline", "headline": rec, "card": card, "bench_seconds": secs,
           "max_passes": BENCH_MAX_PASSES, "budget_s": BENCH_BUDGET_S,
@@ -3914,41 +4344,64 @@ def main():
     # the package re-exports a function of the module's own name
     fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 
-    smi = phase_device(torch, _build, fa, ac, roof)
-    table = phase_kernels(torch, fa)
-    table_f32 = phase_kernels_f32(torch, fa)
-    counts_f32 = phase_f32(torch, fa)
-    phase_model(torch, fa)
-    counts = phase_main(torch, fa)
-    comp_err = phase_components(torch, ac, roof)
-    row, comp_counts = phase_roofline(torch, fa, ac, roof)
-    comp_table = component_times(torch, ac, roof, row)
-    phase_resnet(torch)
-    phase_windows(torch)
-    phase_bert_pushsum(torch)
-    phase_exact_algorithms(torch)
-    phase_eager_api(torch)
-    phase_hierarchical(torch)
-    counts_1b = phase_llama_1b(torch, fa)
-    phase_vit(torch, fa)
-    counts_sp, counts_sp_f32 = phase_seq_parallel(torch, fa)
-    counts_z8 = phase_zero_8b(torch, fa)
-    counts_tp_f32 = phase_tensor_parallel(torch, fa)
-    phase_pipeline(torch)
-    phase_expert(torch)
-    counts_bt = phase_bench_twins(torch, fa)
-    phase_islands_native(native_build)
-    phase_islands_async(torch)
-    phase_islands_overlap(torch)
-    phase_islands_bandwidth(torch)
-    phase_bf16_window(torch)
-    phase_launcher_serving(torch)
-    phase_recovery(torch)
-    phase_monitor_lab(torch)
-    counts_ai = phase_analysis_interactive(torch, fa)
-    counts_dist = phase_distributed(torch, smi)
-    phase_bench_headline(torch, smi)
-    emit({"script_seconds": time.perf_counter() - t_script, "card": smi.strip()})
+    wall = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("device", phase_device, torch, _build, fa, ac, roof)
+    # the bench first, alone on the card; its host tail and then the host
+    # jobs run beside the card's phases
+    bench = start_bench_headline()
+    host = None
+    try:
+        timed("bench_on_card", wait_bench_on_host, bench)
+        host = start_host_jobs(bench[0][0])
+        table = timed("kernels", phase_kernels, torch, fa)
+        table_d256 = timed("kernels_d256", phase_kernels_d256, torch, fa)
+        table_f32 = timed("kernels_f32", phase_kernels_f32, torch, fa)
+        counts_f32 = timed("f32", phase_f32, torch, fa)
+        timed("model", phase_model, torch, fa)
+        counts = timed("main", phase_main, torch, fa)
+        counts_hr, counts_f16 = timed("hidden_route", phase_hidden_route, torch, fa)
+        comp_err = timed("components", phase_components, torch, ac, roof)
+        row, comp_counts = timed("roofline", phase_roofline, torch, fa, ac, roof)
+        comp_table = timed("component_times", component_times, torch, ac, roof, row)
+        timed("resnet", phase_resnet, torch)
+        timed("windows", phase_windows, torch)
+        timed("bert_pushsum", phase_bert_pushsum, torch)
+        timed("exact_algorithms", phase_exact_algorithms, torch)
+        timed("eager_api", phase_eager_api, torch)
+        timed("hierarchical", phase_hierarchical, torch)
+        counts_1b = timed("llama_1b", phase_llama_1b, torch, fa)
+        timed("vit", phase_vit, torch, fa)
+        counts_sp, counts_sp_f32 = timed("seq_parallel", phase_seq_parallel, torch, fa)
+        counts_z8 = timed("zero_8b", phase_zero_8b, torch, fa)
+        counts_tp_f32 = timed("tensor_parallel", phase_tensor_parallel, torch, fa)
+        timed("pipeline", phase_pipeline, torch)
+        timed("expert", phase_expert, torch)
+        counts_bt = timed("bench_twins", phase_bench_twins, torch, fa)
+        timed("islands_native", phase_islands_native, native_build)
+        timed("islands_async", phase_islands_async, torch)
+        timed("islands_overlap", phase_islands_overlap, torch)
+        timed("islands_bandwidth", phase_islands_bandwidth, torch)
+        timed("bf16_window", phase_bf16_window, torch)
+        timed("launcher_serving", phase_launcher_serving, torch)
+        timed("recovery", phase_recovery, torch)
+        timed("monitor_lab", phase_monitor_lab, torch, host)
+        counts_dist = timed("distributed", phase_distributed, torch, smi)
+        counts_ai = timed("analysis_interactive", phase_analysis_interactive, torch, fa, host)
+        timed("bench_headline", phase_bench_headline, torch, smi, bench)
+    finally:
+        _kill(bench[0])
+        shutil.rmtree(bench[1], ignore_errors=True)
+        if host is not None:
+            stop_host_jobs(host)
+    emit({"script_seconds": time.perf_counter() - t_script, "phase_wall_seconds": wall,
+          "card": smi.strip()})
     replaces = {"fwd": "bluefog_tpu/kernels/flash_attention.py:246",
                 "dkv": "bluefog_tpu/kernels/flash_attention.py:490",
                 "dq": "bluefog_tpu/kernels/flash_attention.py:575",
@@ -3962,14 +4415,24 @@ def main():
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k],
-         "launches": counts[k] + counts_1b[k] + counts_sp[k] + counts_z8[k]
+         "launches": counts[k] + counts_hr[k] + counts_1b[k] + counts_sp[k] + counts_z8[k]
          + counts_bt[k] + counts_ai[k] + counts_dist[k],
-         "launches_by_phase": {"main": counts[k], "llama_1b": counts_1b[k],
+         "launches_by_phase": {"main": counts[k], "hidden_route": counts_hr[k],
+                               "llama_1b": counts_1b[k],
                                "seq_parallel": counts_sp[k], "zero_8b": counts_z8[k],
                                "bench_twins": counts_bt[k],
                                "analysis_interactive": counts_ai[k],
                                "distributed": counts_dist[k]},
-         **table[k]}
+         **table[k],
+         **{f"{key}_d256": v for key, v in table_d256["bf16_d256"][k].items()}}
+        for k in ("fwd", "dkv", "dq")] + [
+        {"name": f"flash_{k}_f16", "route": "cuda",
+         "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
+         "replaces": replaces[k], "launches": counts_f16[k],
+         "launches_by_phase": {"hidden_route": counts_f16[k]},
+         **table_d256["f16_d64"][k],
+         **{f"{key}_d{d}": v for d in (128, 256)
+            for key, v in table_d256[f"f16_d{d}"][k].items()}}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f32", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",

@@ -43,6 +43,18 @@ def _close(got, want):
     assert err.norm() <= 1e-2 * want.norm(), (err.norm() / want.norm()).item()
 
 
+def _close_f16(got, want):
+    """chip_smoke.py's f16 rule: per element |err| <= 2^-10 |want| + 2^-6
+    rms(want) (one f16 step of the value; the bf16 rule's allowance for p
+    or dS rounding the other way inside the sums), ||err|| <= 1e-3
+    ||want||."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = 2.0 ** -10 * want.abs() + 2.0 ** -6 * want.pow(2).mean().sqrt()
+    assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
+    assert err.norm() <= 1e-3 * want.norm(), (err.norm() / want.norm()).item()
+
+
 def _close_lse(got, want):
     """lse is f32 and never rounded to bf16: within 1e-3 on rows with a
     visible key, the sentinel on rows without one."""
@@ -82,15 +94,51 @@ def test_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_start, 
     assert {n: fa.launches[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1}
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.bfloat16, 160),
+                                     (torch.float16, 64), (torch.float16, 128),
+                                     (torch.float16, 256), (torch.float16, 96)])
+@pytest.mark.parametrize("tq,tk,q_start,k_start,causal", [
+    (320, 320, 0, 0, True), (320, 320, 0, 0, False), (320, 192, 128, 0, True),
+    (200, 200, 37, 0, True), (40, 40, 0, 0, True)])
+def test_d256_and_f16_kernels_match_plain_versions(cuda_device, dtype, d, tq, tk, q_start,
+                                                   k_start, causal):
+    """The <256> instances (160 zero-padded to them) and the f16 ones,
+    each counted in its own launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + tq + tk + q_start + k_start)
+    q, g = (torch.randn(4, tq, d, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(4, tk, d, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    g_lse = torch.randn(4, tq, generator=gen, device=cuda_device)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    counts = fa.launches_f16 if dtype == torch.float16 else fa.launches
+    before = dict(counts)
+    o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_start, k_start, **kw)
+    corr = (g_lse - (o_ref.float() * g.float()).sum(-1)).contiguous()
+    dk, dv = fa.flash_dkv(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq = fa.flash_dq(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
+    _close_lse(lse, lse_ref)
+    close = _close_f16 if dtype == torch.float16 else _close
+    for got, want in ((o, o_ref), (dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
+        assert got.dtype == dtype
+        close(got, want)
+    assert {n: counts[n] - before[n] for n in before} == {"fwd": 1, "dkv": 1, "dq": 1}
+
+
 def test_redesigned_kernels_run_on_wgmma_and_tma(cuda_device):
     """Every flash kernel's SASS holds warpgroup products (HGMMA) and TMA
-    tile loads (UTMALDG) at both head dims, and no mma.sync (HMMA)."""
+    tile loads (UTMALDG) at every head dim and type, and no mma.sync
+    (HMMA)."""
     funcs = _build.sass("flash_attention")
     if funcs is None:
         pytest.skip("cuobjdump not found")
-    for kernel in ("fwd_kernel", "dkv_kernel", "dq_kernel"):
-        bodies = [body for name, body in funcs.items() if kernel in name]
-        assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
+    # bf16 and f16 at D = 64, 128 and 256
+    for kernel, n in (("fwd_kernel", 6), ("dkv_kernel", 6), ("dq_kernel", 6)):
+        bodies = [body for name, body in funcs.items() if f"{len(kernel)}{kernel}I" in name]
+        assert len(bodies) == n, sorted(funcs)
         for body in bodies:
             assert "HGMMA" in body and "UTMALDG" in body
             assert not re.search(r"\bHMMA\b", body)
@@ -115,11 +163,14 @@ def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
-    wide = torch.zeros(2, 64, 160, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    wide = torch.zeros(2, 64, 257, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 257 above 256"):
         fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
-    with pytest.raises(ValueError, match="bf16 or float32"):
-        fa.flash_fwd(q.half(), q.half(), q.half(), scale=1.0, causal=True)
+    wide = torch.zeros(2, 64, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="the f32 kernels"):
+        fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="bf16, float16 or float32"):
+        fa.flash_fwd(q.double(), q.double(), q.double(), scale=1.0, causal=True)
     with pytest.raises(ValueError, match="share one dtype"):
         fa.flash_fwd(q, q.float(), q, scale=1.0, causal=True)
     with pytest.raises(ValueError, match="contiguous"):

@@ -166,35 +166,51 @@ def test_f32_route_matches_pallas_kernel_in_f32(case):
 
 
 def test_check_takes_f32_or_bf16_of_one_dtype():
-    """The wrappers' check accepts f32 and bf16 inputs (each dtype has its
-    kernels) and rejects q, k, v and dO of mixed dtypes, or another dtype."""
+    """The wrappers' check accepts f32, bf16 and f16 inputs (each dtype has
+    its kernels: bf16 and f16 up to head dim 256, f32 up to 128) and rejects
+    q, k, v and dO of mixed dtypes, another dtype, a head dim above 256, or
+    f32 above 128."""
     lse = torch.zeros(2, 64)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         q = torch.zeros(2, 64, 64, dtype=dt)
         assert fa._check("flash_fwd", q, q, q) == (2, 64, 64, 64)
         assert fa._check("flash_dkv", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 64)
+    for dt in (torch.bfloat16, torch.float16):
+        q = torch.zeros(2, 64, 256, dtype=dt)
+        assert fa._check("flash_dq", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 256)
+        q = torch.zeros(2, 64, 257, dtype=dt)
+        with pytest.raises(ValueError, match="head dim 257 above 256"):
+            fa._check("flash_fwd", q, q, q)
+    q = torch.zeros(2, 64, 256)
+    with pytest.raises(ValueError, match="the f32 kernels"):
+        fa._check("flash_fwd", q, q, q)
     q = torch.zeros(2, 64, 64)
     with pytest.raises(ValueError, match="share one dtype"):
         fa._check("flash_fwd", q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="share one dtype"):
         fa._check("flash_dq", q, q, q, (q.bfloat16(),), (lse, lse))
-    with pytest.raises(ValueError, match="bf16 or float32"):
-        fa._check("flash_fwd", q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa._check("flash_fwd", q.half(), q.bfloat16(), q.half())
+    with pytest.raises(ValueError, match="bf16, float16 or float32"):
+        fa._check("flash_fwd", q.double(), q.double(), q.double())
 
 
 def test_each_dtype_launches_its_own_kernel(monkeypatch):
     """bf16 inputs reach csrc/flash_attention.cu's launchers and count in
-    ``launches``; f32 inputs reach csrc/flash_attention_f32.cu's and count
-    in ``launches_f32``."""
+    ``launches``, f16 inputs its ``bf_flash_f16_*`` launchers and count in
+    ``launches_f16``; f32 inputs reach csrc/flash_attention_f32.cu's and
+    count in ``launches_f32``."""
     from types import SimpleNamespace
 
     names = ("fwd", "bwd_dkv", "bwd_dq")
-    bf16 = SimpleNamespace(**{f"bf_flash_{n}": f"bf16 {n}" for n in names})
+    bf16 = SimpleNamespace(**{f"bf_flash_{n}": f"bf16 {n}" for n in names},
+                           **{f"bf_flash_f16_{n}": f"f16 {n}" for n in names})
     f32 = SimpleNamespace(**{f"bf_flash_f32_{n}": f"f32 {n}" for n in names})
     monkeypatch.setattr(fa, "_lib", lambda: bf16)
     monkeypatch.setattr(fa, "_lib_f32", lambda: f32)
     for n in names:
         assert fa._kernel(torch.bfloat16, n) == (f"bf16 {n}", fa.launches)
+        assert fa._kernel(torch.float16, n) == (f"f16 {n}", fa.launches_f16)
         assert fa._kernel(torch.float32, n) == (f"f32 {n}", fa.launches_f32)
     fa.reset_launches()
-    assert fa.launches == fa.launches_f32 == {"fwd": 0, "dkv": 0, "dq": 0}
+    assert fa.launches == fa.launches_f16 == fa.launches_f32 == {"fwd": 0, "dkv": 0, "dq": 0}

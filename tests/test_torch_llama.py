@@ -264,8 +264,8 @@ def test_device_idle_share_reads_the_union_of_device_intervals():
 
 def test_profile_sums_each_flash_kernel_outside_the_top_rows():
     """Each flash kernel's device ms and launches are summed over its head
-    dims and its bf16 and f32 instances, however far down the kernel list
-    it falls; GEMM rows are summed apart, FFMA from tensor-core."""
+    dims and its bf16, f16 and f32 instances, however far down the kernel
+    list it falls; GEMM rows are summed apart, FFMA from tensor-core."""
     from types import SimpleNamespace
 
     from bluefog_tpu_torch import profiling
@@ -275,6 +275,7 @@ def test_profile_sums_each_flash_kernel_outside_the_top_rows():
         ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x128_8x4_nt_align1>", 4000.0),
         ("nvjet_tst_192x128_64x5_1x2_h_bz_coopB_NNT", 3000.0),
         ("void (anonymous namespace)::dkv_kernel<64>(CUtensorMap_st)", 2000.0),
+        ("void (anonymous namespace)::dkv_kernel<__half, 256>(CUtensorMap_st)", 750.0),
         ("void (anonymous namespace)::fwd_kernel<64>(CUtensorMap_st)", 1000.0),
         ("void (anonymous namespace)::fwd_kernel<128>(CUtensorMap_st)", 500.0),
         ("void (anonymous namespace)::dq_f32_kernel<64>(float const*, float const*)", 250.0),
@@ -291,7 +292,7 @@ def test_profile_sums_each_flash_kernel_outside_the_top_rows():
 
     out = profiling.device_profile(Prof(), 1.0, top=2)
     assert len(out["top"]) == 2
-    assert out["flash_ms_launches"] == {"fwd": [1.625, 6], "dkv": [2.0, 2], "dq": [0.25, 2]}
+    assert out["flash_ms_launches"] == {"fwd": [1.625, 6], "dkv": [2.75, 4], "dq": [0.25, 2]}
     assert out["gemm_ms_launches"] == {"ffma": [4.0, 2], "other": [30.0, 8]}
 
 
