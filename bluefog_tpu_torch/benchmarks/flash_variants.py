@@ -12,10 +12,10 @@ binds each like the package's own library, and times the forward, dK/dV
 and dQ of every build on the same inputs by CUDA-graph replay, the builds
 taken in turns over ``ROUNDS`` rounds (the least time of each kept).  The
 bf16 builds run at the roofline's ``path`` and ``134m`` shapes, the f32
-builds at [24, 2048, 64] and [24, 2048, 128] (causal).  The ``chosen``
-build is the source as it stands; ``--source NAME=PATH`` adds a build of
-another copy of the file (say, an earlier commit's), timed in the same
-turns.
+builds at [24, 2048, 64], [24, 2048, 128] and [32, 2048, 256] (causal).
+The ``chosen`` build is the source as it stands; ``--source NAME=PATH``
+adds a build of another copy of the file with the same C interface (say,
+an earlier commit's), timed in the same turns.
 
     python -m bluefog_tpu_torch.benchmarks.flash_variants [--f32] [--source NAME=PATH]
 
@@ -44,11 +44,11 @@ from bluefog_tpu_torch.profiling import graph_seconds
 
 fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 
-# mma_kmajor's B fragments, four n-tiles at a time (the source) or one
-KMAJOR_B4 = """      for (int j0 = 0; j0 < N / 8; j0 += 4) {
-        BFrag b0[4], b1[4];
+# mma_kmajor's B fragments, NB (four or two) n-tiles at a time (the source) or one
+KMAJOR_B4 = """      for (int j0 = 0; j0 < N / 8; j0 += NB) {
+        BFrag b0[NB], b1[NB];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < NB; ++jj) {
           const float4 v = lds4(b, b_rows, 8 * (j0 + jj) + g, ch);
           b0[jj] = {{split(v.x), split(v.y)}};
           b1[jj] = {{split(v.z), split(v.w)}};
@@ -56,11 +56,11 @@ KMAJOR_B4 = """      for (int j0 = 0; j0 < N / 8; j0 += 4) {
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a0, b0[jj], term);
+          for (int jj = 0; jj < NB; ++jj) mma_term(part, j0 + jj, a0, b0[jj], term);
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a1, b1[jj], term);
+          for (int jj = 0; jj < NB; ++jj) mma_term(part, j0 + jj, a1, b1[jj], term);
       }"""
 KMAJOR_B1 = """      for (int j = 0; j < N / 8; ++j) {
         const float4 v = lds4(b, b_rows, 8 * j + g, ch);
@@ -110,6 +110,22 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
                               r"kDqKeys128 = \d+": "kDqKeys128 = 64"},
     "dq128_keys_64_stages_1": {r"kDqKeys128 = \d+": "kDqKeys128 = 64",
                                r"kDqStages = \d+;": "kDqStages = 1;"},
+    # D = 256: a 64-row block's Q (or dQ's Q + dO, dK/dV's K + V) takes 64
+    # (128) KB, so the stages are short; the layouts beside the chosen one
+    # that fit the 227 KB a block may hold: the forward as 4 warps with 32-
+    # or 16-key stages, dQ with two 16-key stages or one 32-key stage, dK/dV
+    # as 32 keys with 32-row stages or one 32-row stage (the other ring
+    # depths: the *_stages_3 builds above)
+    "fwd256_warps_4_keys_32": {r"kFwdWarps256 = \d+": "kFwdWarps256 = 4",
+                               r"kFwdKeys256 = \d+": "kFwdKeys256 = 32"},
+    "fwd256_warps_4": {r"kFwdWarps256 = \d+": "kFwdWarps256 = 4"},
+    "dq256_stages_2": {r"kDqStages256 = \d+;": "kDqStages256 = 2;"},
+    "dq256_keys_32_stages_1": {r"kDqKeys256 = \d+": "kDqKeys256 = 32",
+                               r"kDqStages256 = \d+;": "kDqStages256 = 1;"},
+    "dkv256_keys_32_qrows_32": {r"kDkvKeys256 = \d+": "kDkvKeys256 = 32",
+                                r"kDkvQRows256 = \d+": "kDkvQRows256 = 32"},
+    "dkv256_qrows_32_stages_1": {r"kDkvQRows256 = \d+": "kDkvQRows256 = 32",
+                                 r"kDkvStages = \d+;": "kDkvStages = 1;"},
     # ablations: each computes another function (max_abs_diff_vs_chosen
     # says how far); its time prices the part it leaves out
     "ablate_split": {re.escape('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));'):
@@ -119,7 +135,7 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
     "ablate_small_products": {re.escape("for (int term = 0; term < 3; ++term)"):
                                 "for (int term = 2; term < 3; ++term)"},
     "ablate_fwd_softmax": {r"online_softmax\(sc,[^;]*;": "alpha[0] = alpha[1] = 1.f;"},
-    "ablate_fwd_pv": {r"mma_mnmajor<D, kTile>\(acc[^;]*;": ""},
+    "ablate_fwd_pv": {r"mma_mnmajor<D, N>\(acc, sc, sk \+ L::kKV[^;]*;": ""},
     "ablate_dq_dp": {r"mma_kmajor<D, N>\(dp,[^;]*;": ""},
     # K-major products, tried against dQ's spills at D = 128: each B
     # fragment formed one n-tile at a time (fewer live registers), and the
@@ -135,7 +151,7 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
 }
 ROUNDS = 3
 TIMED_SHAPES = ("path", "134m")
-F32_SHAPES = {"d64": (24, 2048, 64), "d128": (24, 2048, 128)}
+F32_SHAPES = {"d64": (24, 2048, 64), "d128": (24, 2048, 128), "d256": (32, 2048, 256)}
 
 
 def variant_source(subs: Dict[str, str], source: str = "flash_attention") -> str:
@@ -231,10 +247,9 @@ def main(argv: Optional[list] = None) -> int:
     ptxas = {v: b[1] for v, b in built.items() if not isinstance(b, str)}
     if "chosen" not in libs:
         raise RuntimeError(f"the source as it stands does not build: {built['chosen']}")
-    if args.f32:
-        inputs = {s: f32_inputs(*shape) for s, shape in F32_SHAPES.items()}
-    else:
-        inputs = {s: flash_inputs(SHAPES[s]) for s in TIMED_SHAPES}
+    shapes = F32_SHAPES if args.f32 else {s: SHAPES[s] for s in TIMED_SHAPES}
+    inputs = {s: f32_inputs(*shape) if args.f32 else flash_inputs(shape)
+              for s, shape in shapes.items()}
     diff_shape = next(iter(inputs))
     best: Dict[str, Dict[str, float]] = {v: {} for v in variants}
     errors: Dict[str, Dict[str, str]] = {v: {} for v in variants}
@@ -253,8 +268,11 @@ def main(argv: Optional[list] = None) -> int:
             if vname not in outputs:
                 continue
             with mock.patch.object(fa, lib_attr, lambda lib=lib: lib):
-                if not args.f32:
-                    occ[vname] = {k: fa.occupancy(k, 64) for k in ("fwd", "dkv", "dq")}
+                occ[vname] = ({f"{s}_{k}": _occupancy(k, x[0].shape[-1], torch.float32)
+                               for s, x in inputs.items() for k in ("fwd", "dkv", "dq")}
+                              if args.f32 else
+                              {k: _occupancy(k, 64, torch.bfloat16)
+                               for k in ("fwd", "dkv", "dq")})
                 for sname, x in inputs.items():
                     for kname, fn in _calls(*x).items():
                         key = f"{sname}_{kname}_ms"
@@ -264,8 +282,7 @@ def main(argv: Optional[list] = None) -> int:
                             errors[vname][key] = str(err)
                             continue
                         best[vname][key] = min(best[vname].get(key, ms), ms)
-    shapes = ({s: list(v) for s, v in F32_SHAPES.items()} if args.f32
-              else {s: SHAPES[s] for s in TIMED_SHAPES})
+    shapes = {s: list(v) for s, v in shapes.items()}
     print(json.dumps({
         "metric": "flash fwd / dK/dV / dQ ms per build variant (CUDA-graph replay, least of "
                   f"{ROUNDS} rounds in turns)",
@@ -277,6 +294,14 @@ def main(argv: Optional[list] = None) -> int:
                          if v in libs else {"subs": subs_of[v], "build_error": built[v]})
                      for v in variants}}), flush=True)
     return 0
+
+
+def _occupancy(kernel, d, dtype):
+    """fa.occupancy, or the error of a build whose block does not fit."""
+    try:
+        return fa.occupancy(kernel, d, dtype)
+    except RuntimeError as err:
+        return str(err)
 
 
 def _flat(outs):

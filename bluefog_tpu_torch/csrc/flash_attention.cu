@@ -833,12 +833,6 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   store_acc<D>(dq + (size_t)bh * tq * D, acc, row_g, tq, scale, scale, t);
 }
 
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int bh, int tq, int tk, int q_start, int k_start, float scale,
@@ -895,23 +889,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 constexpr int kBadHeadDim = -1;
-
-// out[0] = resident blocks per SM, out[1] = dynamic shared memory bytes,
-// out[2] = registers per thread, out[3] = threads per block, of one kernel
-// as its launcher launches it.
-template <typename Kernel>
-int occupancy(Kernel kernel, size_t smem, int threads, int* out) {
-  int err = prepare(kernel, smem);
-  if (err) return err;
-  cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, kernel);
-  if (err) return err;
-  out[1] = (int)smem;
-  out[2] = attr.numRegs;
-  out[3] = threads;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
-                                                            threads, smem);
-}
 
 template <typename T, int D>
 int flash_occupancy(int which, int* out) {
@@ -983,18 +960,19 @@ int occupancy_entry(int which, int d, int* out) {
 extern "C" {
 
 // bf16: bf_flash_*; f16: bf_flash_f16_*.  The arguments of each pair are
-// the same.
+// the same, and those of flash_attention_f32.cu's launchers: `rounding` is
+// read there only (these kernels round p and dS to their own dtype).
 
 int bf_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int tq, int tk, int d, int q_start,
-                 int k_start, float scale, int causal, void* stream) {
+                 int k_start, float scale, int causal, int rounding, void* stream) {
   return fwd_entry<bf16>(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
                          stream);
 }
 
 int bf_flash_f16_fwd(const void* q, const void* k, const void* v, void* o,
                      void* lse, int bh, int tq, int tk, int d, int q_start,
-                     int k_start, float scale, int causal, void* stream) {
+                     int k_start, float scale, int causal, int rounding, void* stream) {
   return fwd_entry<f16>(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
                         stream);
 }
@@ -1003,7 +981,7 @@ int bf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* corr,
                      void* dk, void* dv, int bh, int tq, int tk, int d,
                      int q_start, int k_start, float scale, int causal,
-                     void* stream) {
+                     int rounding, void* stream) {
   return dkv_entry<bf16>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start, k_start,
                          scale, causal, stream);
 }
@@ -1012,7 +990,7 @@ int bf_flash_f16_bwd_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* corr,
                          void* dk, void* dv, int bh, int tq, int tk, int d,
                          int q_start, int k_start, float scale, int causal,
-                         void* stream) {
+                         int rounding, void* stream) {
   return dkv_entry<f16>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start, k_start,
                         scale, causal, stream);
 }
@@ -1020,7 +998,7 @@ int bf_flash_f16_bwd_dkv(const void* q, const void* k, const void* v,
 int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* corr,
                     void* dq, int bh, int tq, int tk, int d, int q_start,
-                    int k_start, float scale, int causal, void* stream) {
+                    int k_start, float scale, int causal, int rounding, void* stream) {
   return dq_entry<bf16>(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start, scale,
                         causal, stream);
 }
@@ -1028,7 +1006,7 @@ int bf_flash_bwd_dq(const void* q, const void* k, const void* v,
 int bf_flash_f16_bwd_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* corr,
                         void* dq, int bh, int tq, int tk, int d, int q_start,
-                        int k_start, float scale, int causal, void* stream) {
+                        int k_start, float scale, int causal, int rounding, void* stream) {
   return dq_entry<f16>(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start, scale,
                        causal, stream);
 }

@@ -9,13 +9,25 @@
 // The bf16 instances are the Hopper kernels of flash_attention.cu.
 //
 // Contract (that of the bf16 kernels): q, k, v, o, dO are [BH, T, D] f32,
-// contiguous, D = 64 or 128 (the wrapper zero-pads a smaller head dim);
+// contiguous, D = 64, 128 or 256 (the wrapper zero-pads a smaller head dim);
 // lse and corr are [BH, Tq] f32.  Causal masking uses global positions
 // (q_start + row, k_start + col; visible iff kpos <= qpos).  Rows with no
 // visible key give o = 0 and lse = -1e30.  corr = g_lse - rowsum(o * dO)
 // comes from the wrapper.  What differs from bf16: p and dS are not rounded
 // to a narrower type before they multiply (the reference casts them to
 // v.dtype, f32 here), and every product is f32-accurate.
+//
+// Mixed dtypes: the reference's kernels take q, k, v (and dO) of different
+// float dtypes, promote them in their products (lax.dot_general) and round
+// p to v's dtype before P.V, p to dO's before P^T.dO and dS to q's before
+// dS^T.Q and dS.K.  Every mix of bf16, f16 and f32 promotes to f32, so the
+// wrapper casts the narrower operands up (exact) and runs these kernels,
+// whose `rounding` argument names those roundings: bits 0-1 p's dtype, bits
+// 2-3 dS's (round_to's codes: 0 none, 1 bf16, 2 f16), each rounded to
+// nearest even as the reference's astype.  Without them a mixed case
+// leaves the narrowest dtype's rule of the plain version at some element
+// (tests/test_torch_flash_mixed.py, by up to 2.27x).  Outputs go back to
+// the reference's dtypes in the wrapper (o and dQ q's, dK k's, dV v's).
 //
 // All three: f32-accurate products on the tensor cores (3xTF32).
 // Every operand x is split once, when its fragment is formed, into
@@ -92,6 +104,17 @@
 // warps with 64-key stages would need 256 KB, so the D = 128 block streams
 // kDqKeys128 keys a stage (PERF.md has the layouts measured).
 //
+// D = 256: a 16-row slab of Q, K or V alone is 16 KB, so the <256> blocks
+// take short stages (the byte counts: PERF.md): the forward 8 warps with
+// kFwdKeys256 keys a K/V stage, dQ 4 warps with kDqKeys256 (three stages),
+// dK/dV 64 keys with kDkvQRows256 query rows a Q/dO stage.  A warp's 16
+// rows of a 256-wide accumulator take 128 registers a thread: the forward
+// and dQ carry one, their products taken box by box as at every D.  dK/dV's
+// two would take 256, over the 255 a thread has, so at D = 256 two warps
+// own each 16-key slab, each half of D's columns of dK and dV (kHalves),
+// both computing S^T and dP^T over all of D, as flash_attention.cu's
+// kDkvSplit splits its warpgroups.
+//
 // Every launcher runs on the caller's stream, allocates nothing and returns
 // 0, cudaGetLastError(), the error of the attribute call before it, or a
 // tensor-map encode failure (sm90_tile.cuh: kNoEncoder, kEncodeFailed + r).
@@ -107,20 +130,31 @@ constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 // Block shapes and ring depths, the fastest measured
 // (benchmarks/flash_variants.py --f32; PERF.md).  A warp owns 16 rows:
 // query rows in the forward and dQ, keys in dK/dV.
-constexpr int kFwdWarps64 = 4, kFwdWarps128 = 8;
-constexpr int kFwdStages = 2;  // K/V ring
+constexpr int kFwdWarps64 = 4, kFwdWarps128 = 8, kFwdWarps256 = 8;
+constexpr int kFwdKeys256 = 16;  // keys of a K/V stage at D = 256 (kTile below)
+constexpr int kFwdStages = 2;    // K/V ring
 constexpr int kDkvWarps64 = 4, kDkvWarps128 = 8;
-constexpr int kDkvQRows = 32;  // query rows of a stage
-constexpr int kDkvStages = 2;  // Q/dO ring
-constexpr int kDqWarps64 = 8, kDqWarps128 = 8;
-constexpr int kDqKeys64 = 64, kDqKeys128 = 32;  // keys of a K/V stage
-constexpr int kDqStages = 2;                    // K/V ring
+constexpr int kDkvKeys256 = 64;  // keys a block at D = 256, two warps a 16-key slab
+constexpr int kDkvQRows = 32, kDkvQRows256 = 16;  // query rows of a stage
+constexpr int kDkvStages = 2;                     // Q/dO ring
+constexpr int kDqWarps64 = 8, kDqWarps128 = 8, kDqWarps256 = 4;
+constexpr int kDqKeys64 = 64, kDqKeys128 = 32, kDqKeys256 = 16;  // keys of a K/V stage
+constexpr int kDqStages = 2;                                     // K/V ring
+constexpr int kDqStages256 = 3;                                  // ... at D = 256
 
 // ---- 3xTF32 products on mma.sync ---------------------------------------------
 
 struct Tf32 {
   uint32_t big, small;
 };
+
+// x rounded to nearest even at bf16's (code 1) or f16's (code 2) precision
+// and kept in f32, as the reference's astype rounds p and dS of mixed
+// inputs; code 0 leaves x.
+__device__ __forceinline__ float round_to(float x, int code) {
+  return code == 1 ? __bfloat162float(__float2bfloat16_rn(x))
+                   : code == 2 ? __half2float(__float2half_rn(x)) : x;
+}
 
 // x = big + small, big = x rounded to nearest (ties away) at 10 mantissa
 // bits, small = x - big (exact).
@@ -169,12 +203,14 @@ __device__ __forceinline__ float lane4(const float4& v, int i) {
 // ra + g + 8 of tile a times row 8j + g of tile b, j < N / 8: S = Q.K^T and
 // dP = dO.V^T (N keys), S^T = K.Q^T and dP^T = V.dO^T (N queries).  Each 32-column box
 // sums into a zeroed partial sum (12 products), folded into acc by a
-// round-to-nearest add (see mma_mnmajor).
+// round-to-nearest add (see mma_mnmajor).  B fragments are formed NB
+// n-tiles at a time: four, or two for a 16-row tile b.
 template <int D, int N>
 __device__ __forceinline__ void mma_kmajor(float (&acc)[N / 2], const unsigned char* a,
                                            int a_rows, int ra, const unsigned char* b,
                                            int b_rows, int g, int t) {
-  static_assert(N % 32 == 0, "n-tiles go four at a time");
+  constexpr int NB = N % 32 == 0 ? 4 : 2;
+  static_assert(N % (8 * NB) == 0, "n-tiles go four or two at a time");
 #pragma unroll
   for (int box = 0; box < D / 32; ++box) {
     float part[N / 2];
@@ -186,10 +222,10 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[N / 2], const unsigned c
       const AFrag a0 = {{split(lo.x), split(hi.x), split(lo.y), split(hi.y)}};
       const AFrag a1 = {{split(lo.z), split(hi.z), split(lo.w), split(hi.w)}};
 #pragma unroll
-      for (int j0 = 0; j0 < N / 8; j0 += 4) {
-        BFrag b0[4], b1[4];
+      for (int j0 = 0; j0 < N / 8; j0 += NB) {
+        BFrag b0[NB], b1[NB];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < NB; ++jj) {
           const float4 v = lds4(b, b_rows, 8 * (j0 + jj) + g, ch);
           b0[jj] = {{split(v.x), split(v.y)}};
           b1[jj] = {{split(v.z), split(v.w)}};
@@ -197,11 +233,11 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[N / 2], const unsigned c
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a0, b0[jj], term);
+          for (int jj = 0; jj < NB; ++jj) mma_term(part, j0 + jj, a0, b0[jj], term);
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) mma_term(part, j0 + jj, a1, b1[jj], term);
+          for (int jj = 0; jj < NB; ++jj) mma_term(part, j0 + jj, a1, b1[jj], term);
       }
     }
 #pragma unroll
@@ -212,8 +248,9 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[N / 2], const unsigned c
 // MN-major: acc[4i + c] += sum over rows k < N of p (registers, the
 // K-major form's accumulator over those N rows) times row k of tile m,
 // i < D / 8, output columns permuted (column n of n-tile i holds
-// d = 32 (i / 4) + 4n + i % 4).  O += P.V, dV += P^T.dO, dK += dS^T.Q,
-// dQ += dS.K.
+// d = 32 (i / 4) + 4n + i % 4).  D is the columns taken: a tile's first D,
+// or D from box c on of a tile passed at m + c * m_rows * 128.  O += P.V,
+// dV += P^T.dO, dK += dS^T.Q, dQ += dS.K.
 // The tensor cores round their f32 sums toward zero, so a chain of
 // products into one accumulator drifts by about one f32 step per product,
 // always the same way; over the thousands of rows dK/dV contract that
@@ -249,12 +286,13 @@ __device__ __forceinline__ void mma_mnmajor(float (&acc)[D / 2], const float (&p
   }
 }
 
-// Store a warp's 16 x D accumulator of the MN-major form (columns
-// permuted) into rows row_g and row_g + 8 of a [T, D] output, row half r
-// times mul[r]; rows at or past `rows` are dropped.  A thread writes
-// columns 32 box + 8t .. + 7 of each row: two float4.
-template <int D>
-__device__ __forceinline__ void store_perm(float* out, const float (&acc)[D / 2], int row_g,
+// Store a warp's 16 x C accumulator of the MN-major form (columns
+// permuted) into rows row_g and row_g + 8 of a [T, D] output from its
+// column `out` points at, row half r times mul[r]; rows at or past `rows`
+// are dropped.  A thread writes columns 32 box + 8t .. + 7 of each row: two
+// float4.
+template <int D, int C = D>
+__device__ __forceinline__ void store_perm(float* out, const float (&acc)[C / 2], int row_g,
                                            int rows, float mul0, float mul1, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -262,7 +300,7 @@ __device__ __forceinline__ void store_perm(float* out, const float (&acc)[D / 2]
     if (row >= rows) continue;
     const float mul = r ? mul1 : mul0;
 #pragma unroll
-    for (int box = 0; box < D / 32; ++box) {
+    for (int box = 0; box < C / 32; ++box) {
       float* dst = out + (size_t)row * D + 32 * box + 8 * t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -304,22 +342,23 @@ constexpr int min_blocks(size_t smem, int threads) {
 
 // ---------------------------------------------------------------------------
 // Forward: one block per (bh, query tile of 16 x kWarps rows), the last
-// tiles first; warp 0 streams key tiles up to the diagonal.
+// tiles first; warp 0 streams key tiles of kKeys keys up to the diagonal.
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct FwdF32 {
-  static constexpr int kWarps = D == 64 ? kFwdWarps64 : kFwdWarps128;
+  static constexpr int kWarps = D == 64 ? kFwdWarps64 : D == 128 ? kFwdWarps128 : kFwdWarps256;
+  static constexpr int kKeys = D == 256 ? kFwdKeys256 : kTile;  // keys of a K/V stage
   static constexpr int kStages = kFwdStages;
   static constexpr int kRows = 16 * kWarps;  // query rows a block
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kQ = kRows * D * 4;            // the block's Q tile, bytes
-  static constexpr int kKV = kTile * D * 4;           // one K or V tile of a stage
+  static constexpr int kKV = kKeys * D * 4;           // one K or V tile of a stage
   static constexpr size_t kBytes = 1024 + kQ + kStages * 2 * kKV + (1 + 2 * kStages) * 8;
   static constexpr int kMinBlocks = min_blocks(kBytes, kThreads);
 };
 
-// One key tile of the online softmax over a warp's 16 x 64 scores (raw,
+// One key tile of the online softmax over a warp's 16 x (2 M) scores (raw,
 // n-tile j in sc[4j..4j+3]).  m is the running max of the raw scores (the
 // sentinel while a row has seen no visible key) and l the running sum.
 // Masked entries become the sentinel, whose exponent underflows to exactly
@@ -327,14 +366,15 @@ struct FwdF32 {
 // 0, so it sums nothing (where exp of sentinel - sentinel would give 1).
 // p = 2^(s * scale log2 e - m * scale log2 e).  Leaves p in sc and the
 // factor the output must be rescaled by in alpha.
-__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&alpha)[2],
+template <int M>
+__device__ __forceinline__ void online_softmax(float (&sc)[M], float (&alpha)[2],
                                                float (&m)[2], float (&l)[2],
                                                float scale_log2, bool need_mask, int k0,
                                                int tk, int causal, int k_start, int qpos0,
                                                int t) {
   if (need_mask) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < M; ++i) {
       const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       const bool ok =
           col < tk && (!causal || k_start + col <= qpos0 + ((i >> 1) & 1) * 8);
@@ -343,7 +383,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&alpha)[2
   }
   float mcur[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) mcur[(i >> 1) & 1] = fmaxf(mcur[(i >> 1) & 1], sc[i]);
+  for (int i = 0; i < M; ++i) mcur[(i >> 1) & 1] = fmaxf(mcur[(i >> 1) & 1], sc[i]);
   float ms[2], rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -353,7 +393,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&alpha)[2
     ms[r] = (mnew > kMaskThresh ? mnew : 0.f) * scale_log2;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < M; ++i) {
     const int r = (i >> 1) & 1;
     const float p = ex2(fmaf(sc[i], scale_log2, -ms[r]));
     sc[i] = p;
@@ -369,8 +409,9 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
                float* __restrict__ lse, int tq, int tk, int q_start, int k_start,
-               float scale, int causal) {
+               float scale, int causal, int rounding) {
   using L = FwdF32<D>;
+  constexpr int N = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align_1024(smem_raw);
   unsigned char* skv = sq + L::kQ;  // stage s: K at s * 2 kKV, V kKV after it
@@ -380,7 +421,7 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;  // longest first
-  const int n_kv = key_tiles(q0 + L::kRows, tq, tk, q_start, k_start, kTile, causal);
+  const int n_kv = key_tiles(q0 + L::kRows, tq, tk, q_start, k_start, N, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -399,8 +440,8 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&empty[s], ((it / L::kStages) & 1) ^ 1);
     mbar_arrive_expect_tx(&full[s], 2 * L::kKV);
     unsigned char* sk = skv + s * 2 * L::kKV;
-    tma_rows_f32<D>(sk, &tm_k, kTile, it * kTile, bh, &full[s]);
-    tma_rows_f32<D>(sk + L::kKV, &tm_v, kTile, it * kTile, bh, &full[s]);
+    tma_rows_f32<D>(sk, &tm_k, N, it * N, bh, &full[s]);
+    tma_rows_f32<D>(sk + L::kKV, &tm_v, N, it * N, bh, &full[s]);
   };
   if (threadIdx.x == 0) {
     mbar_arrive_expect_tx(q_full, L::kQ);
@@ -415,9 +456,9 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool rows_in = q0w < tq;
   const int qpos0 = q_start + q0w + g;  // row g; row g + 8 is + 8
   const float scale_log2 = scale * kLog2e;
+  const int p_round = rounding & 3;  // p's dtype before P.V (mixed inputs)
   // the key tiles these 16 rows see are a prefix of the block's
-  const int n_own =
-      rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, kTile, causal) : 0;
+  const int n_own = rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, N, causal) : 0;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 2];
@@ -430,17 +471,21 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&full[s], (it / L::kStages) & 1);
     if (it < n_own) {
       const unsigned char* sk = skv + s * 2 * L::kKV;
-      const int k0 = it * kTile;
-      float sc[32], alpha[2];
+      const int k0 = it * N;
+      float sc[N / 2], alpha[2];
       zero(sc);
-      mma_kmajor<D, kTile>(sc, sq, L::kRows, r0, sk, kTile, g, t);  // S = Q.K^T
+      mma_kmajor<D, N>(sc, sq, L::kRows, r0, sk, N, g, t);  // S = Q.K^T
       const bool need_mask =
-          (causal && k_start + k0 + kTile - 1 > q_start + q0w) || k0 + kTile > tk;
+          (causal && k_start + k0 + N - 1 > q_start + q0w) || k0 + N > tk;
       online_softmax(sc, alpha, m, l, scale_log2, need_mask, k0, tk, causal, k_start,
                      qpos0, t);
+      if (p_round) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) sc[i] = round_to(sc[i], p_round);
+      }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-      mma_mnmajor<D, kTile>(acc, sc, sk + L::kKV, kTile, g, t);  // O += P.V
+      mma_mnmajor<D, N>(acc, sc, sk + L::kKV, N, g, t);  // O += P.V
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -463,17 +508,21 @@ fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: one block per (bh, key tile of 16 x kWarps keys), the first tiles
-// first; warp 0 streams query tiles of kDkvQRows from the diagonal.  Each
-// warp owns 16 keys, so no two write the same dK/dV row.
+// dK/dV: one block per (bh, key tile of kRows keys), the first tiles
+// first; warp 0 streams query tiles of kQRows from the diagonal.  Each
+// warp owns 16 keys and kCols columns of their dK and dV (all D, or half at
+// D = 256), so no two write the same element.
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct DkvF32 {
-  static constexpr int kWarps = D == 64 ? kDkvWarps64 : kDkvWarps128;
-  static constexpr int kQRows = kDkvQRows;
+  static constexpr int kHalves = D == 256 ? 2 : 1;  // warps a 16-key slab
+  static constexpr int kCols = D / kHalves;         // columns of dK and dV a warp owns
+  static constexpr int kRows =                      // keys a block
+      D == 64 ? 16 * kDkvWarps64 : D == 128 ? 16 * kDkvWarps128 : kDkvKeys256;
+  static constexpr int kWarps = kRows / 16 * kHalves;
+  static constexpr int kQRows = D == 256 ? kDkvQRows256 : kDkvQRows;
   static constexpr int kStages = kDkvStages;
-  static constexpr int kRows = 16 * kWarps;  // keys a block
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kKV = kRows * D * 4;           // the block's K or V tile
   static constexpr int kQ = kQRows * D * 4;           // one Q or dO tile of a stage
@@ -491,7 +540,7 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                const float* __restrict__ corr, float* __restrict__ dk,
                float* __restrict__ dv, int tq, int tk, int q_start, int k_start,
-               float scale, int causal) {
+               float scale, int causal, int rounding) {
   using L = DkvF32<D>;
   constexpr int QT = L::kQRows;
   extern __shared__ unsigned char smem_raw[];
@@ -556,13 +605,17 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp;  // this warp's keys of the block's K/V tiles
+  // this warp's keys of the block's K/V tiles, and its first column of dK/dV
+  const int r0 = 16 * (L::kHalves == 1 ? warp : warp % (L::kRows / 16));
+  const int c0 = L::kHalves == 1 ? 0 : warp / (L::kRows / 16) * L::kCols;
   const int k0w = k0 + r0;
   const bool keys_in = k0w < tk;
   const int kpos0 = k_start + k0w + g;  // key g; key g + 8 is + 8
   const float scale_log2 = scale * kLog2e;
+  // p's dtype before P^T.dO and dS's before dS^T.Q (mixed inputs)
+  const int p_round = rounding & 3, ds_round = rounding >> 2;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[L::kCols / 2], dv_acc[L::kCols / 2];
   zero(dk_acc);
   zero(dv_acc);
   mbar_wait(kv_full, 0);
@@ -605,8 +658,17 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
           dpt[idx] = p * (dpt[idx] + (h ? cv.y : cv.x));  // dS^T, unscaled
         }
       }
-      mma_mnmajor<D, QT>(dv_acc, st, sg, QT, g, t);   // dV += P^T.dO
-      mma_mnmajor<D, QT>(dk_acc, dpt, sq, QT, g, t);  // dK += dS^T.Q
+      if (rounding) {
+#pragma unroll
+        for (int i = 0; i < QT / 2; ++i) {
+          st[i] = round_to(st[i], p_round);
+          dpt[i] = round_to(dpt[i], ds_round);
+        }
+      }
+      // the warp's columns of dO and Q: boxes c0 / 32 on
+      const int cb = c0 / 32 * QT * 128;
+      mma_mnmajor<L::kCols, QT>(dv_acc, st, sg + cb, QT, g, t);   // dV += P^T.dO
+      mma_mnmajor<L::kCols, QT>(dk_acc, dpt, sq + cb, QT, g, t);  // dK += dS^T.Q
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -614,8 +676,8 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (!keys_in) return;
   const int row_g = k0w + g;
-  store_perm<D>(dk + (size_t)bh * tk * D, dk_acc, row_g, tk, scale, scale, t);
-  store_perm<D>(dv + (size_t)bh * tk * D, dv_acc, row_g, tk, 1.f, 1.f, t);
+  store_perm<D, L::kCols>(dk + (size_t)bh * tk * D + c0, dk_acc, row_g, tk, scale, scale, t);
+  store_perm<D, L::kCols>(dv + (size_t)bh * tk * D + c0, dv_acc, row_g, tk, 1.f, 1.f, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,9 +687,9 @@ dkv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D>
 struct DqF32 {
-  static constexpr int kWarps = D == 64 ? kDqWarps64 : kDqWarps128;
-  static constexpr int kKeys = D == 64 ? kDqKeys64 : kDqKeys128;
-  static constexpr int kStages = kDqStages;
+  static constexpr int kWarps = D == 64 ? kDqWarps64 : D == 128 ? kDqWarps128 : kDqWarps256;
+  static constexpr int kKeys = D == 64 ? kDqKeys64 : D == 128 ? kDqKeys128 : kDqKeys256;
+  static constexpr int kStages = D == 256 ? kDqStages256 : kDqStages;
   static constexpr int kRows = 16 * kWarps;  // query rows a block
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kQ = kRows * D * 4;   // the block's Q or dO tile, bytes
@@ -644,7 +706,7 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
               const __grid_constant__ CUtensorMap tm_v,
               const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
               const float* __restrict__ corr, float* __restrict__ dq, int tq, int tk,
-              int q_start, int k_start, float scale, int causal) {
+              int q_start, int k_start, float scale, int causal, int rounding) {
   using L = DqF32<D>;
   constexpr int N = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
@@ -736,6 +798,10 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         sc[i] = p * (dp[i] + crr[r]);  // dS, unscaled
       }
+      if (rounding) {  // dS's dtype before dS.K (mixed inputs)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) sc[i] = round_to(sc[i], rounding >> 2);
+      }
       mma_mnmajor<D, N>(acc, sc, sk, N, g, t);  // dQ += dS.K
     }
     __syncwarp();
@@ -747,12 +813,6 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---- host -------------------------------------------------------------------
-
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
 
 // A 3-D map of a contiguous [bh, t, d] f32 tensor read in boxes of `rows`
 // rows x 32 columns (128 bytes) with the 128-byte swizzle.  Rows at or past
@@ -775,24 +835,25 @@ inline int encode_rows_map_f32(CUtensorMap* map, const void* ptr, int bh, int t,
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                int tq, int tk, int q_start, int k_start, float scale, int causal,
-               cudaStream_t stream) {
+               int rounding, cudaStream_t stream) {
   using L = FwdF32<D>;
   CUtensorMap tm_q, tm_k, tm_v;
   int err = encode_rows_map_f32(&tm_q, q, bh, tq, D, L::kRows);
-  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, D, kTile);
-  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, D, kTile);
+  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, D, L::kKeys);
+  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, D, L::kKeys);
   if (!err) err = prepare(fwd_f32_kernel<D>, L::kBytes);
   if (err) return err;
   dim3 grid(bh, (tq + L::kRows - 1) / L::kRows);
   fwd_f32_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, (float*)o, (float*)lse, tq, tk, q_start, k_start, scale, causal);
+      tm_q, tm_k, tm_v, (float*)o, (float*)lse, tq, tk, q_start, k_start, scale, causal,
+      rounding);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* corr, void* dk, void* dv, int bh, int tq,
-               int tk, int q_start, int k_start, float scale, int causal,
+               int tk, int q_start, int k_start, float scale, int causal, int rounding,
                cudaStream_t stream) {
   using L = DkvF32<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -805,14 +866,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(bh, (tk + L::kRows - 1) / L::kRows);
   dkv_f32_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (float*)dk,
-      (float*)dv, tq, tk, q_start, k_start, scale, causal);
+      (float*)dv, tq, tk, q_start, k_start, scale, causal, rounding);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* corr, void* dq, int bh, int tq, int tk,
-              int q_start, int k_start, float scale, int causal, cudaStream_t stream) {
+              int q_start, int k_start, float scale, int causal, int rounding,
+              cudaStream_t stream) {
   using L = DqF32<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int err = encode_rows_map_f32(&tm_q, q, bh, tq, D, L::kRows);
@@ -824,52 +886,84 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid(bh, (tq + L::kRows - 1) / L::kRows);
   dq_f32_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (float*)dq, tq, tk,
-      q_start, k_start, scale, causal);
+      q_start, k_start, scale, causal, rounding);
   return (int)cudaGetLastError();
 }
 
 constexpr int kBadHeadDim = -1;
 
+template <int D>
+int f32_occupancy(int which, int* out) {
+  using F = FwdF32<D>;
+  using K = DkvF32<D>;
+  using Q = DqF32<D>;
+  if (which == 0) return occupancy(fwd_f32_kernel<D>, F::kBytes, F::kThreads, out);
+  if (which == 1) return occupancy(dkv_f32_kernel<D>, K::kBytes, K::kThreads, out);
+  if (which == 2) return occupancy(dq_f32_kernel<D>, Q::kBytes, Q::kThreads, out);
+  return kBadHeadDim;
+}
+
 }  // namespace
 
+// `rounding`: bits 0-1 the dtype p is rounded to, bits 2-3 dS's (round_to's
+// codes; 0 for f32 inputs).
 extern "C" {
 
 int bf_flash_f32_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                      int bh, int tq, int tk, int d, int q_start, int k_start, float scale,
-                     int causal, void* stream) {
+                     int causal, int rounding, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 64)
-    return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+    return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal,
+                          rounding, s);
   if (d == 128)
-    return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+    return launch_fwd<128>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal,
+                           rounding, s);
+  if (d == 256)
+    return launch_fwd<256>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal,
+                           rounding, s);
   return kBadHeadDim;
 }
 
 int bf_flash_f32_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* corr, void* dk, void* dv, int bh,
                          int tq, int tk, int d, int q_start, int k_start, float scale,
-                         int causal, void* stream) {
+                         int causal, int rounding, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 64)
     return launch_dkv<64>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
-                          scale, causal, s);
+                          scale, causal, rounding, s);
   if (d == 128)
     return launch_dkv<128>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
-                           scale, causal, s);
+                           scale, causal, rounding, s);
+  if (d == 256)
+    return launch_dkv<256>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
+                           scale, causal, rounding, s);
   return kBadHeadDim;
 }
 
 int bf_flash_f32_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* corr, void* dq, int bh, int tq,
                         int tk, int d, int q_start, int k_start, float scale, int causal,
-                        void* stream) {
+                        int rounding, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 64)
     return launch_dq<64>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start, scale,
-                         causal, s);
+                         causal, rounding, s);
   if (d == 128)
     return launch_dq<128>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
-                          scale, causal, s);
+                          scale, causal, rounding, s);
+  if (d == 256)
+    return launch_dq<256>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
+                          scale, causal, rounding, s);
+  return kBadHeadDim;
+}
+
+// which: 0 forward, 1 dK/dV, 2 dQ; out as occupancy() above (4 ints).
+int bf_flash_f32_occupancy(int which, int d, int* out) {
+  if (d == 64) return f32_occupancy<64>(which, out);
+  if (d == 128) return f32_occupancy<128>(which, out);
+  if (d == 256) return f32_occupancy<256>(which, out);
   return kBadHeadDim;
 }
 

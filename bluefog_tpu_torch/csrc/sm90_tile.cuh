@@ -292,6 +292,30 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// Let `kernel` take `smem` bytes of dynamic shared memory (above 48 KB only
+// so).  0 or the CUDA error.
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// out[0] = resident blocks per SM, out[1] = dynamic shared memory bytes,
+// out[2] = registers per thread, out[3] = threads per block, of one kernel
+// as its launcher launches it.
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int threads, int* out) {
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  out[1] = (int)smem;
+  out[2] = attr.numRegs;
+  out[3] = threads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
+}
+
 constexpr int kNoEncoder = -2;         // the driver has no cuTensorMapEncodeTiled
 constexpr int kEncodeFailed = 10000;   // + the CUresult of a refused encode
 

@@ -24,18 +24,24 @@ f32 kernels run f32-accurate products on the tensor cores: every operand
 is split into a TF32 part and the rest (:func:`split_tf32` is the split in
 plain torch, for the tests), and a.b is three TF32 products (small.big +
 big.small + big.big, the dropped small.small below 2^-22 |a||b|), on
-``mma.sync`` with TMA-fed tile rings, one warp a 16-row slab.  No f32
-kernel rounds p or dS to a narrower type, as the reference does not for
-f32 inputs.
+``mma.sync`` with TMA-fed tile rings, one warp a 16-row slab.  On f32
+inputs no f32 kernel rounds p or dS to a narrower type, as the reference
+does not; on inputs of mixed dtypes they round them where the reference
+does.
 
 Every wrapper takes ``[BH, T, D]`` tensors (``lse``/``corr`` ``[BH, Tq]``
-f32).  On a CUDA tensor it checks device, dtype (q, k, v and dO all bf16,
-all f16 or all f32), shape and contiguity, launches the kernel of that
-dtype on the current stream and adds one to its count in :data:`launches`
-(bf16), :data:`launches_f16` (f16) or :data:`launches_f32` (f32).  The bf16
-and f16 kernels are built for D = 64, 128 and 256, the f32 ones for 64 and
-128; a head dim up to the largest runs zero-padded to the next of those
-(:func:`pad_head_dim`), and a larger one raises.  On a CPU tensor it runs
+f32).  On a CUDA tensor it checks device, dtype (each of q, k, v and dO
+bf16, f16 or f32), shape and contiguity, launches the kernel of the
+inputs' promoted dtype (:func:`kernel_dtype`) on the current stream and
+adds one to its count in :data:`launches` (bf16), :data:`launches_f16`
+(f16) or :data:`launches_f32` (f32).  Inputs of mixed dtypes, which the JAX
+kernel takes, always promote to f32: the narrower ones are cast up
+(exact), the f32 kernels round p and dS to the dtypes the JAX kernel
+rounds them to (:func:`rounding`), and the outputs come back in the JAX
+kernel's dtypes (o and dQ q's, dK k's, dV v's).  The kernels of every
+dtype are built for D = 64, 128 and 256; a head dim up to 256 runs
+zero-padded to the next of those (:func:`pad_head_dim`), and a larger one
+raises.  On a CPU tensor it runs
 its plain version, the blockwise recompute of the JAX package's XLA routes
 (``_blockwise_fwd_xla`` :411 and ``_blockwise_bwd`` :729, split into dK/dV
 and dQ) with the kernels' rounding points.  There is no fallback from one to the other.
@@ -93,13 +99,14 @@ __all__ = [
     "launch_order",
     "pad_head_dim",
     "split_tf32",
+    "kernel_dtype",
+    "rounding",
 ]
 
 _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
-_HEAD_DIMS = (64, 128, 256)  # the head dims the bf16 and f16 kernels are built for
-_HEAD_DIMS_F32 = (64, 128)  # ... and the f32 kernels
+_HEAD_DIMS = (64, 128, 256)  # the head dims the kernels are built for, in every dtype
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 _KERNEL_IMPLS = ("auto", "pallas", "cuda")  # the kernel route's names
 _MAX_UNROLL = 64  # the blockwise route's triangular branch unrolls at most this many blocks
@@ -359,22 +366,41 @@ def bind(lib: ctypes.CDLL, prefix: str = "bf_flash") -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/flash_attention.cu``
     (``prefix`` "bf_flash": the bf16 and the ``bf_flash_f16_*`` f16 entry
     points) or ``csrc/flash_attention_f32.cu`` ("bf_flash_f32"):
-    ``<prefix>_fwd``, ``_bwd_dkv`` and ``_bwd_dq``, and the first library's
-    ``bf_flash_occupancy`` and ``bf_flash_f16_occupancy``."""
+    ``<prefix>_fwd``, ``_bwd_dkv``, ``_bwd_dq`` and ``_occupancy``.  Every
+    launcher takes ``causal`` and then ``rounding``, which only the f32
+    kernels read."""
     prefixes = (prefix, "bf_flash_f16") if prefix == "bf_flash" else (prefix,)
     for pre in prefixes:
         fns = [getattr(lib, f"{pre}_{name}") for name in ("fwd", "bwd_dkv", "bwd_dq")]
         for fn, n_ptr in zip(fns, (5, 8, 7)):
-            fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _I, _P]
+            fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F, _I, _I, _P]
             fn.restype = ctypes.c_int
-        if prefix == "bf_flash":
-            occ = getattr(lib, f"{pre}_occupancy")
-            occ.argtypes = [_I, _I, ctypes.POINTER(_I)]
-            occ.restype = ctypes.c_int
+        occ = getattr(lib, f"{pre}_occupancy")
+        occ.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        occ.restype = ctypes.c_int
     return lib
 
 
 _DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernels' input types
+# csrc/flash_attention_f32.cu's round_to codes: the dtype p or dS is rounded to
+_ROUND_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def kernel_dtype(*dtypes: torch.dtype) -> torch.dtype:
+    """The dtype of the kernel that serves q, k, v (and dO) of ``dtypes``:
+    their promoted type, as the JAX kernel's products promote their
+    operands (``lax.dot_general``).  One dtype gives its own kernel; every
+    mix of bf16, f16 and f32 gives f32 (any f32 operand, or f16 with
+    bf16)."""
+    return functools.reduce(torch.promote_types, dtypes)
+
+
+def rounding(p: torch.dtype = torch.float32, ds: torch.dtype = torch.float32) -> int:
+    """The f32 kernels' ``rounding`` argument: p rounded to dtype ``p``
+    before it multiplies (the forward's P.V: v's dtype; dK/dV's P^T.dO:
+    dO's) and dS to ``ds`` (q's), to nearest even and kept in f32, as the
+    JAX kernel rounds them on inputs of mixed dtypes; f32 rounds nothing."""
+    return _ROUND_CODES[p] | _ROUND_CODES[ds] << 2
 
 
 def _kernel(dtype, name: str):
@@ -403,10 +429,6 @@ def _check(name, q, k, v, extra=(), f32=()):
     if d > _HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS[-1]}, the largest "
                          f"the kernels take")
-    if q.dtype == torch.float32 and d > _HEAD_DIMS_F32[-1]:
-        raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS_F32[-1]}, the largest "
-                         f"the f32 kernels (csrc/flash_attention_f32.cu) take; the bf16 "
-                         f"and f16 kernels take up to {_HEAD_DIMS[-1]}")
     if tq < 1 or tk < 1 or bh < 1 or d < 1:
         raise ValueError(f"{name}: empty input {tuple(q.shape)} / {tuple(k.shape)}")
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
@@ -417,13 +439,10 @@ def _check(name, q, k, v, extra=(), f32=()):
     if any(x.shape != (bh, tq) for x in f32):
         raise ValueError(f"{name}: lse/corr must be [{bh}, {tq}]")
     dev = q.device
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"{name}: the CUDA kernels take bf16, float16 or float32, got "
-                         f"{q.dtype}")
-    for x in (k, v, *extra):
-        if x.dtype != q.dtype:
-            raise ValueError(f"{name}: q, k, v and dO must share one dtype, got "
-                             f"{q.dtype} and {x.dtype}")
+    for x in (q, k, v, *extra):
+        if x.dtype not in _DTYPES:
+            raise ValueError(f"{name}: the CUDA kernels take bf16, float16 or float32, got "
+                             f"{x.dtype}")
     for x in f32:
         if x.dtype != torch.float32:
             raise ValueError(f"{name}: lse/corr must be float32, got {x.dtype}")
@@ -450,8 +469,8 @@ def _raise_on(name, err):
 
 def pad_head_dim(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` with every ``[BH, T, D]`` argument zero-padded
-    in D to the next head dim the kernels are built for (64, 128 or 256;
-    the wrappers raise before an f32 D above 128 gets here), and every
+    in D to the next head dim the kernels are built for (64, 128 or 256,
+    in every dtype), and every
     ``[BH, T, D]`` result cut back to D.  Exact: the scale is an argument
     (the caller's, from the unpadded D), zero columns add nothing to
     q.k or dO.v, lse and corr do not depend on D, and the padded columns
@@ -476,15 +495,19 @@ def pad_head_dim(fn: Callable, *args, **kwargs):
 
 def flash_fwd(q, k, v, q_start: int = 0, k_start: int = 0, *, scale: float,
               causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o [BH,Tq,D], lse [BH,Tq] f32)``; the CUDA kernel for CUDA tensors,
-    :func:`flash_fwd_plain` for CPU tensors."""
+    """``(o [BH,Tq,D] in q's dtype, lse [BH,Tq] f32)``; the CUDA kernel of
+    :func:`kernel_dtype` for CUDA tensors, :func:`flash_fwd_plain` for CPU
+    tensors."""
     if not _on_cuda(q, k, v):
         return flash_fwd_plain(q, k, v, q_start, k_start, scale=scale, causal=causal)
     _check("flash_fwd", q, k, v)
-    return pad_head_dim(_launch_fwd, q, k, v, q_start, k_start, scale=scale, causal=causal)
+    kd = kernel_dtype(q.dtype, k.dtype, v.dtype)
+    o, lse = pad_head_dim(_launch_fwd, q.to(kd), k.to(kd), v.to(kd), q_start, k_start,
+                          scale=scale, causal=causal, rounding=rounding(p=v.dtype))
+    return o.to(q.dtype), lse
 
 
-def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal):
+def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal, rounding):
     bh, tq, d = q.shape
     tk = k.shape[1]
     o = torch.empty_like(q)
@@ -493,8 +516,8 @@ def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal):
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            bh, tq, tk, d, int(q_start), int(k_start), float(scale),
+            int(causal), rounding, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
     counts["fwd"] += 1
     return o, lse
@@ -502,16 +525,20 @@ def _launch_fwd(q, k, v, q_start, k_start, *, scale, causal):
 
 def flash_dkv(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0, *,
               scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dK, dV)``; ``g`` is dO, ``corr = g_lse - rowsum(o * dO)``."""
+    """``(dK, dV)`` in k's and v's dtypes; ``g`` is dO, ``corr = g_lse -
+    rowsum(o * dO)``."""
     if not _on_cuda(q, k, v, g, lse, corr):
         return flash_dkv_plain(q, k, v, g, lse, corr, q_start, k_start,
                                scale=scale, causal=causal)
     _check("flash_dkv", q, k, v, (g,), (lse, corr))
-    return pad_head_dim(_launch_dkv, q, k, v, g, lse, corr, q_start, k_start,
-                        scale=scale, causal=causal)
+    kd = kernel_dtype(q.dtype, k.dtype, v.dtype, g.dtype)
+    dk, dv = pad_head_dim(_launch_dkv, q.to(kd), k.to(kd), v.to(kd), g.to(kd), lse, corr,
+                          q_start, k_start, scale=scale, causal=causal,
+                          rounding=rounding(p=g.dtype, ds=q.dtype))
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
+def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal, rounding):
     bh, tq, d = q.shape
     tk = k.shape[1]
     dk = torch.empty_like(k)
@@ -521,8 +548,8 @@ def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), corr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            bh, tq, tk, d, int(q_start), int(k_start), float(scale),
+            int(causal), rounding, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_dkv", err)
     counts["dkv"] += 1
     return dk, dv
@@ -530,16 +557,19 @@ def _launch_dkv(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
 
 def flash_dq(q, k, v, g, lse, corr, q_start: int = 0, k_start: int = 0, *,
              scale: float, causal: bool) -> torch.Tensor:
-    """``dQ``; arguments as :func:`flash_dkv`."""
+    """``dQ`` in q's dtype; arguments as :func:`flash_dkv`."""
     if not _on_cuda(q, k, v, g, lse, corr):
         return flash_dq_plain(q, k, v, g, lse, corr, q_start, k_start,
                               scale=scale, causal=causal)
     _check("flash_dq", q, k, v, (g,), (lse, corr))
-    return pad_head_dim(_launch_dq, q, k, v, g, lse, corr, q_start, k_start,
-                        scale=scale, causal=causal)
+    kd = kernel_dtype(q.dtype, k.dtype, v.dtype, g.dtype)
+    dq = pad_head_dim(_launch_dq, q.to(kd), k.to(kd), v.to(kd), g.to(kd), lse, corr,
+                      q_start, k_start, scale=scale, causal=causal,
+                      rounding=rounding(ds=q.dtype))
+    return dq.to(q.dtype)
 
 
-def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
+def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal, rounding):
     bh, tq, d = q.shape
     tk = k.shape[1]
     dq = torch.empty_like(q)
@@ -548,8 +578,8 @@ def _launch_dq(q, k, v, g, lse, corr, q_start, k_start, *, scale, causal):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), corr.data_ptr(), dq.data_ptr(),
-            bh, tq, tk, d, int(q_start), int(k_start), float(scale), int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            bh, tq, tk, d, int(q_start), int(k_start), float(scale),
+            int(causal), rounding, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_dq", err)
     counts["dq"] += 1
     return dq
@@ -559,15 +589,17 @@ _KERNEL_IDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 
 def occupancy(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
-    """How the card holds one bf16 or f16 (``dtype``) flash kernel
+    """How the card holds one bf16, f16 or f32 (``dtype``) flash kernel
     (``"fwd"``, ``"dkv"`` or ``"dq"``) at head dim ``d``, as its launcher
     launches it:
     ``blocks_per_sm`` (resident blocks per SM), ``smem`` (dynamic shared
     memory bytes per block), ``regs`` (registers per thread, as compiled;
-    the Hopper kernels move registers from their producer to their
+    the bf16 and f16 kernels move registers from their producer to their
     consumers at run time) and ``threads`` (per block).  Needs the card."""
     out = (_I * 4)()
-    fn = _lib().bf_flash_f16_occupancy if dtype == torch.float16 else _lib().bf_flash_occupancy
+    fn = (_lib_f32().bf_flash_f32_occupancy if dtype == torch.float32
+          else _lib().bf_flash_f16_occupancy if dtype == torch.float16
+          else _lib().bf_flash_occupancy)
     err = fn(_KERNEL_IDS[kernel], int(d), out)
     _raise_on(f"occupancy({kernel}, {d})", err)
     return {"blocks_per_sm": out[0], "smem": out[1], "regs": out[2], "threads": out[3]}

@@ -19,7 +19,7 @@ Phases, each printing one JSON line:
                (attention_roofline.CHAIN_PIPES); the f32 forward, dK/dV
                and dQ (csrc/flash_attention_f32.cu, 3xTF32) must hold TF32
                tensor-core products (HMMA.1688.F32.TF32 or HGMMA ... TF32)
-               at both head dims.
+               and fewer FFMA than those at D = 64, 128 and 256.
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
                PyTorch version on the same bf16 inputs, over nine cases
@@ -37,11 +37,16 @@ Phases, each printing one JSON line:
                tensor cores by the 3xTF32 split)
                against its plain version on the same f32 inputs: the f32
                path's shape [24, 2048, 64], D = 128, D = 16 zero-padded,
-               causal with offsets, tq != tk; then
-               times at [24, 2048, 64] and [24, 2048, 128] beside the
-               bound at three TF32 products a product (the FFMA bound
-               beside it as bound_ffma_ms), the plain version and f32
-               scaled_dot_product_attention, forward and forward+backward.
+               causal with offsets, tq != tk; at D = 256 hidden_route_f32's
+               [32, 2048, 256], a ring hop (offsets, tq != tk), non-causal
+               and D = 192 zero-padded; then q, k, v of four mixes of
+               dtypes at D = 64 and 256, which run the f32 kernels (their
+               promoted dtype) and are held to the bf16 rule; then
+               times at [24, 2048, 64], [24, 2048, 128] and [32, 2048, 256]
+               beside the bound at three TF32 products a product (the FFMA
+               bound beside it as bound_ffma_ms), the plain version and f32
+               scaled_dot_product_attention (its backend named), forward and
+               forward+backward, and each instance's occupancy.
 2c. f32     -- the f32 path: a small f32 LlamaLM with flash attention
                against the same weights with dense f32 attention (loss and
                gradients), then examples/llama_pretrain --dtype f32 at the
@@ -77,6 +82,10 @@ Phases, each printing one JSON line:
                bf16 one): finite loss and gradients, the loss within
                LOSS_ABS of the same weights in f32 with dense
                attention.
+4d. hidden_route_f32 -- the same model in the reference's own dtype
+               (--dtype f32): the f32 kernels' <256> instances, each
+               launched layers x ranks x steps, no bf16 or f16 launch;
+               finite losses, step ms, tok/s and peak memory.
 5. components -- each roofline microkernel instance (qk and pv at D 64 and
                128; the softmax chain, the backward chain with and without
                cast_p) at reps 1, 2 and 3 against its plain version, with
@@ -345,7 +354,7 @@ Phases 8-12, 14, 18-27 and 30 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, hidden_route,
 llama_1b, seq_parallel, zero_8b, bench_twins (its Llama runs),
 analysis_interactive and distributed paths, the f16 rows' the
-hidden_route's f16 step, the f32 rows' the f32_path,
+hidden_route's f16 step, the f32 rows' the f32_path, hidden_route_f32,
 seq_parallel and tensor_parallel paths.
 
 Then each phase's wall seconds, the kernel table, the nvidia-smi line, and
@@ -566,17 +575,22 @@ TF32_MMA = r"\bHMMA\.\w+\.F32\.TF32\b|\bHGMMA\.\S*TF32"
 
 
 def sass_tf32(_build):
-    """{f32 flash kernel: [TF32 tensor-core instructions of each instance]}
-    from cuobjdump's SASS of csrc/flash_attention_f32.cu; None where
-    cuobjdump is not found."""
+    """{f32 flash instance ("fwd_f32_kernel<256>"): {"tf32": its TF32
+    tensor-core instructions, "ffma": its FFMA instructions}} from
+    cuobjdump's SASS of csrc/flash_attention_f32.cu; None where cuobjdump is
+    not found.  A product loop on the FP32 pipe would issue 32 FFMA a
+    thread for each m16n8k8's work: far more FFMA than tensor-core
+    instructions."""
     funcs = _build.sass("flash_attention_f32")
     if funcs is None:
         return None
     counts = {}
     for fname, body in sorted(funcs.items()):
-        m = re.search(r"(fwd|dkv|dq)_f32_kernel", fname)
+        m = re.search(r"((?:fwd|dkv|dq)_f32_kernel)ILi(\d+)E", fname)
         if m:
-            counts.setdefault(m.group(0), []).append(len(re.findall(TF32_MMA, body)))
+            counts[f"{m.group(1)}<{m.group(2)}>"] = {
+                "tf32": len(re.findall(TF32_MMA, body)),
+                "ffma": len(re.findall(r"\bFFMA\b", body))}
     return counts
 
 
@@ -602,9 +616,11 @@ def phase_device(torch, _build, fa, ac, roof):
           "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found",
           "sass_f32_tf32_mma": tf32 or "cuobjdump not found", "chain_pipes": pipes})
     for kname in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel") if tf32 else ():
-        n = tf32.get(kname, [])
-        check(len(n) == 2 and all(x > 0 for x in n),
-              f"device: {kname} must hold TF32 tensor-core products at both head dims ({n})")
+        for d in (64, 128, 256):
+            n = tf32.get(f"{kname}<{d}>")
+            check(n is not None and 0 < n["tf32"] and n["ffma"] < n["tf32"],
+                  f"device: {kname}<{d}> must hold TF32 tensor-core products and fewer "
+                  f"FFMA ({n})")
     for key, counts in roof.CHAIN_PIPES.items() if sass else ():
         name = ("softmax_chain_kernel<body>" if key[0] == "softmax_chain"
                 else f"bwd_chain_kernel<cast_p={int(key[1])}, body>")
@@ -887,7 +903,29 @@ F32_CASES = {  # bh, tq, tk, d, q_start, k_start, causal
     "offsets": (8, 640, 640, 64, 200, 37, True),
     "cross": (8, 384, 1000, 64, 616, 0, True),  # tq != tk, a ring hop's shape
     "cross_non_causal": (8, 1000, 384, 128, 0, 0, False),
+    "d256_path": (RANKS * BATCH * 4, 2048, 2048, 256, 0, 0, True),  # hidden_route_f32's
+    "d256_ring_hop": (8, 384, 1000, 256, 616, 0, True),  # offsets, tq != tk
+    "d256_non_causal": (8, 1000, 384, 256, 0, 0, False),
+    "d192": (8, 1024, 1024, 192, 0, 0, True),  # zero-padded to 256
 }
+# q, k, v dtypes of mixed cases (dO in q's, as autograd gives it), which
+# the JAX kernel takes: each promotes to f32 and runs the f32 kernels,
+# held to its plain version under the narrowest dtype's rule (bf16's in
+# all four), at [8, 1024, d], causal, for d in F32_MIXED_DIMS
+F32_MIXED = [("bfloat16", "float32", "float32"), ("float32", "bfloat16", "bfloat16"),
+             ("bfloat16", "bfloat16", "float32"), ("float16", "bfloat16", "bfloat16")]
+F32_MIXED_DIMS = (64, 256)
+# the timed shapes: head dim -> (batch, heads) at T = 2048, causal
+F32_TIMED = {64: (BATCH, 12), 128: (BATCH, 12), 256: (RANKS * BATCH, 4)}
+
+
+def sdpa_backend(torch, q, k, v):
+    """The scaled_dot_product_attention backend PyTorch picks for these
+    [B, H, T, D] inputs, causal ("MATH", "EFFICIENT_ATTENTION", ...)."""
+    from torch.nn.attention import SDPBackend
+
+    names = {m.value: name for name, m in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=True)), "unknown")
 
 
 def f32_work(bh, t, d):
@@ -903,11 +941,14 @@ def f32_work(bh, t, d):
 
 
 def phase_kernels_f32(torch, fa):
-    """Each f32 kernel against its plain version over F32_CASES, then its
-    times at [24, 2048, 64] (the main path's attention shape) and
-    [24, 2048, 128] beside the plain version and f32
+    """Each f32 kernel against its plain version over F32_CASES, then on
+    q, k, v of mixed dtypes (F32_MIXED: the f32 kernels, of their promoted
+    dtype, launched once each and no other), then its times at
+    [24, 2048, 64] (the main path's attention shape), [24, 2048, 128] and
+    [32, 2048, 256] (hidden_route_f32's) beside the plain version and f32
     scaled_dot_product_attention (forward; forward+backward beside the sum
-    of the three kernels).  The bound is the f32-accurate one on this card:
+    of the three kernels; the backend PyTorch picked named), with each
+    instance's occupancy.  The bound is the f32-accurate one on this card:
     three TF32 tensor-core products a product (3 x flops / 495 TFLOP/s), or
     the bytes, whichever is longer; the FFMA bound (flops / 67 TFLOP/s), the
     least time of a design on the FP32 pipe, which none of the three runs,
@@ -960,13 +1001,30 @@ def phase_kernels_f32(torch, fa):
         errs["fwd"] = max(errs["fwd"], lse_err)
         row["tolerance"] = TOLERANCE_F32
         emit(row)
+        del q, g, k, v, o, dk, dv, dq, o_ref, dk_ref, dv_ref, dq_ref
+    for d in F32_MIXED_DIMS:
+        for names in F32_MIXED:
+            dtypes = tuple(getattr(torch, n) for n in names)
+            before = _flash_counts(fa)
+            mixed, bad, _, _ = _held_to_plain(torch, fa, dtypes, 8, 1024, 1024, d, 0, 0, True,
+                                              gen)
+            seen = {ty: {k: n - before[ty][k] for k, n in c.items()}
+                    for ty, c in _flash_counts(fa).items()}
+            tag = f"mixed {'-'.join(names)} d{d}"
+            check(seen["f32"] == {"fwd": 1, "dkv": 1, "dq": 1}
+                  and not any(seen["bf16"].values()) and not any(seen["f16"].values()),
+                  f"kernels_f32 {tag}: launches {seen}, expected the f32 kernels once each")
+            failures += [f"{tag} {b}" for b in bad]
+            emit({"phase": "kernel_case_mixed", "dtypes": names, "shape": [8, 1024, 1024, d],
+                  "causal": True, "kernel_dtype": "float32", "tolerance": TOLERANCE,
+                  **{f"{k}_max_abs_err_tol_ratio_norm": list(v) for k, v in mixed.items()}})
     check(not failures, "f32 kernels vs plain: " + "; ".join(failures))
 
     counts_before = dict(fa.launches_f32)
     timing = {"phase": "kernel_times_f32", "causal": True}
     table = {}
-    for d in (64, 128):
-        bh, t = 24, 2048
+    for d, (b, h) in F32_TIMED.items():
+        bh, t = b * h, 2048
         q, k, v, g = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
         kw = dict(scale=1.0 / math.sqrt(d), causal=True)
         o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -979,16 +1037,18 @@ def phase_kernels_f32(torch, fa):
                  "dq": lambda: fa.flash_dq_plain(q, k, v, g, lse, corr, **kw)}
         ms = {kname: cuda_ms(fn, iters=10) for kname, fn in calls.items()}
         plain_ms = {kname: cuda_ms(fn, iters=3, warmup=1) for kname, fn in plain.items()}
-        q4, k4, v4 = (x.view(2, 12, t, d) for x in (q, k, v))
+        q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
         sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
         qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
-        g4 = g.view(2, 12, t, d)
+        g4 = g.view(b, h, t, d)
 
         def sdpa_fwd_bwd():
             F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g4)
 
         sdpa_fb = cuda_ms(sdpa_fwd_bwd, iters=10)
         timing[f"d{d}"] = {"shape": [bh, t, d], "sdpa_fwd_ms": sdpa, "sdpa_fwd_bwd_ms": sdpa_fb,
+                           "sdpa_backend": sdpa_backend(torch, q4, k4, v4),
+                           "sdpa_backend_fwd_bwd": sdpa_backend(torch, qg, kg, vg),
                            "fwd_dkv_dq_ms": sum(ms.values())}
         for kname, (flops, nbytes) in f32_work(bh, t, d).items():
             t_ops = TF32_SPLIT * flops / PEAK_TF32_FLOPS * 1e3
@@ -999,17 +1059,15 @@ def phase_kernels_f32(torch, fa):
                      "bound_pipe": "tensor cores, 3 TF32 products a product (3xTF32)",
                      "bound_ffma_ms": max(flops / PEAK_F32_FLOPS * 1e3, t_bytes),
                      "library_ms": sdpa if kname == "fwd" else None,
-                     "tflops": flops / (ms[kname] * 1e-3) / 1e12}
-            timing[f"d{d}"][kname] = entry
+                     "occupancy": fa.occupancy(kname, d, torch.float32)}
+            timing[f"d{d}"][kname] = {**entry, "tflops": flops / (ms[kname] * 1e-3) / 1e12}
             if d == 64:
-                table[kname] = {"max_abs_err": errs[kname],
-                                **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                         "bound_by", "bound_pipe",
-                                                         "bound_ffma_ms", "library_ms")}}
+                table[kname] = {"max_abs_err": errs[kname], **entry}
             else:
-                table[kname].update({"ms_d128": entry["ms"], "bound_ms_d128": entry["bound_ms"],
-                                     "bound_ffma_ms_d128": entry["bound_ffma_ms"],
-                                     "library_ms_d128": entry["library_ms"]})
+                table[kname].update({f"{key}_d{d}": entry[key]
+                                     for key in ("ms", "plain_ms", "bound_ms", "bound_ffma_ms",
+                                                 "library_ms", "occupancy")})
+        del q, k, v, g, o, lse, corr, q4, k4, v4, qg, kg, vg, g4
     fa.launches_f32.update(counts_before)  # timing launches are not the path's
     emit(timing)
     return table
@@ -1253,17 +1311,22 @@ def _restore_counts(fa, saved):
 
 def _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start, k_start, causal, gen):
     """Every output of the three kernels against its plain version on one
-    seeded input: {kernel: (max abs error, element ratio, norm error)}, the
-    failures under the dtype's rule, the inputs, lse and corr for timing,
-    and {output: (kernel's, plain version's)}."""
-    rel, rms, norm = ((F16_ELEM_REL, F16_ELEM_RMS, F16_NORM_REL) if dtype == torch.float16
+    seeded input of ``dtype``, or of q, k, v of a tuple of three dtypes (dO
+    in q's): {kernel: (max abs error, element ratio, norm error)}, the
+    failures under the narrowest dtype's rule (bf16's, else f16's), the
+    inputs, lse and corr for timing, and {output: (kernel's, plain
+    version's)}.  Each output must come back in its input's dtype (o and dQ
+    q's, dK k's, dV v's)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * 3
+    rel, rms, norm = ((F16_ELEM_REL, F16_ELEM_RMS, F16_NORM_REL)
+                      if torch.float16 in dtypes and torch.bfloat16 not in dtypes
                       else (ELEM_REL, ELEM_RMS, NORM_REL))
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    q, g = (rnd(bh, tq, d).to(dtype) for _ in range(2))
-    k, v = (rnd(bh, tk, d).to(dtype) for _ in range(2))
+    q, g = (rnd(bh, tq, d).to(dtypes[0]) for _ in range(2))
+    k, v = (rnd(bh, tk, d).to(dt) for dt in dtypes[1:])
     kw = dict(scale=1.0 / math.sqrt(d), causal=causal)
     o, lse = fa.flash_fwd(q, k, v, q_start, k_start, **kw)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_start, k_start, **kw)
@@ -1273,6 +1336,8 @@ def _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start, k_start, causal, ge
     dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
     dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, q_start, k_start, **kw)
     torch.cuda.synchronize()
+    check((o.dtype, dq.dtype, dk.dtype, dv.dtype) == (q.dtype, q.dtype, k.dtype, v.dtype),
+          f"outputs in {(o.dtype, dq.dtype, dk.dtype, dv.dtype)} for inputs in {dtypes}")
     errs, failures = {}, []
     outs = {"o": (o, o_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref), "dq": (dq, dq_ref)}
     for kname, pairs in (("fwd", [("o", o, o_ref)]),
@@ -1448,6 +1513,41 @@ def phase_hidden_route(torch, fa):
     check(not any(seen["bf16"].values()) and not any(seen["f32"].values()),
           f"hidden_route f16: other kernels launched {seen}")
     return counts, counts16
+
+
+# the same model in the reference example's own dtype, f32 (the f32 kernels' <256>)
+HIDDEN_ROUTE_F32 = ["f32" if a == "bf16" else a for a in HIDDEN_ROUTE]
+
+
+def phase_hidden_route_f32(torch, fa):
+    """The reference example's model at --hidden 1024 in the reference's
+    own dtype (examples/jax_llama_pretrain.py builds it in f32): D = 256 on
+    the f32 kernels' <256> instances, f32 GEMMs in full f32, through
+    examples/llama_pretrain with every count set to 0 just before.  Checks
+    finite losses, each f32 kernel launched layers x ranks x steps times and
+    no bf16 or f16 kernel; returns the f32 counts."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    t0 = time.perf_counter()
+    _free_device_cache(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launches()
+    out = llama_pretrain.run(llama_pretrain._parser().parse_args(HIDDEN_ROUTE_F32))
+    seen = _flash_counts(fa)
+    counts = seen["f32"]
+    losses = [x for step in out["losses"] for x in step]
+    row = {"phase": "hidden_route_f32", **out, "launches_f32": counts,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(row)
+    check(out["dtype"] == "f32" and out["head_dim"] == 256 and out["heads"] == 4,
+          f"hidden_route_f32: {out['dtype']}, D = {out['head_dim']}")
+    check(all(math.isfinite(x) for x in losses), f"hidden_route_f32: non-finite loss {losses}")
+    want = out["layers"] * RANKS * STEPS
+    for kname, n in counts.items():
+        check(n == want, f"hidden_route_f32: {kname}_f32 launched {n} times, expected {want}")
+    check(not any(seen["bf16"].values()) and not any(seen["f16"].values()),
+          f"hidden_route_f32: other kernels launched {seen}")
+    return counts
 
 
 COMPONENT_BLOCKS = 3
@@ -4367,6 +4467,7 @@ def main():
         timed("model", phase_model, torch, fa)
         counts = timed("main", phase_main, torch, fa)
         counts_hr, counts_f16 = timed("hidden_route", phase_hidden_route, torch, fa)
+        counts_hr_f32 = timed("hidden_route_f32", phase_hidden_route_f32, torch, fa)
         comp_err = timed("components", phase_components, torch, ac, roof)
         row, comp_counts = timed("roofline", phase_roofline, torch, fa, ac, roof)
         comp_table = timed("component_times", component_times, torch, ac, roof, row)
@@ -4437,8 +4538,9 @@ def main():
         {"name": f"flash_{k}_f32", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",
          "replaces": replaces[k],
-         "launches": counts_f32[k] + counts_sp_f32[k] + counts_tp_f32[k],
-         "launches_by_phase": {"f32_path": counts_f32[k], "seq_parallel": counts_sp_f32[k],
+         "launches": counts_f32[k] + counts_hr_f32[k] + counts_sp_f32[k] + counts_tp_f32[k],
+         "launches_by_phase": {"f32_path": counts_f32[k], "hidden_route_f32": counts_hr_f32[k],
+                               "seq_parallel": counts_sp_f32[k],
                                "tensor_parallel": counts_tp_f32[k]},
          **table_f32[k]}
         for k in ("fwd", "dkv", "dq")] + [

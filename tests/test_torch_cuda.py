@@ -163,16 +163,14 @@ def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
-    wide = torch.zeros(2, 64, 257, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 257 above 256"):
-        fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
-    wide = torch.zeros(2, 64, 160, device=cuda_device)
-    with pytest.raises(ValueError, match="the f32 kernels"):
-        fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        wide = torch.zeros(2, 64, 257, device=cuda_device, dtype=dt)
+        with pytest.raises(ValueError, match="head dim 257 above 256"):
+            fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
     with pytest.raises(ValueError, match="bf16, float16 or float32"):
         fa.flash_fwd(q.double(), q.double(), q.double(), scale=1.0, causal=True)
-    with pytest.raises(ValueError, match="share one dtype"):
-        fa.flash_fwd(q, q.float(), q, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="bf16, float16 or float32"):
+        fa.flash_fwd(q, q.double(), q, scale=1.0, causal=True)
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2)
         fa.flash_fwd(t, t, t, scale=1.0, causal=True)
@@ -303,7 +301,7 @@ def _close_f32(got, want):
     assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
 
 
-@pytest.mark.parametrize("d", [64, 128, 16])  # 16 runs zero-padded to 64
+@pytest.mark.parametrize("d", [64, 128, 16, 256, 192])  # 16, 192 run zero-padded
 @pytest.mark.parametrize("tq,tk,q_start,k_start,causal", [
     (320, 320, 0, 0, True), (320, 320, 96, 0, True), (320, 320, 0, 0, False),
     (320, 320, 0, 512, True), (320, 192, 128, 0, True), (192, 448, 0, 0, False),
@@ -312,12 +310,14 @@ def test_f32_kernels_match_plain_versions(cuda_device, d, tq, tk, q_start, k_sta
     _check_f32_kernels(cuda_device, 4, d, tq, tk, q_start, k_start, causal)
 
 
-@pytest.mark.parametrize("bh,t,d", [(24, 2048, 64), (8, 1024, 128), (24, 2048, 128)])
+@pytest.mark.parametrize("bh,t,d", [(24, 2048, 64), (8, 1024, 128), (24, 2048, 128),
+                                    (32, 2048, 256)])
 def test_f32_kernels_match_plain_versions_at_full_size(cuda_device, bh, t, d):
     """The f32 path's own shape (batch 2 x 12 heads, T = 2048, D = 64), and
     D = 128 at T = 1024, where dK/dV's shared memory is fullest, and at
     T = 2048, where a dQ row sums the most keys: many blocks a SM in turn,
-    every ring wrapping 8 to 32 times."""
+    every ring wrapping 8 to 32 times; and the reference example's model
+    at --hidden 1024 (4 ranks x batch 2 x 4 heads, D = 256)."""
     _check_f32_kernels(cuda_device, bh, d, t, t, 0, 0, True)
 
 
@@ -347,17 +347,67 @@ def _check_f32_kernels(cuda_device, bh, d, tq, tk, q_start, k_start, causal):
 
 def test_f32_fwd_dkv_and_dq_run_on_tf32_tensor_cores(cuda_device):
     """The three f32 kernels (3xTF32) hold TF32 tensor-core products in
-    their SASS at both head dims (mma.sync: HMMA.1688.F32.TF32, or wgmma:
-    HGMMA ... TF32)."""
+    their SASS at every head dim (mma.sync: HMMA.1688.F32.TF32, or wgmma:
+    HGMMA ... TF32), and fewer FFMA than those: a product loop on the FP32
+    pipe issues 32 FFMA a thread for each m16n8k8's work."""
     funcs = _build.sass("flash_attention_f32")
     if funcs is None:
         pytest.skip("cuobjdump not found")
     tf32 = re.compile(r"\bHMMA\.\w+\.F32\.TF32\b|\bHGMMA\.\S*TF32")
     for kernel in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel"):
         bodies = [body for name, body in funcs.items() if kernel in name]
-        assert len(bodies) == 2, sorted(funcs)  # D = 64 and 128
+        assert len(bodies) == 3, sorted(funcs)  # D = 64, 128 and 256
         for body in bodies:
-            assert tf32.search(body), kernel
+            n_tf32 = len(tf32.findall(body))
+            assert 0 < n_tf32 and len(re.findall(r"\bFFMA\b", body)) < n_tf32, kernel
+
+
+MIXED = [(torch.bfloat16, torch.float32, torch.float32),
+         (torch.float32, torch.bfloat16, torch.bfloat16),
+         (torch.bfloat16, torch.bfloat16, torch.float32),
+         (torch.float16, torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtypes", MIXED, ids=lambda x: "-".join(str(t)[6:] for t in x))
+def test_mixed_dtypes_run_the_f32_kernels(cuda_device, dtypes, d):
+    """q, k, v of mixed dtypes (dO in q's, as autograd gives it) run the
+    f32 kernels, their promoted dtype, once each and no other: o and dQ come
+    back in q's dtype, dK in k's, dV in v's, each within the bf16 rule (the
+    narrowest dtype present) of its plain version, which rounds p and dS
+    where the JAX kernel does; lse within 1e-3."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(4, 320, d, generator=gen, device=cuda_device).to(dt)
+               for dt in dtypes)
+    g = torch.randn(4, 320, d, generator=gen, device=cuda_device).to(dtypes[0])
+    kw = dict(scale=d ** -0.5, causal=True)
+    fa.reset_launches()
+    o, lse = fa.flash_fwd(q, k, v, 64, 0, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, 64, 0, **kw)
+    corr = (-(o_ref.float() * g.float()).sum(-1)).contiguous()
+    dk, dv = fa.flash_dkv(q, k, v, g, lse_ref, corr, 64, 0, **kw)
+    dq = fa.flash_dq(q, k, v, g, lse_ref, corr, 64, 0, **kw)
+    assert fa.launches_f32 == {"fwd": 1, "dkv": 1, "dq": 1}
+    assert not any(fa.launches.values()) and not any(fa.launches_f16.values())
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse_ref, corr, 64, 0, **kw)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse_ref, corr, 64, 0, **kw)
+    _close_lse(lse, lse_ref)
+    for got, want, dt in ((o, o_ref, q.dtype), (dq, dq_ref, q.dtype), (dk, dk_ref, k.dtype),
+                          (dv, dv_ref, v.dtype)):
+        assert got.dtype == want.dtype == dt
+        _close(got, want)
+
+
+def test_f32_occupancy_reports_each_instance(cuda_device):
+    """Every f32 instance fits the 227 KB a block may hold, one block a SM
+    at D = 256, where a block's tiles take about 193 KB."""
+    for d in (64, 128, 256):
+        for kname in ("fwd", "dkv", "dq"):
+            occ = fa.occupancy(kname, d, torch.float32)
+            assert occ["blocks_per_sm"] >= 1 and 0 < occ["regs"] <= 255, (kname, d, occ)
+            assert occ["smem"] <= 232448, (kname, d, occ)
+            if d == 256:
+                assert occ["blocks_per_sm"] == 1, (kname, occ)
 
 
 def test_f32_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):

@@ -152,9 +152,9 @@ F32_CASES = {  # tq, tk, d, q_start, k_start, causal: the f32 kernels' head dims
 def test_f32_route_matches_pallas_kernel_in_f32(case):
     """The port's f32 route (on the CPU its plain versions, which the f32
     CUDA kernels are held against on the card) against the JAX kernel in
-    f32, interpret mode, at the f32 kernels' head dims 64 and 128 and with
-    tq != tk: o, lse and all three gradients within ATOL (f32 on both
-    sides, sums in another order)."""
+    f32, interpret mode, at head dims 64 and 128 (D = 256:
+    test_torch_flash_d256.py) and with tq != tk: o, lse and all three
+    gradients within ATOL (f32 on both sides, sums in another order)."""
     tq, tk, d, q_start, k_start, causal = F32_CASES[case]
     args = _inputs_cross(sorted(F32_CASES).index(case) + 20, tq, tk, d)
     want = _jax_ref(*args, q_start, k_start, causal)
@@ -166,33 +166,30 @@ def test_f32_route_matches_pallas_kernel_in_f32(case):
 
 
 def test_check_takes_f32_or_bf16_of_one_dtype():
-    """The wrappers' check accepts f32, bf16 and f16 inputs (each dtype has
-    its kernels: bf16 and f16 up to head dim 256, f32 up to 128) and rejects
-    q, k, v and dO of mixed dtypes, another dtype, a head dim above 256, or
-    f32 above 128."""
+    """The wrappers' check accepts f32, bf16 and f16 inputs up to head dim
+    256 in every dtype (each dtype has its kernels at 64, 128 and 256) and
+    q, k, v and dO of mixed dtypes among them (they run the kernel of their
+    promoted dtype); it rejects a head dim above 256 in every dtype and any
+    other dtype, alone or beside a kernel's."""
     lse = torch.zeros(2, 64)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         q = torch.zeros(2, 64, 64, dtype=dt)
         assert fa._check("flash_fwd", q, q, q) == (2, 64, 64, 64)
         assert fa._check("flash_dkv", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 64)
-    for dt in (torch.bfloat16, torch.float16):
         q = torch.zeros(2, 64, 256, dtype=dt)
         assert fa._check("flash_dq", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 256)
         q = torch.zeros(2, 64, 257, dtype=dt)
         with pytest.raises(ValueError, match="head dim 257 above 256"):
             fa._check("flash_fwd", q, q, q)
     q = torch.zeros(2, 64, 256)
-    with pytest.raises(ValueError, match="the f32 kernels"):
-        fa._check("flash_fwd", q, q, q)
+    assert fa._check("flash_fwd", q, q.bfloat16(), q) == (2, 64, 64, 256)
+    assert fa._check("flash_dq", q.half(), q.bfloat16(), q, (q.half(),),
+                     (lse, lse)) == (2, 64, 64, 256)
     q = torch.zeros(2, 64, 64)
-    with pytest.raises(ValueError, match="share one dtype"):
-        fa._check("flash_fwd", q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="share one dtype"):
-        fa._check("flash_dq", q, q, q, (q.bfloat16(),), (lse, lse))
-    with pytest.raises(ValueError, match="share one dtype"):
-        fa._check("flash_fwd", q.half(), q.bfloat16(), q.half())
     with pytest.raises(ValueError, match="bf16, float16 or float32"):
         fa._check("flash_fwd", q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="bf16, float16 or float32"):
+        fa._check("flash_dq", q, q, q, (q.double(),), (lse, lse))
 
 
 def test_each_dtype_launches_its_own_kernel(monkeypatch):

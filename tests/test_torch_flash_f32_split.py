@@ -11,11 +11,20 @@ softmax the kernels run) and held against the JAX package's
 interpret mode, under the tolerance the f32 kernels are held to on the
 card (``chip_smoke.py``): 2^-14 (|ref| + rms(ref)) per element, lse within
 2e-5.  A negative control shows that the tolerance tells the designs
-apart: one TF32 product (big.big alone) fails it.
+apart: one TF32 product (big.big alone) fails it.  At D = 256 the plain
+forward and dQ step over keys as the ``<256>`` kernels stage them
+(``kFwdKeys256`` and ``kDqKeys256``, read from the source).  The plain dK/dV
+contracts all queries of a key block in one product, so the ``<256>`` dK/dV
+kernel's 16-row Q/dO stages are modelled only by the truncation test's
+16-row tile below; splitting dK and dV's columns between two warps, as that
+kernel does, leaves every column's sum as it is.
 """
 
+import contextlib
 import functools
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +33,7 @@ import pytest
 import torch
 
 from bluefog_tpu.kernels.flash_attention import flash_attention_with_lse as jax_flash
+from bluefog_tpu_torch.kernels._build import CSRC
 
 fa = importlib.import_module("bluefog_tpu_torch.kernels.flash_attention")
 torch.set_num_threads(1)
@@ -50,14 +60,36 @@ def bmm_1xtf32(a, b):
     return torch.bmm(fa.split_tf32(a)[0], fa.split_tf32(b)[0])
 
 
-# tq, tk, d, q_start, k_start, causal: both head dims the kernels are built
+# tq, tk, d, q_start, k_start, causal: every head dim the kernels are built
 # for, causal with offsets, tq != tk both ways
 CASES = {
     "d64_causal": (128, 128, 64, 0, 0, True),
     "d128_offsets": (128, 128, 128, 40, 8, True),
     "cross_hop": (64, 192, 64, 128, 0, True),
     "cross_d128_non_causal": (192, 64, 128, 0, 0, False),
+    "d256_offsets": (128, 128, 256, 40, 8, True),
+    "cross_d256_hop": (64, 192, 256, 128, 0, True),
+    "cross_d256_non_causal": (192, 64, 256, 0, 0, False),
 }
+
+def _layout_constant(name):
+    """A layout constant of csrc/flash_attention_f32.cu, as the source sets it."""
+    with open(os.path.join(CSRC, "flash_attention_f32.cu")) as f:
+        return int(re.search(rf"\b{name} = (\d+)", f.read()).group(1))
+
+
+# keys a K/V stage of the forward and of dQ at D = 256; fa._BLOCK elsewhere
+KEYS_256 = {"fwd": _layout_constant("kFwdKeys256"), "dq": _layout_constant("kDqKeys256")}
+
+
+@contextlib.contextmanager
+def _key_block(n):
+    """The plain versions step over ``n`` keys at a time."""
+    saved, fa._BLOCK = fa._BLOCK, n
+    try:
+        yield
+    finally:
+        fa._BLOCK = saved
 
 
 def _inputs(seed, tq, tk, d):
@@ -102,13 +134,16 @@ def _emulate(bmm, case):
     ``case``'s inputs with every product computed by ``bmm``, corr formed
     as the wrapper forms it."""
     (q, k, v, g, g_lse), _ = _case(case)
-    _, _, _, q_start, k_start, causal = CASES[case]
+    _, _, d, q_start, k_start, causal = CASES[case]
+    keys = KEYS_256 if d == 256 else dict.fromkeys(KEYS_256, fa._BLOCK)
     qf, kf, vf, gf = (_fold(x).contiguous() for x in (q, k, v, g))
     kw = dict(scale=1.0 / np.sqrt(q.shape[-1]), causal=causal, bmm=bmm)
-    o, lse = fa.flash_fwd_plain(qf, kf, vf, q_start, k_start, **kw)
+    with _key_block(keys["fwd"]):
+        o, lse = fa.flash_fwd_plain(qf, kf, vf, q_start, k_start, **kw)
     corr = torch.from_numpy(g_lse).reshape(B * H, -1) - (o * gf).sum(-1)
     dk, dv = fa.flash_dkv_plain(qf, kf, vf, gf, lse, corr, q_start, k_start, **kw)
-    dq = fa.flash_dq_plain(qf, kf, vf, gf, lse, corr, q_start, k_start, **kw)
+    with _key_block(keys["dq"]):
+        dq = fa.flash_dq_plain(qf, kf, vf, gf, lse, corr, q_start, k_start, **kw)
     return {"o": _unfold(o), "lse": lse.reshape(B, H, -1).numpy(), "dq": _unfold(dq),
             "dk": _unfold(dk), "dv": _unfold(dv)}
 
@@ -186,13 +221,16 @@ def _round_toward_zero(x64):
 
 
 @pytest.mark.parametrize("product,tile", [("dv_over_2048_queries", 32),
-                                          ("dq_over_2048_keys", 64)])
+                                          ("dq_over_2048_keys", 64),
+                                          ("dv_over_2048_queries", 16),
+                                          ("dq_over_2048_keys", 16)])
 def test_a_fresh_partial_sum_per_tile_keeps_truncating_sums_inside_the_tolerance(product, tile):
     """A model of the tensor cores' f32 accumulation, sums rounded toward
     zero after each m16n8k8 product (the readings on the card point to it:
     PERF.md), in 3xTF32 over a contraction of 2048: dV = P^T.dO over the
-    queries (dK/dV's 32-query stage), and dQ = dS.K over the keys (the dQ
-    kernel's 64-key stage at D = 64; dS = p (dP + corr), signed).  One
+    queries (dK/dV's 32-query stage; 16 at D = 256), and dQ = dS.K over the
+    keys (the dQ kernel's 64-key stage at D = 64, 16 at D = 256; dS = p (dP +
+    corr), signed).  One
     chain of products into one accumulator drifts the same way at every
     step and spends a quarter or more of the f32 tolerance; a zeroed
     partial sum per tile, folded in by a round-to-nearest add (what the
