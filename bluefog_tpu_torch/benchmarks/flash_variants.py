@@ -12,7 +12,9 @@ binds each like the package's own library, and times the forward, dK/dV
 and dQ of every build on the same inputs by CUDA-graph replay, the builds
 taken in turns over ``ROUNDS`` rounds (the least time of each kept).  The
 bf16 builds run at the roofline's ``path`` and ``134m`` shapes, the f32
-builds at [24, 2048, 64], [24, 2048, 128] and [32, 2048, 256] (causal).
+builds at [24, 2048, 64], [24, 2048, 128] and [32, 2048, 256], and both at
+[32, 2048, 512], where the wide kernels above head dim 256 run (causal);
+the ``wide_chunk_stages_*`` builds change those kernels' chunk ring.
 The ``chosen`` build is the source as it stands; ``--source NAME=PATH``
 adds a build of another copy of the file with the same C interface (say,
 an earlier commit's), timed in the same turns.
@@ -78,6 +80,9 @@ VARIANTS: Dict[str, Dict[str, str]] = {
     "fwd_stages_6": {r"kFwdStages = \d+;": "kFwdStages = 6;"},
     "dkv_stages_4": {r"kDkvStages = \d+;": "kDkvStages = 4;"},
     "dq_stages_3": {r"kDqStages = \d+;": "kDqStages = 3;"},
+    # the wide kernels' chunk ring (above D = 256)
+    "wide_chunk_stages_2": {r"kChunkStages = \d+": "kChunkStages = 2"},
+    "wide_chunk_stages_6": {r"kChunkStages = \d+": "kChunkStages = 6"},
     # one consumer warpgroup (64 rows a block), two blocks a SM
     "one_consumer": {r"kConsumers = \d+;": "kConsumers = 1;",
                      r"kConsumerRegs = \d+;": "kConsumerRegs = 232;",
@@ -86,6 +91,8 @@ VARIANTS: Dict[str, Dict[str, str]] = {
 }
 F32_VARIANTS: Dict[str, Dict[str, str]] = {
     "chosen": {},
+    "wide_chunk_stages_2": {r"kChunkStages = \d+": "kChunkStages = 2"},
+    "wide_chunk_stages_6": {r"kChunkStages = \d+": "kChunkStages = 6"},
     # rows a block: warps of 16 rows (two blocks of four warps share a SM)
     "fwd64_warps_8": {r"kFwdWarps64 = \d+": "kFwdWarps64 = 8"},
     "fwd128_warps_4": {r"kFwdWarps128 = \d+": "kFwdWarps128 = 4"},
@@ -151,7 +158,10 @@ F32_VARIANTS: Dict[str, Dict[str, str]] = {
 }
 ROUNDS = 3
 TIMED_SHAPES = ("path", "134m")
-F32_SHAPES = {"d64": (24, 2048, 64), "d128": (24, 2048, 128), "d256": (32, 2048, 256)}
+WIDE_SHAPE = dict(B=8, H=4, T=2048, D=512)  # [32, 2048, 512]: chip_smoke's hidden_route_wide
+F32_SHAPES = {"d64": (24, 2048, 64), "d128": (24, 2048, 128), "d256": (32, 2048, 256),
+              "d512": (32, 2048, 512)}
+TYPE_NAMES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def variant_source(subs: Dict[str, str], source: str = "flash_attention") -> str:
@@ -166,15 +176,18 @@ def variant_source(subs: Dict[str, str], source: str = "flash_attention") -> str
 
 def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
     """{kernel: {"registers": n, "spill_stores": bytes}} from nvcc's
-    ``-Xptxas -v`` report, a kernel named with its head dim where it has
-    one ("dq_f32_kernel<128>")."""
+    ``-Xptxas -v`` report, a kernel named with its element type and head
+    dim where it has them ("dq_f32_kernel<128>", "fwd_kernel<bf16, 64>",
+    "dkv_wide_kernel<f16>", "fwd_wide_f32_kernel")."""
     out: Dict[str, Dict[str, int]] = {}
     name = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?((?:fwd|dkv|dq)(?:_f32)?_kernel)(?:ILi(\d+)E)?",
-                      line)
+        m = re.search(r"Compiling entry function '\w*?((?:fwd|dkv|dq)(?:_wide)?(?:_f32)?_kernel)"
+                      r"(?:I(13__nv_bfloat16|6__half)?(?:Li(\d+)E)?)?", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+            params = [TYPE_NAMES.get(m.group(2)), m.group(3)]
+            params = [p for p in params if p]
+            name = f"{m.group(1)}<{', '.join(params)}>" if params else m.group(1)
             out[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[name]["spill_stores"] = int(m.group(1))
@@ -247,7 +260,8 @@ def main(argv: Optional[list] = None) -> int:
     ptxas = {v: b[1] for v, b in built.items() if not isinstance(b, str)}
     if "chosen" not in libs:
         raise RuntimeError(f"the source as it stands does not build: {built['chosen']}")
-    shapes = F32_SHAPES if args.f32 else {s: SHAPES[s] for s in TIMED_SHAPES}
+    shapes = F32_SHAPES if args.f32 else {**{s: SHAPES[s] for s in TIMED_SHAPES},
+                                          "wide": WIDE_SHAPE}
     inputs = {s: f32_inputs(*shape) if args.f32 else flash_inputs(shape)
               for s, shape in shapes.items()}
     diff_shape = next(iter(inputs))
@@ -271,8 +285,8 @@ def main(argv: Optional[list] = None) -> int:
                 occ[vname] = ({f"{s}_{k}": _occupancy(k, x[0].shape[-1], torch.float32)
                                for s, x in inputs.items() for k in ("fwd", "dkv", "dq")}
                               if args.f32 else
-                              {k: _occupancy(k, 64, torch.bfloat16)
-                               for k in ("fwd", "dkv", "dq")})
+                              {f"d{d}_{k}": _occupancy(k, d, torch.bfloat16)
+                               for d in (64, WIDE_SHAPE["D"]) for k in ("fwd", "dkv", "dq")})
                 for sname, x in inputs.items():
                     for kname, fn in _calls(*x).items():
                         key = f"{sname}_{kname}_ms"

@@ -4,10 +4,12 @@
 //   fwd_kernel  <- _fwd_kernel      (:246, launched by _flash_fwd :356)
 //   dkv_kernel  <- _bwd_dkv_kernel  (:490, launched by _flash_bwd_pallas :686)
 //   dq_kernel   <- _bwd_dq_kernel   (:575, launched by _flash_bwd_pallas :708)
+// and above D = 256 fwd_wide_kernel, dkv_wide_kernel, dq_wide_kernel.
 //
 // Contract (same as the TPU kernels): q, k, v, o, dO are [BH, T, D] of one
-// type T, bf16 or f16, contiguous, D = 64, 128 or 256; lse and corr are
-// [BH, Tq] f32.  Causal masking uses global
+// type T, bf16 or f16, contiguous, D = 64, 128 or 256, or a multiple of
+// 256 above that (the wide kernels, at the end); lse and corr are [BH, Tq]
+// f32.  Causal masking uses global
 // positions (q_start + row, k_start + col; visible iff kpos <= qpos), so one
 // kernel serves plain attention and every ring-attention hop.  Rows with no
 // visible key give o = 0 and lse = -1e30.  Accumulation is f32; rounding
@@ -833,6 +835,548 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   store_acc<D>(dq + (size_t)bh * tq * D, acc, row_g, tq, scale, scale, t);
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256 (D a multiple of kWideAlign): the wide kernels.
+//
+// Neither a block's Q tile nor a warpgroup's accumulator over the whole
+// head dim fits there: at D = 512 the forward's 128-row Q tile alone is
+// 128 KB, and a 64 x 512 f32 accumulator is 256 registers a thread.  But
+// given P (or dS) every output is linear in one column slice of the head
+// dim: o[:, c] = P.V[:, c], dV[:, c] = P^T.dO[:, c], dK[:, c] = dS^T.Q[:, c],
+// dQ[:, c] = dS.K[:, c].  Only the score products S = Q.K^T and dP = dO.V^T
+// contract over all of D, and they need it only as a sum of chunks.  So a
+// wide block owns one column slice of its rows' outputs (a third grid axis,
+// the fastest, so the slices of one tile run side by side and share their
+// reads in L2) and computes the scores whole, streaming both operands:
+//   * a chunk stage holds 64 columns (one 128-byte box) of the block's own
+//     128 rows (Q; Q then dO for dQ; K then V for dK/dV) and of the streamed
+//     tile's 64 rows (K; K then V; Q then dO), 24 KB; S (and dP) sum over
+//     the D / 64 chunks, each chunk's products into a zeroed partial that
+//     one round-to-nearest add folds into the scores (wide_scores);
+//   * a slice stage holds the streamed tile's rows of the block's columns
+//     (V for the forward, K for dQ, dO and Q with their lse and corr rows
+//     for dK/dV), which the register product reads as it reads a whole
+//     tile at D = C;
+//   * forward and dQ slices are kWideCols = 256 columns (a 64 x 256
+//     accumulator, 128 registers, as D = 256's), dK/dV's kWideDkvCols = 128
+//     (two 64 x 128 accumulators, as D = 128's); the wrapper zero-pads D to
+//     a multiple of kWideAlign.
+// A warpgroup runs its tiles in turn (the scores, the softmax or dS, the
+// register product), the producer filling the rings meanwhile.  Every slice
+// recomputes the scores: at D = 512 the forward does 1.5x the JAX kernel's
+// tensor work, dQ 1.67x and dK/dV 2.5x.  The forward's lse is the same in
+// every slice (each computes the same S in the same order); slice 0 writes
+// it.  First versions, right before fast; PERF.md has their times.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 64;  // columns of a chunk stage: one 128-byte box
+constexpr int kWideAlign = 256, kWideCols = 256, kWideDkvCols = 128;
+constexpr int kChunkStages = 4, kSliceStages = 2;
+constexpr int kChunkA = kBlockRows * kChunk * 2;  // the block's rows of a chunk, bytes
+constexpr int kChunkB = kTile * kChunk * 2;       // the streamed tile's rows
+constexpr int kChunkBytes = kChunkA + kChunkB;
+
+// A wide block's shared memory: the chunk ring, the slice ring (kSlice
+// bytes a stage), kStats bytes of f32 rows a slice stage, the barriers.
+template <int kSlice, int kStats>
+struct WideSmem {
+  static constexpr int kSliceBytes = kSlice;
+  static constexpr int kSlices = kChunkStages * kChunkBytes;  // offset of the slice ring
+  static constexpr int kStatsOff = kSlices + kSliceStages * kSlice;
+  static constexpr int kBarOff = kStatsOff + kSliceStages * kStats;
+  static constexpr size_t kBytes = 1024 + kBarOff + 2 * (kChunkStages + kSliceStages) * 8;
+};
+
+// Every 64-column box of columns [col0, col0 + C) of rows [r, r + rows) of
+// head h: C / 64 boxes of rows x 128 bytes, one after the other from dst.
+template <int C>
+__device__ __forceinline__ void tma_load_cols(unsigned char* dst, const CUtensorMap* map,
+                                              int rows, int r, int col0, int h, uint64_t* bar) {
+#pragma unroll
+  for (int j = 0; j < C / 64; ++j) tma_load(dst + j * rows * 128, map, col0 + 64 * j, r, h, bar);
+}
+
+// Chunk c of the ring: columns [64 ch, 64 ch + 64) of map a's rows [a_row,
+// a_row + 128) and map b's rows [b_row, b_row + 64), once the stage is free.
+__device__ __forceinline__ void load_chunk(unsigned char* chunks, uint64_t* full,
+                                           uint64_t* empty, int c, const CUtensorMap* a,
+                                           int a_row, const CUtensorMap* b, int b_row, int ch,
+                                           int bh) {
+  const int s = c % kChunkStages;
+  mbar_wait(&empty[s], ((c / kChunkStages) & 1) ^ 1);
+  mbar_arrive_expect_tx(&full[s], kChunkBytes);
+  unsigned char* st = chunks + s * kChunkBytes;
+  tma_load(st, a, ch * kChunk, a_row, bh, &full[s]);
+  tma_load(st + kChunkA, b, ch * kChunk, b_row, bh, &full[s]);
+}
+
+__device__ __forceinline__ void release_stage(uint64_t* empty, int i, int stages, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[i % stages]);
+}
+
+// acc (64 x 64, f32) = rows [64 w, 64 w + 64) of the A parts of chunks c ..
+// c + n - 1 times their B parts^T, summed over the chunks; c is advanced.
+// Each chunk's four products go into a zeroed partial sum, which one
+// round-to-nearest add folds into acc, and its stage is released: one
+// chain of products over the whole head dim drifts (the tensor cores'
+// sums are not rounded to nearest), and at D = 512 that put dK 1.04
+// element tolerances farther from float64 than the plain version, where
+// the folded sums stay at 0.69 (PERF.md §6, the wide kernels).
+template <typename T>
+__device__ __forceinline__ void wide_scores(float (&acc)[32], unsigned char* chunks,
+                                            uint64_t* full, uint64_t* empty, int& c, int n,
+                                            int w, int lane) {
+  zero(acc);
+  for (int ch = 0; ch < n; ++ch, ++c) {
+    const int s = c % kChunkStages;
+    mbar_wait(&full[s], (c / kChunkStages) & 1);
+    const uint32_t a = smem_u32(chunks + s * kChunkBytes) + w * 64 * 128;
+    const uint32_t b = smem_u32(chunks + s * kChunkBytes + kChunkA);
+    float part[32];
+    zero(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64<T>(part, desc_k_major(a, kBlockRows, kk), desc_k_major(b, kTile, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    release_stage(empty, c, kChunkStages, lane);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  }
+}
+
+// A warpgroup that sees nothing of a streamed tile still takes and releases
+// its n chunks.
+__device__ __forceinline__ void skip_chunks(uint64_t* full, uint64_t* empty, int& c, int n,
+                                            int lane) {
+  for (int ch = 0; ch < n; ++ch, ++c) {
+    mbar_wait(&full[c % kChunkStages], (c / kChunkStages) & 1);
+    release_stage(empty, c, kChunkStages, lane);
+  }
+}
+
+// The barriers of a wide block, after the rings: chunk full / empty, slice
+// full / empty.  Thread 0 initialises them; `slice_arrivals` producer
+// threads arrive on a slice's full barrier.
+struct WideBars {
+  uint64_t *c_full, *c_empty, *s_full, *s_empty;
+};
+
+__device__ __forceinline__ WideBars wide_bars(unsigned char* base, int slice_arrivals) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(base);
+  WideBars bars = {b, b + kChunkStages, b + 2 * kChunkStages,
+                   b + 2 * kChunkStages + kSliceStages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kChunkStages; ++s) {
+      mbar_init(&bars.c_full[s], 1);
+      mbar_init(&bars.c_empty[s], kConsumers * 4);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < kSliceStages; ++s) {
+      mbar_init(&bars.s_full[s], slice_arrivals);
+      mbar_init(&bars.s_empty[s], kConsumers * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// Forward above D = 256: one block per (column slice, bh, 128-row query
+// tile), the last tiles first.
+template <typename T>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
+                float* __restrict__ lse, int tq, int tk, int d, int q_start, int k_start,
+                float scale, int causal) {
+  constexpr int C = kWideCols;
+  using L = WideSmem<kTile * C * 2, 0>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSlices;
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 1);
+
+  const int col0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // longest first
+  const int n_ch = d / kChunk;
+  const int q_last = q_start + min(q0 + kBlockRows, tq) - 1;
+  int n_kv = (tk + kTile - 1) / kTile;
+  if (causal) n_kv = min(n_kv, q_last >= k_start ? (q_last - k_start) / kTile + 1 : 0);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int it = 0; it < n_kv; ++it) {
+        for (int ch = 0; ch < n_ch; ++ch, ++c)
+          load_chunk(chunks, bars.c_full, bars.c_empty, c, &tm_q, q0, &tm_k, it * kTile, ch,
+                     bh);
+        const int s = it % kSliceStages;
+        mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&bars.s_full[s], L::kSliceBytes);
+        tma_load_cols<C>(slices + s * L::kSliceBytes, &tm_v, kTile, it * kTile, col0, bh,
+                         &bars.s_full[s]);
+      }
+    }
+    return;
+  }
+
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1;  // rows [64 w, 64 w + 64) of the block
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0w = q0 + 64 * w;
+  const bool rows_in = q0w < tq;
+  const int q_last_w = q_start + min(q0w + 64, tq) - 1;
+  const int qpos0 = q_start + q0w + warp * 16 + g;  // row g; row g+8 is +8
+  const float scale_log2 = scale * kLog2e;
+  int n_own = rows_in ? n_kv : 0;
+  if (causal && rows_in)
+    n_own = min(n_kv, q_last_w >= k_start ? (q_last_w - k_start) / kTile + 1 : 0);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[C / 2];
+  zero(acc);
+  int c = 0;
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kSliceStages;
+    if (it < n_own) {
+      float sc[32], alpha[2];
+      uint32_t pa[4][4];
+      wide_scores<T>(sc, chunks, bars.c_full, bars.c_empty, c, n_ch, w, lane);  // S
+      const int k0 = it * kTile;
+      const bool need_mask =
+          (causal && k_start + k0 + kTile - 1 > q_start + q0w) || k0 + kTile > tk;
+      online_softmax(sc, alpha, m, l, scale_log2, need_mask, k0, tk, causal, k_start, qpos0,
+                     t);
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(pa[kk], sc, kk);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+      wgmma_fence();
+      issue_pv<T, C>(acc, pa, smem_u32(slices + s * L::kSliceBytes));  // O += P . V slice
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {  // past these rows' diagonal
+      skip_chunks(bars.c_full, bars.c_empty, c, n_ch, lane);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!rows_in) return;
+  const int row_g = q0w + warp * 16 + g;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  store_acc<C>(o + (size_t)bh * tq * d + col0, acc, row_g, tq, inv[0], inv[1], t, d);
+  if (t == 0 && blockIdx.x == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_g + 8 * r < tq)
+        lse[(size_t)bh * tq + row_g + 8 * r] =
+            m[r] > kMaskThresh ? m[r] * scale + log2f(fmaxf(l[r], 1e-30f)) * kLn2
+                               : kNegInf;
+  }
+}
+
+// dK/dV above D = 256: one block per (column slice, bh, 128-key tile), the
+// first tiles first; each consumer warpgroup owns 64 keys.  The producer
+// warp's lanes store each query tile's lse (log2 units) and corr beside its
+// dO and Q slices.
+template <typename T>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                const float* __restrict__ corr, T* __restrict__ dk, T* __restrict__ dv,
+                int tq, int tk, int d, int q_start, int k_start, float scale, int causal) {
+  constexpr int C = kWideDkvCols;
+  constexpr int kHalf = kTile * C * 2;  // the dO or the Q slice of a stage
+  using L = WideSmem<2 * kHalf, 2 * kTile * 4>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSlices;  // stage s: dO, then Q kHalf after it
+  float* stats = reinterpret_cast<float*>(chunks + L::kStatsOff);  // [s][2][64]
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 32);
+
+  const int col0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.z * kBlockRows;  // longest first
+  const int n_ch = d / kChunk;
+  const int it0 = first_query_tile(k0, tq, q_start, k_start, causal);
+  const int n_it = (tq + kTile - 1) / kTile - it0;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: warp 0
+    regs_release<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float* lse_bh = lse + (size_t)bh * tq;
+      const float* corr_bh = corr + (size_t)bh * tq;
+      int c = 0;
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (it0 + it) * kTile;
+        if (lane == 0) {
+          for (int ch = 0; ch < n_ch; ++ch, ++c)  // S^T = K . Q^T
+            load_chunk(chunks, bars.c_full, bars.c_empty, c, &tm_k, k0, &tm_q, q0, ch, bh);
+          for (int ch = 0; ch < n_ch; ++ch, ++c)  // dP^T = V . dO^T
+            load_chunk(chunks, bars.c_full, bars.c_empty, c, &tm_v, k0, &tm_do, q0, ch, bh);
+        }
+        const int s = it % kSliceStages;
+        mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+        float* st = stats + s * 2 * kTile;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = lane + 32 * h, row = q0 + r;
+          st[r] = row < tq ? lse_bh[row] * kLog2e : 0.f;
+          st[kTile + r] = row < tq ? corr_bh[row] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&bars.s_full[s], L::kSliceBytes);
+          unsigned char* sl = slices + s * L::kSliceBytes;
+          tma_load_cols<C>(sl, &tm_do, kTile, q0, col0, bh, &bars.s_full[s]);
+          tma_load_cols<C>(sl + kHalf, &tm_q, kTile, q0, col0, bh, &bars.s_full[s]);
+        } else {
+          mbar_arrive(&bars.s_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1;  // keys [64 w, 64 w + 64) of the block
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0w = k0 + 64 * w;
+  const bool keys_in = k0w < tk;
+  const int kpos0 = k_start + k0w + warp * 16 + g;  // key row g; g+8 is +8
+  const float scale_log2 = scale * kLog2e;
+
+  float dk_acc[C / 2], dv_acc[C / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  int c = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kSliceStages, q0 = (it0 + it) * kTile;
+    // query tiles wholly above the diagonal reach no key of this warpgroup
+    if (keys_in && !(causal && q_start + min(q0 + kTile, tq) - 1 < k_start + k0w)) {
+      float st[32], dpt[32];  // S^T and dP^T: this warpgroup's 64 keys x 64 queries
+      wide_scores<T>(st, chunks, bars.c_full, bars.c_empty, c, n_ch, w, lane);
+      wide_scores<T>(dpt, chunks, bars.c_full, bars.c_empty, c, n_ch, w, lane);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+      const float* st_lse = stats + s * 2 * kTile;
+      const bool need_mask =
+          (causal && k_start + k0w + 63 > q_start + q0) || q0 + kTile > tq;
+      uint32_t pa[4][4], da[4][4];
+      dkv_grads<T>(st, dpt, pa, da, st_lse, st_lse + kTile, scale_log2, need_mask, q0, tq,
+                   causal, q_start, kpos0, t);
+      const uint32_t g_addr = smem_u32(slices + s * L::kSliceBytes), q_addr = g_addr + kHalf;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dV += P^T . dO slice
+        wgmma_rs<C, T>(dv_acc, pa[kk], desc_mn_major(g_addr, kTile, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dK += dS^T . Q slice
+        wgmma_rs<C, T>(dk_acc, da[kk], desc_mn_major(q_addr, kTile, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    } else {
+      skip_chunks(bars.c_full, bars.c_empty, c, 2 * n_ch, lane);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!keys_in) return;
+  const int row_g = k0w + warp * 16 + g;
+  const size_t off = (size_t)bh * tk * d + col0;
+  store_acc<C>(dk + off, dk_acc, row_g, tk, scale, scale, t, d);
+  store_acc<C>(dv + off, dv_acc, row_g, tk, 1.f, 1.f, t, d);
+}
+
+// dQ above D = 256: one block per (column slice, bh, 128-row query tile),
+// the last tiles first; S and dP from the chunk ring, dQ += dS . the K slice.
+template <typename T>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+               const float* __restrict__ corr, T* __restrict__ dq, int tq, int tk, int d,
+               int q_start, int k_start, float scale, int causal) {
+  constexpr int C = kWideCols;
+  using L = WideSmem<kTile * C * 2, 0>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSlices;
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 1);
+
+  const int col0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;  // longest first
+  const int n_ch = d / kChunk;
+  const int q_last = q_start + min(q0 + kBlockRows, tq) - 1;
+  int n_kv = (tk + kTile - 1) / kTile;
+  if (causal) n_kv = min(n_kv, q_last >= k_start ? (q_last - k_start) / kTile + 1 : 0);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int it = 0; it < n_kv; ++it) {
+        for (int ch = 0; ch < n_ch; ++ch, ++c)  // S = Q . K^T
+          load_chunk(chunks, bars.c_full, bars.c_empty, c, &tm_q, q0, &tm_k, it * kTile, ch,
+                     bh);
+        for (int ch = 0; ch < n_ch; ++ch, ++c)  // dP = dO . V^T
+          load_chunk(chunks, bars.c_full, bars.c_empty, c, &tm_do, q0, &tm_v, it * kTile, ch,
+                     bh);
+        const int s = it % kSliceStages;
+        mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&bars.s_full[s], L::kSliceBytes);
+        tma_load_cols<C>(slices + s * L::kSliceBytes, &tm_k, kTile, it * kTile, col0, bh,
+                         &bars.s_full[s]);
+      }
+    }
+    return;
+  }
+
+  regs_claim<kConsumerRegs>();
+  const int w = wg - 1;  // rows [64 w, 64 w + 64) of the block
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0w = q0 + 64 * w;
+  const bool rows_in = q0w < tq;
+  const int q_last_w = q_start + min(q0w + 64, tq) - 1;
+  const int row_g = q0w + warp * 16 + g;  // row g; row g+8 is +8
+  const int qpos0 = q_start + row_g;
+  const float scale_log2 = scale * kLog2e;
+  int n_own = rows_in ? n_kv : 0;
+  if (causal && rows_in)
+    n_own = min(n_kv, q_last_w >= k_start ? (q_last_w - k_start) / kTile + 1 : 0);
+  float lse_r[2], corr_r[2];  // lse (log2 units) and corr of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_g + 8 * r;
+    lse_r[r] = row < tq ? lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+    corr_r[r] = row < tq ? corr[(size_t)bh * tq + row] : 0.f;
+  }
+
+  float acc[C / 2];
+  zero(acc);
+  int c = 0;
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kSliceStages;
+    if (it < n_own) {
+      float sc[32], dp[32];
+      uint32_t da[4][4];
+      wide_scores<T>(sc, chunks, bars.c_full, bars.c_empty, c, n_ch, w, lane);  // S
+      wide_scores<T>(dp, chunks, bars.c_full, bars.c_empty, c, n_ch, w, lane);  // dP
+      // dS (unscaled) in place of S, as dq_kernel's grad_scores
+      const int k0 = it * kTile;
+      const bool need_mask =
+          (causal && k_start + k0 + kTile - 1 > q_start + q0w) || k0 + kTile > tk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse_r[r]));
+        if (need_mask) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool ok = col < tk && (!causal || k_start + col <= qpos0 + 8 * r);
+          p = ok ? p : 0.f;
+        }
+        sc[i] = p * (dp[i] + corr_r[r]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(da[kk], sc, kk);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+      wgmma_fence();
+      issue_pv<T, C>(acc, da, smem_u32(slices + s * L::kSliceBytes));  // dQ += dS . K slice
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {  // past these rows' diagonal
+      skip_chunks(bars.c_full, bars.c_empty, c, 2 * n_ch, lane);
+      mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!rows_in) return;
+  store_acc<C>(dq + (size_t)bh * tq * d + col0, acc, row_g, tq, scale, scale, t, d);
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                    int tq, int tk, int d, int q_start, int k_start, float scale, int causal,
+                    cudaStream_t stream) {
+  constexpr size_t smem = WideSmem<kTile * kWideCols * 2, 0>::kBytes;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, d, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, d, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, d, kTile);
+  if (!err) err = prepare(fwd_wide_kernel<T>, smem);
+  if (err) return err;
+  dim3 grid(d / kWideCols, bh, (tq + kBlockRows - 1) / kBlockRows);
+  fwd_wide_kernel<T><<<grid, kSm90Threads, smem, stream>>>(
+      tm_q, tm_k, tm_v, (T*)o, (float*)lse, tq, tk, d, q_start, k_start, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* corr, void* dk, void* dv, int bh, int tq,
+                    int tk, int d, int q_start, int k_start, float scale, int causal,
+                    cudaStream_t stream) {
+  constexpr size_t smem = WideSmem<2 * kTile * kWideDkvCols * 2, 2 * kTile * 4>::kBytes;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, d, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_do, dout, bh, tq, d, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, d, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, d, kBlockRows);
+  if (!err) err = prepare(dkv_wide_kernel<T>, smem);
+  if (err) return err;
+  dim3 grid(d / kWideDkvCols, bh, (tk + kBlockRows - 1) / kBlockRows);
+  dkv_wide_kernel<T><<<grid, kSm90Threads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (T*)dk, (T*)dv, tq, tk,
+      d, q_start, k_start, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* corr, void* dq, int bh, int tq, int tk, int d,
+                   int q_start, int k_start, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = WideSmem<kTile * kWideCols * 2, 0>::kBytes;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map<T>(&tm_q, q, bh, tq, d, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_do, dout, bh, tq, d, kBlockRows);
+  if (!err) err = encode_rows_map<T>(&tm_k, k, bh, tk, d, kTile);
+  if (!err) err = encode_rows_map<T>(&tm_v, v, bh, tk, d, kTile);
+  if (!err) err = prepare(dq_wide_kernel<T>, smem);
+  if (err) return err;
+  dim3 grid(d / kWideCols, bh, (tq + kBlockRows - 1) / kBlockRows);
+  dq_wide_kernel<T><<<grid, kSm90Threads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (T*)dq, tq, tk, d,
+      q_start, k_start, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// A head dim the wide kernels take: above 256, a multiple of kWideAlign.
+inline bool wide_head_dim(int d) { return d > 256 && d % kWideAlign == 0; }
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int bh, int tq, int tk, int q_start, int k_start, float scale,
@@ -910,6 +1454,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse, i
     return launch_fwd<T, 128>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
   if (d == 256)
     return launch_fwd<T, 256>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal, s);
+  if (wide_head_dim(d))
+    return launch_fwd_wide<T>(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
+                              s);
   return kBadHeadDim;
 }
 
@@ -927,6 +1474,9 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
   if (d == 256)
     return launch_dkv<T, 256>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
                               scale, causal, s);
+  if (wide_head_dim(d))
+    return launch_dkv_wide<T>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start,
+                              k_start, scale, causal, s);
   return kBadHeadDim;
 }
 
@@ -944,6 +1494,9 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout, cons
   if (d == 256)
     return launch_dq<T, 256>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
                              scale, causal, s);
+  if (wide_head_dim(d))
+    return launch_dq_wide<T>(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start,
+                             scale, causal, s);
   return kBadHeadDim;
 }
 
@@ -952,6 +1505,13 @@ int occupancy_entry(int which, int d, int* out) {
   if (d == 64) return flash_occupancy<T, 64>(which, out);
   if (d == 128) return flash_occupancy<T, 128>(which, out);
   if (d == 256) return flash_occupancy<T, 256>(which, out);
+  if (wide_head_dim(d)) {
+    constexpr size_t rows_smem = WideSmem<kTile * kWideCols * 2, 0>::kBytes;
+    constexpr size_t dkv_smem = WideSmem<2 * kTile * kWideDkvCols * 2, 2 * kTile * 4>::kBytes;
+    if (which == 0) return occupancy(fwd_wide_kernel<T>, rows_smem, kSm90Threads, out);
+    if (which == 1) return occupancy(dkv_wide_kernel<T>, dkv_smem, kSm90Threads, out);
+    if (which == 2) return occupancy(dq_wide_kernel<T>, rows_smem, kSm90Threads, out);
+  }
   return kBadHeadDim;
 }
 

@@ -6,10 +6,13 @@
 //   fwd_f32_kernel  <- _fwd_kernel      (:246, pallas_call :383)
 //   dkv_f32_kernel  <- _bwd_dkv_kernel  (:490, pallas_call :686)
 //   dq_f32_kernel   <- _bwd_dq_kernel   (:575, pallas_call :708)
+// and above D = 256 fwd_wide_f32_kernel, dkv_wide_f32_kernel,
+// dq_wide_f32_kernel.
 // The bf16 instances are the Hopper kernels of flash_attention.cu.
 //
 // Contract (that of the bf16 kernels): q, k, v, o, dO are [BH, T, D] f32,
-// contiguous, D = 64, 128 or 256 (the wrapper zero-pads a smaller head dim);
+// contiguous, D = 64, 128 or 256 (the wrapper zero-pads a smaller head dim)
+// or a multiple of 128 above 256 (the wide kernels, at the end);
 // lse and corr are [BH, Tq] f32.  Causal masking uses global positions
 // (q_start + row, k_start + col; visible iff kpos <= qpos).  Rows with no
 // visible key give o = 0 and lse = -1e30.  corr = g_lse - rowsum(o * dO)
@@ -293,7 +296,8 @@ __device__ __forceinline__ void mma_mnmajor(float (&acc)[D / 2], const float (&p
 // float4.
 template <int D, int C = D>
 __device__ __forceinline__ void store_perm(float* out, const float (&acc)[C / 2], int row_g,
-                                           int rows, float mul0, float mul1, int t) {
+                                           int rows, float mul0, float mul1, int t,
+                                           int ld = D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_g + 8 * r;
@@ -301,7 +305,7 @@ __device__ __forceinline__ void store_perm(float* out, const float (&acc)[C / 2]
     const float mul = r ? mul1 : mul0;
 #pragma unroll
     for (int box = 0; box < C / 32; ++box) {
-      float* dst = out + (size_t)row * D + 32 * box + 8 * t;
+      float* dst = out + (size_t)row * ld + 32 * box + 8 * t;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = 2 * r + h;
@@ -812,6 +816,433 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_perm<D>(dq + (size_t)bh * tq * D, acc, q0w + g, tq, scale, scale, t);
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256 (D a multiple of kWideCols): the wide kernels.
+//
+// At D = 512 a 16-row slab of Q alone is 32 KB and a warp's 16 x 512
+// accumulator 256 registers a thread.  As in flash_attention.cu's wide
+// kernels, a block owns one column slice of its rows' outputs (kWideCols =
+// 128 columns: a warp's accumulators are those of the D = 128 blocks; a
+// third grid axis, the fastest, so the slices of one tile run side by side
+// and share their reads in L2) and computes the score products S = Q.K^T
+// and dP = dO.V^T whole, streaming both operands one 32-column box at a
+// time through a chunk ring: the box of the block's own 128 rows (Q; Q then
+// dO for dQ; K then V for dK/dV) and of the streamed tile's rows (64 keys;
+// 32 keys for dQ; 32 query rows for dK/dV), each box summed into a zeroed
+// partial sum and folded into the scores by one round-to-nearest add, as
+// mma_kmajor folds a box at every D.  A slice ring holds the streamed
+// tile's rows of the block's columns (V, K, or dO and Q with their lse and
+// corr rows), which mma_mnmajor reads as a whole tile at D = 128.  Warp 0
+// loads both rings inline, kChunkStages - 1 chunks ahead and a tile's slice
+// when it starts the tile (the scores of the tile take longer than the
+// load).  8 warps, 16 rows each: query rows for the forward and dQ, keys
+// for dK/dV.  Every slice recomputes the scores (at D = 512 the forward
+// does 2.5x the JAX kernel's tensor work, dQ 3x, dK/dV 2.5x); every slice's
+// lse is the same, and slice 0 writes it.  p and dS are rounded where the
+// D <= 256 kernels round them (`rounding`).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideCols = 128;  // output columns a wide block owns
+constexpr int kWideRows = 128;  // rows a wide block owns: 8 warps of 16
+constexpr int kWideWarps = kWideRows / 16, kWideThreads = 32 * kWideWarps;
+constexpr int kWideFwdKeys = 64, kWideDqKeys = 32, kWideDkvQRows = 32;  // streamed rows
+constexpr int kChunkStages = 4, kSliceStages = 2;
+
+// A wide block's shared memory: the chunk ring (32 columns of the block's
+// rows and of N streamed rows), the slice ring (kTensors tensors of N rows
+// x kWideCols), kStats bytes of f32 rows a slice stage, the barriers.
+template <int N, int kTensors, int kStats>
+struct WideF32 {
+  static constexpr int kA = kWideRows * 128;  // the block's rows of a chunk, bytes
+  static constexpr int kChunk = kA + N * 128;
+  static constexpr int kHalf = N * kWideCols * 4;  // one tensor of a slice stage
+  static constexpr int kSlice = kTensors * kHalf;
+  static constexpr int kSliceOff = kChunkStages * kChunk;
+  static constexpr int kStatsOff = kSliceOff + kSliceStages * kSlice;
+  static constexpr int kBarOff = kStatsOff + kSliceStages * kStats;
+  static constexpr size_t kBytes = 1024 + kBarOff + 2 * (kChunkStages + kSliceStages) * 8;
+};
+
+// Every 32-column box of columns [col0, col0 + C) of rows [r, r + rows) of
+// head h: C / 32 boxes of rows x 128 bytes, one after the other from dst.
+template <int C>
+__device__ __forceinline__ void tma_cols_f32(unsigned char* dst, const CUtensorMap* map,
+                                             int rows, int r, int col0, int h, uint64_t* bar) {
+#pragma unroll
+  for (int box = 0; box < C / 32; ++box)
+    tma_load(dst + box * rows * 128, map, col0 + 32 * box, r, h, bar);
+}
+
+struct WideBars {
+  uint64_t *c_full, *c_empty, *s_full, *s_empty;
+};
+
+// The barriers after the rings: chunk full / empty, slice full / empty;
+// `slice_arrivals` lanes of warp 0 arrive on a slice's full barrier.
+__device__ __forceinline__ WideBars wide_bars(unsigned char* base, int slice_arrivals) {
+  uint64_t* b = reinterpret_cast<uint64_t*>(base);
+  WideBars bars = {b, b + kChunkStages, b + 2 * kChunkStages,
+                   b + 2 * kChunkStages + kSliceStages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kChunkStages; ++s) {
+      mbar_init(&bars.c_full[s], 1);
+      mbar_init(&bars.c_empty[s], kWideWarps);  // one arrival a warp
+    }
+    for (int s = 0; s < kSliceStages; ++s) {
+      mbar_init(&bars.s_full[s], slice_arrivals);
+      mbar_init(&bars.s_empty[s], kWideWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return bars;
+}
+
+// Chunk c: box `box` of map a's rows [a_row, a_row + 128) and map b's N rows
+// from b_row, once every warp has released the chunk the stage held.
+template <int N>
+__device__ __forceinline__ void load_chunk(unsigned char* chunks, const WideBars& bars, int c,
+                                           const CUtensorMap* a, int a_row,
+                                           const CUtensorMap* b, int b_row, int box, int bh) {
+  using L = WideF32<N, 1, 0>;
+  const int s = c % kChunkStages;
+  mbar_wait(&bars.c_empty[s], ((c / kChunkStages) & 1) ^ 1);
+  mbar_arrive_expect_tx(&bars.c_full[s], L::kChunk);
+  unsigned char* st = chunks + s * L::kChunk;
+  tma_load(st, a, 32 * box, a_row, bh, &bars.c_full[s]);
+  tma_load(st + L::kA, b, 32 * box, b_row, bh, &bars.c_full[s]);
+}
+
+__device__ __forceinline__ void release_stage(uint64_t* empty, int i, int stages, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[i % stages]);
+}
+
+// acc (16 x N) += rows [r0, r0 + 16) of the A parts of chunks c .. c + n -
+// 1 times their B parts^T (skipped when !own; each chunk is still taken
+// and released); c is advanced.  Thread 0 first loads chunk c +
+// kChunkStages - 1 (`load(i)`, while i < total).
+template <int N, typename Load>
+__device__ __forceinline__ void wide_scores(float (&acc)[N / 2], unsigned char* chunks,
+                                            const WideBars& bars, int& c, int n, int total,
+                                            bool own, int r0, int g, int t, int lane,
+                                            Load&& load) {
+  using L = WideF32<N, 1, 0>;
+  for (int i = 0; i < n; ++i, ++c) {
+    if (threadIdx.x == 0 && c + kChunkStages - 1 < total) load(c + kChunkStages - 1);
+    const int s = c % kChunkStages;
+    mbar_wait(&bars.c_full[s], (c / kChunkStages) & 1);
+    if (own) {
+      const unsigned char* st = chunks + s * L::kChunk;
+      mma_kmajor<32, N>(acc, st, kWideRows, r0, st + L::kA, N, g, t);
+    }
+    release_stage(bars.c_empty, c, kChunkStages, lane);
+  }
+}
+
+// Forward above D = 256: one block per (column slice, bh, 128 query rows),
+// the last tiles first.
+__global__ void __launch_bounds__(kWideThreads, 1)
+fwd_wide_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                    float* __restrict__ lse, int tq, int tk, int d, int q_start, int k_start,
+                    float scale, int causal, int rounding) {
+  constexpr int N = kWideFwdKeys, C = kWideCols;
+  using L = WideF32<N, 1, 0>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSliceOff;
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 1);
+
+  const int col0 = blockIdx.x * C, bh = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWideRows;  // longest first
+  const int n_box = d / 32;
+  const int n_kv = key_tiles(q0 + kWideRows, tq, tk, q_start, k_start, N, causal);
+  const int total = n_kv * n_box;
+  auto load = [&](int c) {  // S = Q.K^T, box by box
+    load_chunk<N>(chunks, bars, c, &tm_q, q0, &tm_k, c / n_box * N, c % n_box, bh);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < min(kChunkStages - 1, total); ++c) load(c);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int q0w = q0 + r0;
+  const bool rows_in = q0w < tq;
+  const int qpos0 = q_start + q0w + g;  // row g; row g + 8 is + 8
+  const float scale_log2 = scale * kLog2e;
+  const int p_round = rounding & 3;  // p's dtype before P.V (mixed inputs)
+  const int n_own = rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, N, causal) : 0;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[C / 2];
+  zero(acc);
+  int c = 0;
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kSliceStages;
+    if (threadIdx.x == 0) {  // the tile's V slice
+      mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&bars.s_full[s], L::kSlice);
+      tma_cols_f32<C>(slices + s * L::kSlice, &tm_v, N, it * N, col0, bh, &bars.s_full[s]);
+    }
+    const bool own = it < n_own;
+    float sc[N / 2];
+    zero(sc);
+    wide_scores<N>(sc, chunks, bars, c, n_box, total, own, r0, g, t, lane, load);
+    mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    if (own) {
+      const int k0 = it * N;
+      float alpha[2];
+      const bool need_mask =
+          (causal && k_start + k0 + N - 1 > q_start + q0w) || k0 + N > tk;
+      online_softmax(sc, alpha, m, l, scale_log2, need_mask, k0, tk, causal, k_start, qpos0,
+                     t);
+      if (p_round) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) sc[i] = round_to(sc[i], p_round);
+      }
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      mma_mnmajor<C, N>(acc, sc, slices + s * L::kSlice, N, g, t);  // O += P.V slice
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!rows_in) return;
+  const int row_g = q0w + g;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  store_perm<C>(o + (size_t)bh * tq * d + col0, acc, row_g, tq, inv[0], inv[1], t, d);
+  if (t == 0 && blockIdx.x == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_g + 8 * r < tq)
+        lse[(size_t)bh * tq + row_g + 8 * r] =
+            m[r] > kMaskThresh ? m[r] * scale + log2f(fmaxf(l[r], 1e-30f)) * kLn2
+                               : kNegInf;
+  }
+}
+
+// dK/dV above D = 256: one block per (column slice, bh, 128 keys), the first
+// tiles first; warp 0 stores each query tile's lse (log2 units) and corr
+// beside its dO and Q slices.
+__global__ void __launch_bounds__(kWideThreads, 1)
+dkv_wide_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ corr, float* __restrict__ dk,
+                    float* __restrict__ dv, int tq, int tk, int d, int q_start, int k_start,
+                    float scale, int causal, int rounding) {
+  constexpr int QT = kWideDkvQRows, C = kWideCols;
+  using L = WideF32<QT, 2, 2 * QT * 4>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSliceOff;  // stage s: dO, then Q kHalf after it
+  float* stats = reinterpret_cast<float*>(chunks + L::kStatsOff);  // [s][2][QT]
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 32);
+
+  const int col0 = blockIdx.x * C, bh = blockIdx.y;
+  const int k0 = blockIdx.z * kWideRows;  // longest first
+  const int n_box = d / 32;
+  const int n_qt = (tq + QT - 1) / QT;
+  int it0 = 0;  // first query tile that reaches a key of this block
+  if (causal) {
+    const int first = k_start + k0 - q_start;
+    it0 = first <= 0 ? 0 : (first > tq - 1 ? n_qt : first / QT);
+  }
+  const int n_it = n_qt - it0;
+  const int total = n_it * 2 * n_box;
+  auto load = [&](int c) {  // S^T = K.Q^T, then dP^T = V.dO^T, box by box
+    const int it = c / (2 * n_box), j = c % (2 * n_box), q0 = (it0 + it) * QT;
+    if (j < n_box)
+      load_chunk<QT>(chunks, bars, c, &tm_k, k0, &tm_q, q0, j, bh);
+    else
+      load_chunk<QT>(chunks, bars, c, &tm_v, k0, &tm_do, q0, j - n_box, bh);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < min(kChunkStages - 1, total); ++c) load(c);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's keys of the block
+  const int k0w = k0 + r0;
+  const bool keys_in = k0w < tk;
+  const int kpos0 = k_start + k0w + g;  // key g; key g + 8 is + 8
+  const float scale_log2 = scale * kLog2e;
+  const int p_round = rounding & 3, ds_round = rounding >> 2;
+  const float* lse_bh = lse + (size_t)bh * tq;
+  const float* corr_bh = corr + (size_t)bh * tq;
+
+  float dk_acc[C / 2], dv_acc[C / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  int c = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kSliceStages, q0 = (it0 + it) * QT;
+    float* st_lse = stats + s * 2 * QT;
+    if (warp == 0) {  // the tile's lse and corr rows, dO and Q slices
+      mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+      for (int r = lane; r < QT; r += 32) {
+        const int row = q0 + r;
+        st_lse[r] = row < tq ? lse_bh[row] * kLog2e : 0.f;
+        st_lse[QT + r] = row < tq ? corr_bh[row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&bars.s_full[s], L::kSlice);
+        unsigned char* sl = slices + s * L::kSlice;
+        tma_cols_f32<C>(sl, &tm_do, QT, q0, col0, bh, &bars.s_full[s]);
+        tma_cols_f32<C>(sl + L::kHalf, &tm_q, QT, q0, col0, bh, &bars.s_full[s]);
+      } else {
+        mbar_arrive(&bars.s_full[s]);
+      }
+    }
+    // query tiles wholly above the diagonal reach no key of this warp
+    const bool own = keys_in && !(causal && q_start + min(q0 + QT, tq) - 1 < k_start + k0w);
+    float st[QT / 2], dpt[QT / 2];  // S^T and dP^T: 16 keys x QT queries
+    zero(st);
+    zero(dpt);
+    wide_scores<QT>(st, chunks, bars, c, n_box, total, own, r0, g, t, lane, load);
+    wide_scores<QT>(dpt, chunks, bars, c, n_box, total, own, r0, g, t, lane, load);
+    mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    if (own) {
+      const float* st_corr = st_lse + QT;
+      const bool need_mask =
+          (causal && k_start + k0w + 15 > q_start + q0) || q0 + QT > tq;
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        const int qc = 8 * j + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(st_lse + qc);
+        const float2 cv = *reinterpret_cast<const float2*>(st_corr + qc);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int r = cc >> 1, h = cc & 1, idx = 4 * j + cc;
+          float p = ex2(fmaf(st[idx], scale_log2, -(h ? lv.y : lv.x)));
+          if (need_mask) {
+            const int qrow = q0 + qc + h;
+            const bool ok = qrow < tq && (!causal || kpos0 + 8 * r <= q_start + qrow);
+            p = ok ? p : 0.f;
+          }
+          st[idx] = p;
+          dpt[idx] = p * (dpt[idx] + (h ? cv.y : cv.x));  // dS^T, unscaled
+        }
+      }
+      if (rounding) {
+#pragma unroll
+        for (int i = 0; i < QT / 2; ++i) {
+          st[i] = round_to(st[i], p_round);
+          dpt[i] = round_to(dpt[i], ds_round);
+        }
+      }
+      const unsigned char* sg = slices + s * L::kSlice;
+      mma_mnmajor<C, QT>(dv_acc, st, sg, QT, g, t);             // dV += P^T.dO slice
+      mma_mnmajor<C, QT>(dk_acc, dpt, sg + L::kHalf, QT, g, t);  // dK += dS^T.Q slice
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!keys_in) return;
+  const int row_g = k0w + g;
+  const size_t off = (size_t)bh * tk * d + col0;
+  store_perm<C>(dk + off, dk_acc, row_g, tk, scale, scale, t, d);
+  store_perm<C>(dv + off, dv_acc, row_g, tk, 1.f, 1.f, t, d);
+}
+
+// dQ above D = 256: one block per (column slice, bh, 128 query rows), the
+// last tiles first; S and dP from the chunk ring, dQ += dS . the K slice.
+__global__ void __launch_bounds__(kWideThreads, 1)
+dq_wide_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                   const float* __restrict__ corr, float* __restrict__ dq, int tq, int tk,
+                   int d, int q_start, int k_start, float scale, int causal, int rounding) {
+  constexpr int N = kWideDqKeys, C = kWideCols;
+  using L = WideF32<N, 1, 0>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* chunks = align_1024(smem_raw);
+  unsigned char* slices = chunks + L::kSliceOff;
+  const WideBars bars = wide_bars(chunks + L::kBarOff, 1);
+
+  const int col0 = blockIdx.x * C, bh = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWideRows;  // longest first
+  const int n_box = d / 32;
+  const int n_kv = key_tiles(q0 + kWideRows, tq, tk, q_start, k_start, N, causal);
+  const int total = n_kv * 2 * n_box;
+  auto load = [&](int c) {  // S = Q.K^T, then dP = dO.V^T, box by box
+    const int it = c / (2 * n_box), j = c % (2 * n_box);
+    if (j < n_box)
+      load_chunk<N>(chunks, bars, c, &tm_q, q0, &tm_k, it * N, j, bh);
+    else
+      load_chunk<N>(chunks, bars, c, &tm_do, q0, &tm_v, it * N, j - n_box, bh);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < min(kChunkStages - 1, total); ++c) load(c);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int q0w = q0 + r0;
+  const bool rows_in = q0w < tq;
+  const int qpos0 = q_start + q0w + g;  // row g; row g + 8 is + 8
+  const float scale_log2 = scale * kLog2e;
+  const int n_own = rows_in ? key_tiles(q0w + 16, tq, tk, q_start, k_start, N, causal) : 0;
+  float lse2[2], crr[2];  // rows g and g + 8: lse in log2 units, corr
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0w + g + 8 * r;
+    lse2[r] = row < tq ? lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+    crr[r] = row < tq ? corr[(size_t)bh * tq + row] : 0.f;
+  }
+
+  float acc[C / 2];
+  zero(acc);
+  int c = 0;
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kSliceStages;
+    if (threadIdx.x == 0) {  // the tile's K slice
+      mbar_wait(&bars.s_empty[s], ((it / kSliceStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&bars.s_full[s], L::kSlice);
+      tma_cols_f32<C>(slices + s * L::kSlice, &tm_k, N, it * N, col0, bh, &bars.s_full[s]);
+    }
+    const bool own = it < n_own;
+    float sc[N / 2], dp[N / 2];
+    zero(sc);
+    zero(dp);
+    wide_scores<N>(sc, chunks, bars, c, n_box, total, own, r0, g, t, lane, load);
+    wide_scores<N>(dp, chunks, bars, c, n_box, total, own, r0, g, t, lane, load);
+    mbar_wait(&bars.s_full[s], (it / kSliceStages) & 1);
+    if (own) {
+      const int k0 = it * N;
+      const bool need_mask =
+          (causal && k_start + k0 + N - 1 > q_start + q0w) || k0 + N > tk;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (need_mask) {  // select, never multiply: a masked p may be inf
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool ok = col < tk && (!causal || k_start + col <= qpos0 + 8 * r);
+          p = ok ? p : 0.f;
+        }
+        sc[i] = p * (dp[i] + crr[r]);  // dS, unscaled
+      }
+      if (rounding) {  // dS's dtype before dS.K (mixed inputs)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) sc[i] = round_to(sc[i], rounding >> 2);
+      }
+      mma_mnmajor<C, N>(acc, sc, slices + s * L::kSlice, N, g, t);  // dQ += dS.K slice
+    }
+    release_stage(bars.s_empty, it, kSliceStages, lane);
+  }
+
+  if (!rows_in) return;
+  store_perm<C>(dq + (size_t)bh * tq * d + col0, acc, q0w + g, tq, scale, scale, t, d);
+}
+
 // ---- host -------------------------------------------------------------------
 
 // A 3-D map of a contiguous [bh, t, d] f32 tensor read in boxes of `rows`
@@ -890,6 +1321,65 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+using WideFwdF32 = WideF32<kWideFwdKeys, 1, 0>;
+using WideDkvF32 = WideF32<kWideDkvQRows, 2, 2 * kWideDkvQRows * 4>;
+using WideDqF32 = WideF32<kWideDqKeys, 1, 0>;
+
+// A head dim the wide kernels take: above 256, a multiple of kWideCols.
+inline bool wide_head_dim(int d) { return d > 256 && d % kWideCols == 0; }
+
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                    int tq, int tk, int d, int q_start, int k_start, float scale, int causal,
+                    int rounding, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_rows_map_f32(&tm_q, q, bh, tq, d, kWideRows);
+  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, d, kWideFwdKeys);
+  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, d, kWideFwdKeys);
+  if (!err) err = prepare(fwd_wide_f32_kernel, WideFwdF32::kBytes);
+  if (err) return err;
+  dim3 grid(d / kWideCols, bh, (tq + kWideRows - 1) / kWideRows);
+  fwd_wide_f32_kernel<<<grid, kWideThreads, WideFwdF32::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, (float*)o, (float*)lse, tq, tk, d, q_start, k_start, scale, causal,
+      rounding);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* corr, void* dk, void* dv, int bh, int tq,
+                    int tk, int d, int q_start, int k_start, float scale, int causal,
+                    int rounding, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map_f32(&tm_q, q, bh, tq, d, kWideDkvQRows);
+  if (!err) err = encode_rows_map_f32(&tm_do, dout, bh, tq, d, kWideDkvQRows);
+  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, d, kWideRows);
+  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, d, kWideRows);
+  if (!err) err = prepare(dkv_wide_f32_kernel, WideDkvF32::kBytes);
+  if (err) return err;
+  dim3 grid(d / kWideCols, bh, (tk + kWideRows - 1) / kWideRows);
+  dkv_wide_f32_kernel<<<grid, kWideThreads, WideDkvF32::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (float*)dk, (float*)dv,
+      tq, tk, d, q_start, k_start, scale, causal, rounding);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* corr, void* dq, int bh, int tq, int tk, int d,
+                   int q_start, int k_start, float scale, int causal, int rounding,
+                   cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows_map_f32(&tm_q, q, bh, tq, d, kWideRows);
+  if (!err) err = encode_rows_map_f32(&tm_do, dout, bh, tq, d, kWideRows);
+  if (!err) err = encode_rows_map_f32(&tm_k, k, bh, tk, d, kWideDqKeys);
+  if (!err) err = encode_rows_map_f32(&tm_v, v, bh, tk, d, kWideDqKeys);
+  if (!err) err = prepare(dq_wide_f32_kernel, WideDqF32::kBytes);
+  if (err) return err;
+  dim3 grid(d / kWideCols, bh, (tq + kWideRows - 1) / kWideRows);
+  dq_wide_f32_kernel<<<grid, kWideThreads, WideDqF32::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)corr, (float*)dq, tq, tk, d,
+      q_start, k_start, scale, causal, rounding);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kBadHeadDim = -1;
 
 template <int D>
@@ -922,6 +1412,9 @@ int bf_flash_f32_fwd(const void* q, const void* k, const void* v, void* o, void*
   if (d == 256)
     return launch_fwd<256>(q, k, v, o, lse, bh, tq, tk, q_start, k_start, scale, causal,
                            rounding, s);
+  if (wide_head_dim(d))
+    return launch_fwd_wide(q, k, v, o, lse, bh, tq, tk, d, q_start, k_start, scale, causal,
+                           rounding, s);
   return kBadHeadDim;
 }
 
@@ -938,6 +1431,9 @@ int bf_flash_f32_bwd_dkv(const void* q, const void* k, const void* v, const void
                            scale, causal, rounding, s);
   if (d == 256)
     return launch_dkv<256>(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, q_start, k_start,
+                           scale, causal, rounding, s);
+  if (wide_head_dim(d))
+    return launch_dkv_wide(q, k, v, dout, lse, corr, dk, dv, bh, tq, tk, d, q_start, k_start,
                            scale, causal, rounding, s);
   return kBadHeadDim;
 }
@@ -956,6 +1452,9 @@ int bf_flash_f32_bwd_dq(const void* q, const void* k, const void* v, const void*
   if (d == 256)
     return launch_dq<256>(q, k, v, dout, lse, corr, dq, bh, tq, tk, q_start, k_start,
                           scale, causal, rounding, s);
+  if (wide_head_dim(d))
+    return launch_dq_wide(q, k, v, dout, lse, corr, dq, bh, tq, tk, d, q_start, k_start, scale,
+                          causal, rounding, s);
   return kBadHeadDim;
 }
 
@@ -964,6 +1463,13 @@ int bf_flash_f32_occupancy(int which, int d, int* out) {
   if (d == 64) return f32_occupancy<64>(which, out);
   if (d == 128) return f32_occupancy<128>(which, out);
   if (d == 256) return f32_occupancy<256>(which, out);
+  if (wide_head_dim(d)) {
+    if (which == 0)
+      return occupancy(fwd_wide_f32_kernel, WideFwdF32::kBytes, kWideThreads, out);
+    if (which == 1)
+      return occupancy(dkv_wide_f32_kernel, WideDkvF32::kBytes, kWideThreads, out);
+    if (which == 2) return occupancy(dq_wide_f32_kernel, WideDqF32::kBytes, kWideThreads, out);
+  }
   return kBadHeadDim;
 }
 

@@ -39,9 +39,16 @@ kernel takes, always promote to f32: the narrower ones are cast up
 (exact), the f32 kernels round p and dS to the dtypes the JAX kernel
 rounds them to (:func:`rounding`), and the outputs come back in the JAX
 kernel's dtypes (o and dQ q's, dK k's, dV v's).  The kernels of every
-dtype are built for D = 64, 128 and 256; a head dim up to 256 runs
-zero-padded to the next of those (:func:`pad_head_dim`), and a larger one
-raises.  On a CPU tensor it runs
+dtype are built for D = 64, 128 and 256, and a head dim up to 256 runs
+zero-padded to the next of those; above 256 the wide kernels of every
+dtype run, zero-padded to a multiple of 256 (:func:`pad_head_dim`).  A wide
+block owns one column slice of its rows' outputs (256 columns of o and dQ,
+128 of dK and dV in bf16 and f16; 128 of each in f32), a third grid axis,
+and computes the score products over the whole head dim by streaming both
+operands through a ring one chunk of columns at a time: given P (or dS)
+every output is linear in one column slice, and only S = Q.K^T and
+dP = dO.V^T contract over D.  Every slice recomputes the scores.  No head
+dim of a supported dtype raises.  On a CPU tensor it runs
 its plain version, the blockwise recompute of the JAX package's XLA routes
 (``_blockwise_fwd_xla`` :411 and ``_blockwise_bwd`` :729, split into dK/dV
 and dQ) with the kernels' rounding points.  There is no fallback from one to the other.
@@ -107,6 +114,10 @@ _NEG_INF = -1e30  # finite mask sentinel (real scores can never reach it)
 _MASK_THRESH = -0.5e30
 _BLOCK = 64  # the kernels' tile; the plain versions step over keys likewise
 _HEAD_DIMS = (64, 128, 256)  # the head dims the kernels are built for, in every dtype
+_WIDE = 256  # above 256 the wide kernels take any multiple of this, in every dtype
+# the wide kernels' output columns a block owns (bf16 and f16: csrc/flash_attention.cu
+# kWideCols / kWideDkvCols), which launch_order mirrors
+_WIDE_COLS = {"fwd": 256, "dkv": 128, "dq": 256}
 _BLOCK_ROWS = 128  # rows a block owns: two consumer warpgroups of 64
 _KERNEL_IMPLS = ("auto", "pallas", "cuda")  # the kernel route's names
 _MAX_UNROLL = 64  # the blockwise route's triangular branch unrolls at most this many blocks
@@ -426,9 +437,6 @@ def _on_cuda(*tensors) -> bool:
 def _check(name, q, k, v, extra=(), f32=()):
     bh, tq, d = q.shape
     tk = k.shape[1]
-    if d > _HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {d} above {_HEAD_DIMS[-1]}, the largest "
-                         f"the kernels take")
     if tq < 1 or tk < 1 or bh < 1 or d < 1:
         raise ValueError(f"{name}: empty input {tuple(q.shape)} / {tuple(k.shape)}")
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
@@ -469,15 +477,15 @@ def _raise_on(name, err):
 
 def pad_head_dim(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` with every ``[BH, T, D]`` argument zero-padded
-    in D to the next head dim the kernels are built for (64, 128 or 256,
-    in every dtype), and every
+    in D to the next head dim the kernels take (64, 128 or 256, or above
+    256 the next multiple of 256, in every dtype), and every
     ``[BH, T, D]`` result cut back to D.  Exact: the scale is an argument
     (the caller's, from the unpadded D), zero columns add nothing to
     q.k or dO.v, lse and corr do not depend on D, and the padded columns
-    of o, dQ, dK and dV are zero.  A D that is built already, or above the
-    largest, passes through unchanged."""
+    of o, dQ, dK and dV are zero.  A D the kernels take passes through
+    unchanged."""
     d = args[0].shape[-1]
-    kd = next((n for n in _HEAD_DIMS if n >= d), d)
+    kd = next((n for n in _HEAD_DIMS if n >= d), -(-d // _WIDE) * _WIDE)
     if kd == d:
         return fn(*args, **kwargs)
 
@@ -590,7 +598,8 @@ _KERNEL_IDS = {"fwd": 0, "dkv": 1, "dq": 2}
 
 def occupancy(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """How the card holds one bf16, f16 or f32 (``dtype``) flash kernel
-    (``"fwd"``, ``"dkv"`` or ``"dq"``) at head dim ``d``, as its launcher
+    (``"fwd"``, ``"dkv"`` or ``"dq"``) at head dim ``d`` (64, 128, 256, or
+    above 256 a multiple of 256: the wide kernels), as its launcher
     launches it:
     ``blocks_per_sm`` (resident blocks per SM), ``smem`` (dynamic shared
     memory bytes per block), ``regs`` (registers per thread, as compiled;
@@ -606,7 +615,8 @@ def occupancy(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> Dict[
 
 
 def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int = 0,
-                 causal: bool = True, bh: int = 1) -> Tuple[List[Tuple[int, List]], int]:
+                 causal: bool = True, bh: int = 1,
+                 d: int = 64) -> Tuple[List[Tuple[int, List]], int]:
     """The blocks of one launch of ``kernel`` over ``bh`` heads, in the
     order the card is handed them (x fastest): ``(blocks, rows)``.  Each
     block is ``(head, tiles)``, ``tiles`` the ``(query tile, key tile)``
@@ -620,7 +630,10 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
     skip the tiles they see nothing of, so every tile with a visible pair
     is computed once.  This is the launch at head dims 64 and 128; at 256
     a dK/dV block owns 64 keys (its two warpgroups split the head dim
-    instead)."""
+    instead).  Above 256 (``d``, padded as :func:`pad_head_dim` pads it)
+    the wide kernels' grid puts the column slice fastest: each block above
+    comes D / C times in a row, once for each slice of C output columns
+    (``_WIDE_COLS``), and every slice walks the same tiles."""
     n_q, n_k = -(-tq // _BLOCK), -(-tk // _BLOCK)
 
     def visible(qi, kj):
@@ -656,6 +669,9 @@ def launch_order(kernel: str, tq: int, tk: int, q_start: int = 0, k_start: int =
             for h in range(bh):
                 blocks.append((h, [(qi, kj) for qi in range(it0, n_q)
                                    for kj in slabs if visible(qi, kj)]))
+    if d > _HEAD_DIMS[-1]:
+        slices = -(-d // _WIDE) * _WIDE // _WIDE_COLS[kernel]
+        blocks = [block for block in blocks for _ in range(slices)]
     return blocks, rows
 
 

@@ -300,8 +300,9 @@ def device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
     """Device time by kernel name from a torch.profiler trace of one step,
     and the device's idle share on the trace's own timeline.
 
-    ``flash_ms_launches`` sums each flash kernel over its head dims and its
-    bf16, f16 and f32 instances (a step runs one dtype; it says which).
+    ``flash_ms_launches`` sums each flash kernel over its head dims (the
+    wide kernels above 256 too) and its bf16, f16 and f32 instances (a step
+    runs one dtype; it says which).
     ``gemm_ms_launches`` sums the GEMM kernels by name: ``ffma``
     those on the f32 FFMA route (``sgemm``, ``ffma``), ``other`` the rest
     (the tensor-core GEMMs)."""
@@ -320,7 +321,7 @@ def device_profile(prof, wall_ms: float, top: int = 15) -> Dict:
     flash = {k: [0.0, 0] for k in ("fwd", "dkv", "dq")}
     gemm = {k: [0.0, 0] for k in ("ffma", "other")}
     for name, ms, n in rows:
-        found = re.search(r"\b(fwd|dkv|dq)(?:_f32)?_kernel<", name)
+        found = re.search(r"\b(fwd|dkv|dq)(?:_wide)?(?:_f32)?_kernel[<(]", name)
         if found:
             flash[found.group(1)][0] += ms
             flash[found.group(1)][1] += n

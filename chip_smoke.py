@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
                csrc/flash_attention_f32.cu and csrc/attention_components.cu
                (with the headers sm90_tile.cuh and mma_tile.cuh), side by
                side (seconds, ptxas); every instance of the three flash
-               kernels (bf16 and f16, D = 64, 128 and 256), built for Hopper, must hold
+               kernels (bf16 and f16, D = 64, 128 and 256, and the wide
+               instances above 256), built for Hopper, must hold
                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
                in its SASS where cuobjdump is found, the qk and pv
                microkernels HGMMA (with their body) and no HMMA at both
@@ -19,7 +20,8 @@ Phases, each printing one JSON line:
                (attention_roofline.CHAIN_PIPES); the f32 forward, dK/dV
                and dQ (csrc/flash_attention_f32.cu, 3xTF32) must hold TF32
                tensor-core products (HMMA.1688.F32.TF32 or HGMMA ... TF32)
-               and fewer FFMA than those at D = 64, 128 and 256.
+               and fewer FFMA than those at D = 64, 128 and 256 and in the
+               wide instances.
 2. kernels  -- each CUDA kernel (flash fwd, dK/dV and dQ on wgmma and TMA)
                against its plain
                PyTorch version on the same bf16 inputs, over nine cases
@@ -71,6 +73,16 @@ Phases, each printing one JSON line:
                forward and forward + backward, and the occupancy; four
                more cases at D = 256 in both dtypes (a ring hop,
                non-causal, a ragged length, D = 192 zero-padded).
+4b'. kernel_times_wide -- the wide flash kernels above D = 256: bf16, f16
+               and f32 each held to its plain version by its dtype's rule
+               on five cases (a ring hop, non-causal, a ragged length,
+               D = 320 zero-padded to 512, D = 1024) and a mix (bf16 q with
+               f32 k / v, the f32 kernels, bf16 rule); then the cells
+               [32, 2048, 512] in each dtype and [8, 2048, 1024] in bf16,
+               causal: eager and CUDA-graph ms beside the bound by
+               operations, the plain version, scaled_dot_product_attention
+               forward and forward + backward (its backend, or null and
+               why), and the occupancy.
 4c. hidden_route -- the reference example's own model through
                examples/llama_pretrain --hidden 1024 --vocab 32000
                --layers 12 --seq 2048 --batch 2 --size 4 --attention flash
@@ -86,6 +98,12 @@ Phases, each printing one JSON line:
                (--dtype f32): the f32 kernels' <256> instances, each
                launched layers x ranks x steps, no bf16 or f16 launch;
                finite losses, step ms, tok/s and peak memory.
+4e. hidden_route_wide -- the reference example's model at --hidden 2048
+               (D = 512, dff 6144) and its own depth, 2 layers, --vocab
+               32000 --seq 2048 --batch 2 --size 4, STEPS steps in bf16 and
+               then in f32: D = 512, finite losses, each wide kernel of the
+               run's dtype launched 2 x 4 x STEPS times, no kernel of
+               another dtype; step ms, tok/s and peak memory.
 5. components -- each roofline microkernel instance (qk and pv at D 64 and
                128; the softmax chain, the backward chain with and without
                cast_p) at reps 1, 2 and 3 against its plain version, with
@@ -352,10 +370,11 @@ Phases, each printing one JSON line:
                step's count a image.
 Phases 8-12, 14, 18-27 and 30 run no kernel of the repo and add no row to the
 kernel table; the bf16 rows' launches sum the main, hidden_route,
-llama_1b, seq_parallel, zero_8b, bench_twins (its Llama runs),
-analysis_interactive and distributed paths, the f16 rows' the
+hidden_route_wide, llama_1b, seq_parallel, zero_8b, bench_twins (its Llama
+runs), analysis_interactive and distributed paths, the f16 rows' the
 hidden_route's f16 step, the f32 rows' the f32_path, hidden_route_f32,
-seq_parallel and tensor_parallel paths.
+hidden_route_wide, seq_parallel and tensor_parallel paths.  The flash rows
+carry the wide cells' fields (*_d512; *_d1024 for bf16).
 
 Then each phase's wall seconds, the kernel table, the nvidia-smi line, and
 the result line.  Any failed check raises, so the script exits non-zero
@@ -542,14 +561,20 @@ FLASH_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
 # every flash instance the library must hold: (kernel, element type, D)
 FLASH_INSTANCES = [(k, ty, d) for k in ("fwd_kernel", "dkv_kernel", "dq_kernel")
                    for ty in ("bf16", "f16") for d in (64, 128, 256)]
+# ... and the wide kernels above D = 256, one instance a type: (kernel, type)
+FLASH_WIDE = [(k, ty) for k in ("fwd_wide_kernel", "dkv_wide_kernel", "dq_wide_kernel")
+              for ty in ("bf16", "f16")]
 
 
 def flash_name(fname):
-    """A flash instance's name ("fwd_kernel<bf16, 256>") from its mangled
-    name, or None."""
+    """A flash instance's name ("fwd_kernel<bf16, 256>", or above D = 256
+    "fwd_wide_kernel<bf16>") from its mangled name, or None."""
     m = re.search(r"(fwd|dkv|dq)_kernelI(13__nv_bfloat16|6__half)Li(\d+)E", fname)
     if m:
         return f"{m.group(1)}_kernel<{FLASH_TYPES[m.group(2)]}, {m.group(3)}>"
+    m = re.search(r"(fwd|dkv|dq)_wide_kernelI(13__nv_bfloat16|6__half)E", fname)
+    if m:
+        return f"{m.group(1)}_wide_kernel<{FLASH_TYPES[m.group(2)]}>"
     return None
 
 
@@ -587,8 +612,9 @@ def sass_tf32(_build):
     counts = {}
     for fname, body in sorted(funcs.items()):
         m = re.search(r"((?:fwd|dkv|dq)_f32_kernel)ILi(\d+)E", fname)
-        if m:
-            counts[f"{m.group(1)}<{m.group(2)}>"] = {
+        wide = re.search(r"((?:fwd|dkv|dq)_wide_f32_kernel)E", fname)
+        if m or wide:
+            counts[f"{m.group(1)}<{m.group(2)}>" if m else wide.group(1)] = {
                 "tf32": len(re.findall(TF32_MMA, body)),
                 "ffma": len(re.findall(r"\bFFMA\b", body))}
     return counts
@@ -616,8 +642,8 @@ def phase_device(torch, _build, fa, ac, roof):
           "build_s": build_s, "ptxas": ptxas, "sass": sass or "cuobjdump not found",
           "sass_f32_tf32_mma": tf32 or "cuobjdump not found", "chain_pipes": pipes})
     for kname in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel") if tf32 else ():
-        for d in (64, 128, 256):
-            n = tf32.get(f"{kname}<{d}>")
+        for d in (64, 128, 256, "wide"):
+            n = tf32.get(f"{kname}<{d}>" if d != "wide" else kname.replace("_f32", "_wide_f32"))
             check(n is not None and 0 < n["tf32"] and n["ffma"] < n["tf32"],
                   f"device: {kname}<{d}> must hold TF32 tensor-core products and fewer "
                   f"FFMA ({n})")
@@ -628,6 +654,11 @@ def phase_device(torch, _build, fa, ac, roof):
               f"device: {name} issues {pipes.get(name)} an element, the bound prices {counts}")
     for kname, ty, d in FLASH_INSTANCES if sass else ():
         name = f"{kname}<{ty}, {d}>"
+        ops = sass.get(name, {})
+        check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
+              f"device: {name} holds no wgmma, no TMA load, or mma.sync ({ops})")
+    for kname, ty in FLASH_WIDE if sass else ():
+        name = f"{kname}<{ty}>"
         ops = sass.get(name, {})
         check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0 and ops.get("HMMA", 0) == 0,
               f"device: {name} holds no wgmma, no TMA load, or mma.sync ({ops})")
@@ -1313,14 +1344,17 @@ def _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start, k_start, causal, ge
     """Every output of the three kernels against its plain version on one
     seeded input of ``dtype``, or of q, k, v of a tuple of three dtypes (dO
     in q's): {kernel: (max abs error, element ratio, norm error)}, the
-    failures under the narrowest dtype's rule (bf16's, else f16's), the
-    inputs, lse and corr for timing, and {output: (kernel's, plain
-    version's)}.  Each output must come back in its input's dtype (o and dQ
-    q's, dK k's, dV v's)."""
+    failures under the narrowest dtype's rule (bf16's, else f16's; the f32
+    rule, TOLERANCE_F32, for all-f32 inputs), the inputs, lse and corr for
+    timing, and {output: (kernel's, plain version's)}.  Each output must
+    come back in its input's dtype (o and dQ q's, dK k's, dV v's)."""
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * 3
     rel, rms, norm = ((F16_ELEM_REL, F16_ELEM_RMS, F16_NORM_REL)
                       if torch.float16 in dtypes and torch.bfloat16 not in dtypes
                       else (ELEM_REL, ELEM_RMS, NORM_REL))
+    lse_abs = LSE_ABS
+    if set(dtypes) == {torch.float32}:  # the f32 rule, which has no norm gate
+        rel, rms, norm, lse_abs = F32_ELEM, F32_ELEM, math.inf, F32_LSE_ABS
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
@@ -1352,10 +1386,10 @@ def _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start, k_start, causal, ge
                                 f"tolerance, norm error {err[2]:.3g}")
             worst = tuple(max(a, b) for a, b in zip(worst, err))
         errs[kname] = worst
-    lse_err, lse_ratio = compare_lse(lse, lse_ref)
-    if lse_ratio > 1.0:
-        failures.append(f"lse: max error {lse_err} > {LSE_ABS}")
-    errs["lse"] = (lse_err, lse_ratio)
+    lse_err, _ = compare_lse(lse, lse_ref)
+    if lse_err > lse_abs:
+        failures.append(f"lse: max error {lse_err} > {lse_abs}")
+    errs["lse"] = (lse_err, lse_err / lse_abs)
     return errs, failures, (q, k, v, g, lse_ref, corr), outs
 
 
@@ -1548,6 +1582,213 @@ def phase_hidden_route_f32(torch, fa):
     check(not any(seen["bf16"].values()) and not any(seen["f16"].values()),
           f"hidden_route_f32: other kernels launched {seen}")
     return counts
+
+
+# phase kernel_times_wide: head dims above 256, the wide kernels.  The
+# timed cells, (dtype, bh, t, d), causal: hidden_route_wide's attention
+# (4 ranks x 2 x 4 heads of D = 512) in each dtype, and the reference
+# example's --hidden 4096 (D = 1024) in bf16
+WIDE_SHAPE = (RANKS * BATCH * 4, 2048, 512)
+WIDE_CELLS = {
+    "bf16_d512": ("bfloat16", *WIDE_SHAPE),
+    "f16_d512": ("float16", *WIDE_SHAPE),
+    "f32_d512": ("float32", *WIDE_SHAPE),
+    "bf16_d1024": ("bfloat16", 8, 2048, 1024),
+}
+# ... and the cases held to their plain versions only, in bf16, f16 and f32:
+# (bh, tq, tk, d, q_start, k_start, causal)
+WIDE_CASES = {
+    "ring_hop": (4, 384, 1000, 512, 616, 0, True),  # offsets, tq != tk
+    "non_causal": (4, 1024, 1024, 512, 0, 0, False),
+    "ragged": (4, 1000, 1000, 512, 0, 0, True),
+    "d320": (4, 1024, 1024, 320, 0, 0, True),  # zero-padded to 512 by the wrappers
+    "d1024": (4, 1024, 1024, 1024, 0, 0, True),
+}
+WIDE_MIXED = ("bfloat16", "float32", "float32")  # q (and dO), k, v: the f32 kernels
+# Cells whose element gate is the float64 truth's (TOLERANCE_TRUTH), as
+# TRUTH_CASES: at T = 2048 the bf16 kernels and their plain versions both
+# round p and dS to bf16 inside sums over 2048 rows, and the element rule
+# is a tail statistic there (the <256> kernels part from their plain
+# versions by 3.02x it at dK on one seed; the wide ones with one chained
+# score accumulator did by 1.45x at dQ here; PERF.md §6); the norm
+# gate stays the bf16 rule's, and each row prints the element ratio beside.
+WIDE_TRUTH_CELLS = ("bf16_d512", "bf16_d1024")
+
+
+def _sdpa_times(torch, q4, k4, v4, g4):
+    """(forward ms, forward + backward ms, backend) of causal
+    scaled_dot_product_attention on [B, H, T, D] inputs; None, None and the
+    reason where it refuses them."""
+    F = torch.nn.functional
+    try:
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                      iters=5, warmup=1)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(g4)
+
+        return fwd, cuda_ms(fwd_bwd, iters=5, warmup=1), sdpa_backend(torch, q4, k4, v4)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+        return None, None, f"refused: {str(e).splitlines()[0][:200]}"
+
+
+def phase_kernels_wide(torch, fa):
+    """The flash kernels above head dim 256 (WIDE_CASES, the WIDE_MIXED mix,
+    WIDE_CELLS): each held to its plain version in bf16, f16 and f32 under
+    its dtype's rule (the bf16 rule for the mix), then each cell timed:
+    eager and CUDA-graph ms beside the bound by operations (the JAX
+    kernel's work, not the slices' recompute: bf16 and f16 at 989 TFLOP/s,
+    f32 at three TF32 products a product, the FFMA bound beside), the plain
+    version, scaled_dot_product_attention forward and forward + backward
+    (its backend named; null with the reason where it refuses), and
+    occupancy.  Returns {cell: {kernel: row of the kernel table}}.
+    Launches made here are not a path's."""
+    from bluefog_tpu_torch.benchmarks.flash_bf16_rounding import truth
+    from bluefog_tpu_torch.profiling import graph_seconds
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    saved = _flash_counts(fa)
+    failures = []
+    for name, (bh, tq, tk, d, q_start, k_start, causal) in WIDE_CASES.items():
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            errs, bad, _, _ = _held_to_plain(torch, fa, dtype, bh, tq, tk, d, q_start,
+                                             k_start, causal, gen)
+            failures += [f"{name} {str(dtype)[6:]} {b}" for b in bad]
+            emit({"phase": "kernel_case_wide", "case": name, "dtype": str(dtype)[6:],
+                  "shape": [bh, tq, tk, d], "q_start": q_start, "k_start": k_start,
+                  "causal": causal, **{f"{k}_max_abs_err_tol_ratio_norm": list(v)
+                                       for k, v in errs.items()}})
+    before = _flash_counts(fa)
+    errs, bad, _, _ = _held_to_plain(torch, fa, tuple(getattr(torch, n) for n in WIDE_MIXED),
+                                     8, 1024, 1024, 512, 0, 0, True, gen)
+    seen = {ty: {k: n - before[ty][k] for k, n in c.items()}
+            for ty, c in _flash_counts(fa).items()}
+    check(seen["f32"] == {"fwd": 1, "dkv": 1, "dq": 1}
+          and not any(seen["bf16"].values()) and not any(seen["f16"].values()),
+          f"kernels_wide mixed: launches {seen}, expected the f32 kernels once each")
+    failures += [f"mixed {b}" for b in bad]
+    emit({"phase": "kernel_case_wide", "case": "mixed", "dtypes": list(WIDE_MIXED),
+          "shape": [8, 1024, 1024, 512], "causal": True, "kernel_dtype": "float32",
+          "tolerance": TOLERANCE,
+          **{f"{k}_max_abs_err_tol_ratio_norm": list(v) for k, v in errs.items()}})
+    table = {}
+    for cell, (dname, bh, t, d) in WIDE_CELLS.items():
+        dtype = getattr(torch, dname)
+        f32 = dtype == torch.float32
+        errs, bad, (q, k, v, g, lse, corr), outs = _held_to_plain(torch, fa, dtype, bh, t, t,
+                                                                  d, 0, 0, True, gen)
+        vs_truth = {}
+        if dtype != torch.float32:  # max |kernel - float64|, max |plain - float64|
+            exact = truth(q, k, v, g, lse, corr, 1.0 / math.sqrt(d))
+            vs_truth = {what: [(x.double() - exact[what]).abs().max().item() for x in pair]
+                        for what, pair in outs.items()}
+            if cell in WIDE_TRUTH_CELLS:
+                bad = [b for b in bad if b.startswith("lse")]
+                for what, (got, ref) in outs.items():
+                    excess = excess_over_reference(got, ref, exact[what])
+                    norm_rel = compare(got, ref)[2]
+                    vs_truth[what].append(excess)
+                    if excess > 1.0 or norm_rel > NORM_REL:
+                        bad.append(f"{what}: {excess:.3g} x the element tolerance beyond the "
+                                   f"plain version's distance from float64, norm error "
+                                   f"{norm_rel:.3g}")
+                # the gate must fail an output whose last 64-row tile was lost
+                lost = outs["dq"][0].clone()
+                lost[:, -64:] = 0
+                check(excess_over_reference(lost, outs["dq"][1], exact["dq"]) > 1.0,
+                      f"{cell}: the truth gate passes dQ with its last tile zeroed")
+            del exact
+        del outs
+        failures += [f"{cell} {b}" for b in bad]
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, 0, 0, **kw),
+                 "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, corr, 0, 0, **kw),
+                 "dq": lambda: fa.flash_dq(q, k, v, g, lse, corr, 0, 0, **kw)}
+        plain = {"fwd": lambda: fa.flash_fwd_plain(q, k, v, 0, 0, **kw),
+                 "dkv": lambda: fa.flash_dkv_plain(q, k, v, g, lse, corr, 0, 0, **kw),
+                 "dq": lambda: fa.flash_dq_plain(q, k, v, g, lse, corr, 0, 0, **kw)}
+        ms = {kname: cuda_ms(fn, iters=5, warmup=1) for kname, fn in calls.items()}
+        graph_ms = {kname: graph_seconds(fn, calls=5) * 1e3 for kname, fn in calls.items()}
+        plain_ms = {kname: cuda_ms(fn, iters=2, warmup=1) for kname, fn in plain.items()}
+        sdpa_fwd, sdpa_fb, backend = _sdpa_times(
+            torch, *(x.view(1, bh, t, d) for x in (q, k, v, g)))
+        row = {"phase": "kernel_times_wide", "cell": cell, "dtype": dname,
+               "shape": [bh, t, d], "causal": True,
+               "tolerance": (TOLERANCE_F32 if f32 else
+                             TOLERANCE_F16 if dtype == torch.float16 else TOLERANCE),
+               "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fb, "sdpa_backend": backend,
+               "fwd_dkv_dq_ms": ms["fwd"] + ms["dkv"] + ms["dq"],
+               "lse_max_abs_err": errs["lse"][0],
+               "element_gate": TOLERANCE_TRUTH if cell in WIDE_TRUTH_CELLS else "the rule's",
+               "kernel_and_plain_max_abs_err_vs_float64": vs_truth}
+        table[cell] = {}
+        for kname, (flops, nbytes) in (f32_work if f32 else bf16_work)(bh, t, d).items():
+            t_ops = (TF32_SPLIT * flops / PEAK_TF32_FLOPS if f32
+                     else flops / PEAK_BF16_FLOPS) * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            err, ratio, norm_rel = errs[kname]
+            entry = {"max_abs_err": max(err, errs["lse"][0]) if kname == "fwd" else err,
+                     "ms": ms[kname], "graph_ms": graph_ms[kname], "plain_ms": plain_ms[kname],
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": sdpa_fwd if kname == "fwd" else None,
+                     "occupancy": fa.occupancy(kname, d, dtype)}
+            if f32:
+                entry["bound_ffma_ms"] = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+            table[cell][kname] = entry
+            row[kname] = {**entry, "tol_ratio": ratio, "norm_rel_err": norm_rel,
+                          "tflops": flops / (ms[kname] * 1e-3) / 1e12}
+        emit(row)
+        del q, k, v, g, lse, corr
+    _restore_counts(fa, saved)
+    emit({"phase": "kernel_times_wide_done", "phase_seconds": time.perf_counter() - t0})
+    check(not failures, "kernel_times_wide: " + "; ".join(failures))
+    return table
+
+
+# the reference example's model at --hidden 2048 (D = 512) and its own
+# depth (examples/jax_llama_pretrain.py's default, 2 layers)
+HIDDEN_ROUTE_WIDE = ["--hidden", "2048", "--vocab", "32000", "--layers", "2", "--seq", "2048",
+                     "--batch", str(BATCH), "--size", str(RANKS), "--attention", "flash",
+                     "--steps", str(STEPS), "--device", "cuda"]
+
+
+def phase_hidden_route_wide(torch, fa):
+    """The reference example's model at --hidden 2048 (D = 512, the wide
+    kernels) through examples/llama_pretrain, in bf16 and then in the
+    reference's own dtype, f32, each with every count set to 0 just
+    before.  Checks finite losses, D = 512, each kernel of the run's dtype
+    launched layers x ranks x steps times and no kernel of another dtype.
+    Returns {"bf16": counts, "f32": counts}."""
+    from bluefog_tpu_torch.examples import llama_pretrain
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    for dname in ("bf16", "f32"):
+        _free_device_cache(torch)
+        fa.reset_launches()
+        out = llama_pretrain.run(llama_pretrain._parser().parse_args(
+            HIDDEN_ROUTE_WIDE + ["--dtype", dname]))
+        seen = _flash_counts(fa)
+        result[dname] = counts = seen[dname]
+        losses = [x for step in out["losses"] for x in step]
+        emit({"phase": "hidden_route_wide", **out, "launches": counts,
+              "phase_seconds": time.perf_counter() - t0})
+        check(out["dtype"] == dname and out["head_dim"] == 512 and out["heads"] == 4,
+              f"hidden_route_wide: {out['dtype']}, D = {out['head_dim']}")
+        check(all(math.isfinite(x) for x in losses),
+              f"hidden_route_wide {dname}: non-finite loss {losses}")
+        want = out["layers"] * RANKS * STEPS
+        for kname, n in counts.items():
+            check(n == want,
+                  f"hidden_route_wide {dname}: {kname} launched {n} times, expected {want}")
+        check(not any(n for ty, c in seen.items() if ty != dname for n in c.values()),
+              f"hidden_route_wide {dname}: other kernels launched {seen}")
+    return result
 
 
 COMPONENT_BLOCKS = 3
@@ -4462,12 +4703,14 @@ def main():
         host = start_host_jobs(bench[0][0])
         table = timed("kernels", phase_kernels, torch, fa)
         table_d256 = timed("kernels_d256", phase_kernels_d256, torch, fa)
+        table_wide = timed("kernels_wide", phase_kernels_wide, torch, fa)
         table_f32 = timed("kernels_f32", phase_kernels_f32, torch, fa)
         counts_f32 = timed("f32", phase_f32, torch, fa)
         timed("model", phase_model, torch, fa)
         counts = timed("main", phase_main, torch, fa)
         counts_hr, counts_f16 = timed("hidden_route", phase_hidden_route, torch, fa)
         counts_hr_f32 = timed("hidden_route_f32", phase_hidden_route_f32, torch, fa)
+        counts_hrw = timed("hidden_route_wide", phase_hidden_route_wide, torch, fa)
         comp_err = timed("components", phase_components, torch, ac, roof)
         row, comp_counts = timed("roofline", phase_roofline, torch, fa, ac, roof)
         comp_table = timed("component_times", component_times, torch, ac, roof, row)
@@ -4516,33 +4759,40 @@ def main():
         {"name": f"flash_{k}", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k],
-         "launches": counts[k] + counts_hr[k] + counts_1b[k] + counts_sp[k] + counts_z8[k]
-         + counts_bt[k] + counts_ai[k] + counts_dist[k],
+         "launches": counts[k] + counts_hr[k] + counts_hrw["bf16"][k] + counts_1b[k]
+         + counts_sp[k] + counts_z8[k] + counts_bt[k] + counts_ai[k] + counts_dist[k],
          "launches_by_phase": {"main": counts[k], "hidden_route": counts_hr[k],
+                               "hidden_route_wide": counts_hrw["bf16"][k],
                                "llama_1b": counts_1b[k],
                                "seq_parallel": counts_sp[k], "zero_8b": counts_z8[k],
                                "bench_twins": counts_bt[k],
                                "analysis_interactive": counts_ai[k],
                                "distributed": counts_dist[k]},
          **table[k],
-         **{f"{key}_d256": v for key, v in table_d256["bf16_d256"][k].items()}}
+         **{f"{key}_d256": v for key, v in table_d256["bf16_d256"][k].items()},
+         **{f"{key}_d{d}": v for d in (512, 1024)
+            for key, v in table_wide[f"bf16_d{d}"][k].items()}}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f16", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention.cu",
          "replaces": replaces[k], "launches": counts_f16[k],
-         "launches_by_phase": {"hidden_route": counts_f16[k]},
+         "launches_by_phase": {"hidden_route": counts_f16[k], "hidden_route_wide": 0},
          **table_d256["f16_d64"][k],
          **{f"{key}_d{d}": v for d in (128, 256)
-            for key, v in table_d256[f"f16_d{d}"][k].items()}}
+            for key, v in table_d256[f"f16_d{d}"][k].items()},
+         **{f"{key}_d512": v for key, v in table_wide["f16_d512"][k].items()}}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"flash_{k}_f32", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/flash_attention_f32.cu",
          "replaces": replaces[k],
-         "launches": counts_f32[k] + counts_hr_f32[k] + counts_sp_f32[k] + counts_tp_f32[k],
+         "launches": counts_f32[k] + counts_hr_f32[k] + counts_hrw["f32"][k] + counts_sp_f32[k]
+         + counts_tp_f32[k],
          "launches_by_phase": {"f32_path": counts_f32[k], "hidden_route_f32": counts_hr_f32[k],
+                               "hidden_route_wide": counts_hrw["f32"][k],
                                "seq_parallel": counts_sp_f32[k],
                                "tensor_parallel": counts_tp_f32[k]},
-         **table_f32[k]}
+         **table_f32[k],
+         **{f"{key}_d512": v for key, v in table_wide["f32_d512"][k].items()}}
         for k in ("fwd", "dkv", "dq")] + [
         {"name": f"{k}_component", "route": "cuda",
          "source": "bluefog_tpu_torch/csrc/attention_components.cu",

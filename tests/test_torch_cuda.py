@@ -135,8 +135,9 @@ def test_redesigned_kernels_run_on_wgmma_and_tma(cuda_device):
     funcs = _build.sass("flash_attention")
     if funcs is None:
         pytest.skip("cuobjdump not found")
-    # bf16 and f16 at D = 64, 128 and 256
-    for kernel, n in (("fwd_kernel", 6), ("dkv_kernel", 6), ("dq_kernel", 6)):
+    # bf16 and f16 at D = 64, 128 and 256, and the wide kernels above 256
+    for kernel, n in (("fwd_kernel", 6), ("dkv_kernel", 6), ("dq_kernel", 6),
+                      ("fwd_wide_kernel", 2), ("dkv_wide_kernel", 2), ("dq_wide_kernel", 2)):
         bodies = [body for name, body in funcs.items() if f"{len(kernel)}{kernel}I" in name]
         assert len(bodies) == n, sorted(funcs)
         for body in bodies:
@@ -163,10 +164,26 @@ def test_autograd_on_the_card_matches_the_cpu_plain_path(cuda_device):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16)
-    for dt in (torch.bfloat16, torch.float16, torch.float32):
-        wide = torch.zeros(2, 64, 257, device=cuda_device, dtype=dt)
-        with pytest.raises(ValueError, match="head dim 257 above 256"):
-            fa.flash_fwd(wide, wide, wide, scale=1.0, causal=True)
+    # every head dim above 256 runs, on the wide kernels (zero-padded to a
+    # multiple of 256), in every dtype, and equals the plain version
+    gen = torch.Generator(device=cuda_device).manual_seed(257)
+    rules = {torch.bfloat16: _close, torch.float16: _close_f16, torch.float32: _close_f32}
+    for dt, close in rules.items():
+        for d in (257, 320, 512, 1024):
+            x = [torch.randn(2, 192, d, generator=gen, device=cuda_device).to(dt)
+                 for _ in range(4)]
+            kw = dict(scale=d ** -0.5, causal=True)
+            o, lse = fa.flash_fwd(*x[:3], 32, 0, **kw)
+            o_ref, lse_ref = fa.flash_fwd_plain(*x[:3], 32, 0, **kw)
+            corr = (-(o_ref.float() * x[3].float()).sum(-1)).contiguous()
+            got = [o, *fa.flash_dkv(*x, lse_ref, corr, 32, 0, **kw),
+                   fa.flash_dq(*x, lse_ref, corr, 32, 0, **kw)]
+            want = [o_ref, *fa.flash_dkv_plain(*x, lse_ref, corr, 32, 0, **kw),
+                    fa.flash_dq_plain(*x, lse_ref, corr, 32, 0, **kw)]
+            for a, b in zip(got, want):
+                assert a.shape == b.shape == x[0].shape and a.dtype == dt
+                close(a, b)
+            assert (lse - lse_ref).abs().max() <= (2e-5 if dt == torch.float32 else 1e-3)
     with pytest.raises(ValueError, match="bf16, float16 or float32"):
         fa.flash_fwd(q.double(), q.double(), q.double(), scale=1.0, causal=True)
     with pytest.raises(ValueError, match="bf16, float16 or float32"):
@@ -354,9 +371,11 @@ def test_f32_fwd_dkv_and_dq_run_on_tf32_tensor_cores(cuda_device):
     if funcs is None:
         pytest.skip("cuobjdump not found")
     tf32 = re.compile(r"\bHMMA\.\w+\.F32\.TF32\b|\bHGMMA\.\S*TF32")
-    for kernel in ("fwd_f32_kernel", "dkv_f32_kernel", "dq_f32_kernel"):
+    for kernel, n in (("fwd_f32_kernel", 3), ("dkv_f32_kernel", 3), ("dq_f32_kernel", 3),
+                      ("fwd_wide_f32_kernel", 1), ("dkv_wide_f32_kernel", 1),
+                      ("dq_wide_f32_kernel", 1)):
         bodies = [body for name, body in funcs.items() if kernel in name]
-        assert len(bodies) == 3, sorted(funcs)  # D = 64, 128 and 256
+        assert len(bodies) == n, sorted(funcs)  # D = 64, 128 and 256; the wide one above
         for body in bodies:
             n_tf32 = len(tf32.findall(body))
             assert 0 < n_tf32 and len(re.findall(r"\bFFMA\b", body)) < n_tf32, kernel

@@ -166,10 +166,10 @@ def test_f32_route_matches_pallas_kernel_in_f32(case):
 
 
 def test_check_takes_f32_or_bf16_of_one_dtype():
-    """The wrappers' check accepts f32, bf16 and f16 inputs up to head dim
-    256 in every dtype (each dtype has its kernels at 64, 128 and 256) and
-    q, k, v and dO of mixed dtypes among them (they run the kernel of their
-    promoted dtype); it rejects a head dim above 256 in every dtype and any
+    """The wrappers' check accepts f32, bf16 and f16 inputs of every head
+    dim in every dtype (each dtype has its kernels at 64, 128 and 256, and
+    its wide kernels above 256) and q, k, v and dO of mixed dtypes among
+    them (they run the kernel of their promoted dtype); it rejects any
     other dtype, alone or beside a kernel's."""
     lse = torch.zeros(2, 64)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -178,9 +178,9 @@ def test_check_takes_f32_or_bf16_of_one_dtype():
         assert fa._check("flash_dkv", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 64)
         q = torch.zeros(2, 64, 256, dtype=dt)
         assert fa._check("flash_dq", q, q, q, (q,), (lse, lse)) == (2, 64, 64, 256)
-        q = torch.zeros(2, 64, 257, dtype=dt)
-        with pytest.raises(ValueError, match="head dim 257 above 256"):
-            fa._check("flash_fwd", q, q, q)
+        for d in (257, 320, 512, 1024):
+            q = torch.zeros(2, 64, d, dtype=dt)
+            assert fa._check("flash_fwd", q, q, q) == (2, 64, 64, d)
     q = torch.zeros(2, 64, 256)
     assert fa._check("flash_fwd", q, q.bfloat16(), q) == (2, 64, 64, 256)
     assert fa._check("flash_dq", q.half(), q.bfloat16(), q, (q.half(),),

@@ -264,7 +264,8 @@ def test_device_idle_share_reads_the_union_of_device_intervals():
 
 def test_profile_sums_each_flash_kernel_outside_the_top_rows():
     """Each flash kernel's device ms and launches are summed over its head
-    dims and its bf16, f16 and f32 instances, however far down the kernel
+    dims (the wide kernels above 256 too) and its bf16, f16 and f32
+    instances, however far down the kernel
     list it falls; GEMM rows are summed apart, FFMA from tensor-core."""
     from types import SimpleNamespace
 
@@ -279,7 +280,9 @@ def test_profile_sums_each_flash_kernel_outside_the_top_rows():
         ("void (anonymous namespace)::fwd_kernel<64>(CUtensorMap_st)", 1000.0),
         ("void (anonymous namespace)::fwd_kernel<128>(CUtensorMap_st)", 500.0),
         ("void (anonymous namespace)::dq_f32_kernel<64>(float const*, float const*)", 250.0),
-        ("void (anonymous namespace)::fwd_f32_kernel<128>(float const*)", 125.0)]
+        ("void (anonymous namespace)::fwd_f32_kernel<128>(float const*)", 125.0),
+        ("void (anonymous namespace)::fwd_wide_kernel<__nv_bfloat16>(CUtensorMap_st)", 375.0),
+        ("void (anonymous namespace)::dq_wide_f32_kernel(CUtensorMap_st)", 250.0)]
 
     class Prof:
         def key_averages(self):
@@ -292,7 +295,7 @@ def test_profile_sums_each_flash_kernel_outside_the_top_rows():
 
     out = profiling.device_profile(Prof(), 1.0, top=2)
     assert len(out["top"]) == 2
-    assert out["flash_ms_launches"] == {"fwd": [1.625, 6], "dkv": [2.75, 4], "dq": [0.25, 2]}
+    assert out["flash_ms_launches"] == {"fwd": [2.0, 8], "dkv": [2.75, 4], "dq": [0.5, 4]}
     assert out["gemm_ms_launches"] == {"ffma": [4.0, 2], "other": [30.0, 8]}
 
 

@@ -1,10 +1,10 @@
 """The reference example's own model on the port: ``llama_pretrain --hidden H
 --vocab V`` builds ``LlamaLM(vocab V, hidden H, layers, heads 4, dff 3H)``
 as ``examples/jax_llama_pretrain.py`` does, whose head dim at ``--hidden
-1024`` is 256, above the 128 the flash kernels took before.  One layer of
-it at vocab 64, T 64, flash attention on both sides, the weights carried
-across by ``interop.jax_weights``: the loss and every gradient against the
-JAX package.  Then the entry point end to end on the CPU."""
+1024`` is 256 and at ``--hidden 2048`` 512.  One layer of it at vocab 64,
+T 64, flash attention on both sides, the weights carried across by
+``interop.jax_weights``: the loss and every gradient against the JAX
+package.  Then the entry point end to end on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +42,19 @@ def test_hidden_flag_builds_the_reference_example_model():
 
 
 def test_reference_model_at_hidden_1024_matches_the_jax_package():
+    _held_to_the_jax_package(HIDDEN)
+
+
+def test_reference_model_at_hidden_2048_matches_the_jax_package():
+    """``--hidden 2048``: D = 512, above 256, where the card runs the wide
+    flash kernels."""
+    _held_to_the_jax_package(2048)
+
+
+def _held_to_the_jax_package(hidden):
+    cfg = dict(CFG, hidden_size=hidden, dff=3 * hidden)
     ids = np.random.default_rng(0).integers(0, VOCAB, size=(2, T))
-    jmodel = JaxLlama(**CFG, dtype=jnp.float32,
+    jmodel = JaxLlama(**cfg, dtype=jnp.float32,
                       attention_fn=jax_flash_fn(block_q=32, block_k=32, interpret=True))
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, T), jnp.int32))["params"]
 
@@ -53,7 +64,7 @@ def test_reference_model_at_hidden_1024_matches_the_jax_package():
             logits[:, :-1], jnp.asarray(ids)[:, 1:]).mean()
 
     want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
-    model = LlamaLM(**CFG, dtype=torch.float32, device="cpu",
+    model = LlamaLM(**cfg, dtype=torch.float32, device="cpu",
                     attention_fn=make_flash_attention_fn())
     model.load_state_dict(llama_state_dict(jax.tree_util.tree_map(np.asarray, params), LAYERS))
     t_ids = torch.from_numpy(ids)
